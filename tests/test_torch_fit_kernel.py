@@ -1,0 +1,146 @@
+"""The moment-assembly kernel's plain version, on the CPU.
+
+Held to the JAX f64 engine at 1e-10 (the repo's parity bar: the moment
+form and the basis-row form round differently, by ~cond * eps), and to
+the JAX TPU kernel run as its own tests run it — the Pallas interpreter on
+XLA:CPU, in f32-pair arithmetic — at that test's f32-grade 5e-6
+(tests/test_pallas_fit.py:84).  The CUDA kernel itself is tested on the card
+by tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_cases import cloud, rel_err
+from wlsqm_tpu.fitter import engine as jengine
+from wlsqm_tpu.ops.pallas_fit import fit_pallas
+from wlsqm_tpu_torch.fitter import defs
+from wlsqm_tpu_torch.ops import fit_kernel
+
+torch.set_num_threads(1)
+
+PARITY = 1e-10
+
+
+def _t(case):
+    return [torch.as_tensor(case[k]) for k in ("xk", "fk", "nk", "xi")]
+
+
+def _jax_engine(case, order):
+    B = len(case["nk"])
+    NO = defs.number_of_dofs(2, order)
+    fi, *_ = jengine.fit_batch(
+        *(jnp.asarray(case[k]) for k in ("xk", "fk", "nk", "xi")),
+        jnp.zeros((B, NO)), jnp.full((B,), order, jnp.int32),
+        jnp.zeros((B,), jnp.int64), jnp.asarray(case["weighting"]),
+        dimension=2, NO=NO)
+    return np.asarray(fi)
+
+
+@pytest.mark.parametrize("weighting", [defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER])
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+def test_plain_matches_jax_engine(order, weighting):
+    rng = np.random.default_rng(10 * order + weighting)
+    case = cloud(rng, 256, 30, 2, orders=(order,), weightings=(weighting,),
+                 radius=(0.01, 1.0))
+    got = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=order,
+                                       weighting=weighting).numpy()
+    assert np.isfinite(got).all()
+    assert rel_err(got, _jax_engine(case, order)) <= PARITY
+
+
+@pytest.mark.parametrize("weighting", [defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER])
+def test_degenerate_neighborhood_is_guarded(weighting):
+    """h² = 0 (every neighbor at xi): order 0 is the weighted mean, as in
+    the engine; above it the f64 engine's Cholesky fails (NaN) while the
+    TPU kernel's pivot guard gives the mean and zero derivatives — the
+    port follows the kernel."""
+    rng = np.random.default_rng(3)
+    case = cloud(rng, 8, 30, 2, orders=(0,), weightings=(weighting,))
+    case["xk"][:] = np.where(np.isnan(case["xk"]), np.nan, case["xi"][:, None, :])
+    mean = np.nanmean(case["fk"], axis=1)    # both weightings are 1 at d = 0
+    got0 = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=0,
+                                        weighting=weighting).numpy()
+    assert rel_err(got0, _jax_engine(case, 0)) <= PARITY
+    np.testing.assert_allclose(got0[:, 0], mean, rtol=1e-14)
+    got = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=4,
+                                       weighting=weighting).numpy()
+    np.testing.assert_allclose(got[:, 0], mean, rtol=1e-14)
+    assert (got[:, 1:] == 0).all()
+
+
+def test_plain_matches_interpreted_tpu_kernel():
+    rng = np.random.default_rng(11)
+    B, K, order = 256, 24, 2
+    case = cloud(rng, B, K, 2, orders=(order,), weightings=(defs.WEIGHT_CENTER,),
+                 radius=(0.01, 1.0))
+    case["xk"][:2] = np.where(np.isnan(case["xk"][:2]), np.nan,
+                              case["xi"][:2, None, :])   # two h² = 0 cases
+    ref = np.asarray(fit_pallas(
+        *(jnp.asarray(case[k]) for k in ("xk", "fk", "nk", "xi")), dimension=2,
+        order=order, weighting=defs.WEIGHT_CENTER, interpret=True, tile_s=2,
+        refine_steps=2, assembly="moments"))
+    got = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=order,
+                                       weighting=defs.WEIGHT_CENTER).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 5e-6
+
+
+@pytest.mark.parametrize("dim,order", [(1, 4), (3, 2), (3, 4)])
+def test_plain_covers_other_dimensions(dim, order):
+    rng = np.random.default_rng(dim + order)
+    K = {1: 12, 3: 56}[dim]
+    case = cloud(rng, 128, K, dim, orders=(order,), weightings=(1, 2),
+                 radius=(0.3, 1.0))
+    B = 128
+    NO = defs.number_of_dofs(dim, order)
+    ref, *_ = jengine.fit_batch(
+        *(jnp.asarray(case[k]) for k in ("xk", "fk", "nk", "xi")),
+        jnp.zeros((B, NO)), jnp.full((B,), order, jnp.int32),
+        jnp.zeros((B,), jnp.int64), jnp.asarray(case["weighting"]),
+        dimension=dim, NO=NO)
+    for wm in (1, 2):
+        sel = case["weighting"] == wm
+        sub = {k: case[k][sel] for k in ("xk", "fk", "nk", "xi")}
+        got = fit_kernel.fit_moments_plain(*_t(sub), dimension=dim, order=order,
+                                           weighting=wm).numpy()
+        assert rel_err(got, np.asarray(ref)[sel]) <= PARITY
+
+
+def test_fit_kernel_on_cpu_runs_the_plain_version():
+    rng = np.random.default_rng(12)
+    case = cloud(rng, 64, 30, 2)
+    before = fit_kernel.LAUNCHES
+    a = fit_kernel.fit_kernel(*_t(case), dimension=2, order=4,
+                              weighting=defs.WEIGHT_CENTER)
+    b = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=4,
+                                     weighting=defs.WEIGHT_CENTER)
+    assert torch.equal(a, b)
+    assert fit_kernel.LAUNCHES == before
+
+
+def test_refine_steps_converge():
+    """More sweeps move the answer toward the engine, never away."""
+    rng = np.random.default_rng(13)
+    case = cloud(rng, 256, 30, 2, radius=(0.01, 1.0))
+    ref = _jax_engine(case, 4)
+    errs = [rel_err(fit_kernel.fit_moments_plain(
+        *_t(case), dimension=2, order=4, weighting=defs.WEIGHT_CENTER,
+        refine_steps=r).numpy(), ref) for r in (0, 1, 2)]
+    assert errs[1] <= PARITY and errs[2] <= PARITY
+    assert errs[1] <= errs[0] * 1.5
+
+
+def test_supported_predicate():
+    S = fit_kernel.supported
+    assert S(2, 4, 0, defs.WEIGHT_CENTER)
+    assert S(2, np.full(4, 0), np.zeros(4), np.full(4, defs.WEIGHT_UNIFORM))
+    assert not S(3, 4, 0, defs.WEIGHT_CENTER)
+    assert not S(1, 2, 0, defs.WEIGHT_CENTER)
+    assert not S(2, np.array([2, 3]), 0, 1)
+    assert not S(2, 2, defs.b2_F, 1)
+    assert not S(2, 2, 0, np.array([1, 2]))
+    assert not S(2, 2, 0, 3)
+    assert not S(2, 2, 0, 1, do_sens=True)
+    assert not S(2, 2, 0, 1, iterative=True)

@@ -1,0 +1,40 @@
+"""Package boundary of the port: it imports without JAX."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, wlsqm_tpu_torch, wlsqm_tpu_torch.ops.fit_kernel, "
+            "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.native; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'wlsqm_tpu' not in sys.modules; print('ok')")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_public_names():
+    import wlsqm_tpu_torch as wtt
+
+    for name in ("fit", "fit_many", "plan_fit_many", "FitPlan", "FitResult",
+                 "Prepared", "WEIGHT_CENTER", "number_of_dofs", "i2_X4", "b3_XYZ2"):
+        assert hasattr(wtt, name), name
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """Without CUDA the smoke run exits non-zero and prints no result."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke run would really run")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""

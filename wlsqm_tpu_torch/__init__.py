@@ -1,0 +1,29 @@
+"""wlsqm_tpu_torch — the WLSQM fitter in PyTorch, with CUDA kernels for Hopper.
+
+A port of :mod:`wlsqm_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100;
+the JAX package stays the reference.  For each reference point xi, a local
+polynomial surrogate of order 0-4 is fitted over a neighborhood by
+weighted least squares; the solved DOFs equal the function value and all
+partial derivatives of the surrogate at xi.  Everything computes in
+float64, which the H100 runs natively.
+
+This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
+
+* :mod:`~wlsqm_tpu_torch.api` — ``fit``, ``fit_many``, ``plan_fit_many``;
+* :mod:`~wlsqm_tpu_torch.fitter.engine` — the batched f64 engine and
+  ``Prepared``;
+* :mod:`~wlsqm_tpu_torch.ops.fit_kernel` — the moment-assembly kernel
+  (CUDA source in ``csrc/``, built with nvcc at first use by
+  :mod:`~wlsqm_tpu_torch.native`) and its plain torch version.
+"""
+
+from wlsqm_tpu_torch import config  # noqa: F401  (TF32 off)
+from wlsqm_tpu_torch.fitter.defs import *  # noqa: F401,F403  constants + number_of_dofs
+from wlsqm_tpu_torch.api import (  # noqa: F401
+    fit,
+    fit_many,
+    plan_fit_many,
+    FitPlan,
+    FitResult,
+)
+from wlsqm_tpu_torch.fitter.engine import Prepared  # noqa: F401

@@ -1,0 +1,63 @@
+"""Carry prepared state across from the JAX package.
+
+WLSQM has no learned weights: the state worth carrying over is the
+prepared geometry of an expert-mode solve (basis rows, weights, scalings
+and the Cholesky factor).  :func:`prepared_from_numpy` builds this
+package's :class:`~wlsqm_tpu_torch.fitter.engine.Prepared` from the fields
+of a JAX ``Prepared`` turned into NumPy arrays, so that
+``solve_prepared`` computes the same thing in both packages.  Nothing here
+imports JAX: the caller does the conversion, e.g.
+``{f.name: np.asarray(getattr(prep, f.name)) for f in fields(prep)}`` with
+``fac`` given as its tuple of arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from wlsqm_tpu_torch import config
+from wlsqm_tpu_torch.fitter import engine
+
+_BOOL = ("active", "known", "unknown")
+_INT = ("ruiz_iters",)
+
+
+def prepared_from_numpy(fields: dict, *, dimension: int, solver: str,
+                        precision: str, device=None) -> engine.Prepared:
+    """A port ``Prepared`` from a dict of NumPy arrays, on ``device``.
+
+    fields: every tensor field of :class:`engine.Prepared` by name; ``fac``
+    is an array or a tuple/list of arrays.  Keys of JAX-only fields (the
+    emulated-precision parts: ``c_lo``, ``w_lo``, ``A_scaled``,
+    ``dof_scale``) are accepted only when they hold None.  Only
+    ``precision="f64"`` state exists in this package.
+    """
+    if precision != engine.PRECISION_F64:
+        raise ValueError("only precision='f64' state can be carried over; got %r"
+                         % (precision,))
+    device = config.resolve_device(device)
+    names = [f.name for f in dataclasses.fields(engine.Prepared)
+             if f.name not in ("dimension", "solver")]
+    extra = {k for k, v in fields.items() if k not in names and v is not None}
+    if extra:
+        raise ValueError("fields %s have no counterpart at precision f64" % sorted(extra))
+    missing = [n for n in names if fields.get(n) is None]
+    if missing:
+        raise ValueError("missing Prepared fields %s" % missing)
+
+    def conv(name, a):
+        a = np.asarray(a)
+        if name in _BOOL:
+            return torch.as_tensor(a.astype(bool), device=device)
+        if name in _INT:
+            return torch.as_tensor(a.astype(np.int32), device=device)
+        return config.as_tensor(a, device)
+
+    kw = {n: conv(n, fields[n]) for n in names if n != "fac"}
+    fac = fields["fac"]
+    fac = tuple(fac) if isinstance(fac, (tuple, list)) else (fac,)
+    kw["fac"] = tuple(config.as_tensor(np.asarray(f), device) for f in fac)
+    return engine.Prepared(dimension=dimension, solver=solver, **kw)
