@@ -9,6 +9,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     code = ("import sys, wlsqm_tpu_torch, wlsqm_tpu_torch.ops.fit_kernel, "
+            "wlsqm_tpu_torch.ops.fit_rows, "
             "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.native; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wlsqm_tpu' not in sys.modules; print('ok')")

@@ -13,8 +13,15 @@ This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
 * :mod:`~wlsqm_tpu_torch.fitter.engine` — the batched f64 engine and
   ``Prepared``;
 * :mod:`~wlsqm_tpu_torch.ops.fit_kernel` — the moment-assembly kernel
-  (CUDA source in ``csrc/``, built with nvcc at first use by
-  :mod:`~wlsqm_tpu_torch.native`) and its plain torch version.
+  (dim 2, basic, no knowns) and its plain torch version;
+* :mod:`~wlsqm_tpu_torch.ops.fit_rows` — the rows-body kernel (dims 1-3,
+  knowns, sensitivities, ALGO_ITERATIVE), its plain torch version and
+  ``fit_rows_diffable``.
+
+The CUDA sources are in ``csrc/``, built with nvcc at first use by
+:mod:`~wlsqm_tpu_torch.native`.  Without ``device=``, the entry points
+compute on the CUDA card and raise where there is none; ``device="cpu"``
+computes on the CPU.
 """
 
 from wlsqm_tpu_torch import config  # noqa: F401  (TF32 off)

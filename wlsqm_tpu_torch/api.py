@@ -1,20 +1,26 @@
 """Functional PyTorch API for wlsqm_tpu_torch: ``fit_many`` and its plan.
 
-Port of the headline-fit subset of :mod:`wlsqm_tpu.api`.  Typical flow::
+Port of the fit subset of :mod:`wlsqm_tpu.api`.  Typical flow::
 
     import wlsqm_tpu_torch as wtt
 
     plan = wtt.plan_fit_many(xk[:32768], xi[:32768], order=4,
-                             weighting=wtt.WEIGHT_CENTER)
+                             weighting=wtt.WEIGHT_CENTER, do_sens=True)
     res = wtt.fit_many(xk, fk, xi, order=4, weighting=wtt.WEIGHT_CENTER,
-                       plan=plan)
-    res.fi                                 # (B, NO) derivative DOFs
+                       do_sens=True, plan=plan)
+    res.fi, res.sens                       # (B, NO) DOFs, (B, K, NO) d fi / d fk
 
-Routing is by configuration: a homogeneous group the moment kernel covers
-(:func:`wlsqm_tpu_torch.ops.fit_kernel.supported`) runs on it — the CUDA
-kernel for CUDA tensors, its plain torch version for CPU tensors — and
-everything else runs ONE f64 engine call.  There is no conditioning probe
-and no precision ladder: every route computes in f64.
+Routing is by configuration: a homogeneous group with enough neighbours
+runs on a kernel — the moment kernel
+(:func:`wlsqm_tpu_torch.ops.fit_kernel.supported`: dim 2, basic, no
+knowns) where it covers the group, else the rows kernel
+(:func:`wlsqm_tpu_torch.ops.fit_rows.supported`: dims 1-3, knowns,
+sensitivities, ALGO_ITERATIVE) — the CUDA kernel for CUDA tensors, its
+plain torch version for CPU tensors; everything else runs ONE f64 engine
+call.  There is no conditioning probe and no precision ladder: every route
+computes in f64.  Without ``device=``, NumPy input and CPU tensors go to
+the card, and a machine without one raises (``device="cpu"`` runs on the
+CPU).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from wlsqm_tpu_torch import config
 from wlsqm_tpu_torch.fitter import defs, engine, ladder
-from wlsqm_tpu_torch.ops import fit_kernel
+from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
 
 __all__ = ["FitResult", "FitPlan", "fit", "fit_many", "plan_fit_many"]
@@ -71,24 +77,48 @@ class FitResult:
         return torch.isfinite(self.fi).all(dim=-1)
 
 
-def _run_kernel_group(xk, fk, nk, xi, *, dim, order, weighting, refine_steps):
-    """Run one homogeneous group through the moment kernel; fi (B, no_g)."""
+def _assembly(dim, order, knowns, weighting, do_sens, iterative, want=None):
+    """The kernel body for a homogeneous group: "moments" where the moment
+    kernel covers it, else "rows" where the rows kernel does, else None.
+    ``want`` (a plan's ``route.assembly``) restricts the choice to one body."""
+    if want in (None, "moments") and fit_kernel.supported(
+            dim, order, knowns, weighting, do_sens=do_sens, iterative=iterative):
+        return "moments"
+    if want in (None, "rows") and fit_rows.supported(dim, order, knowns, weighting):
+        return "rows"
+    return None
+
+
+def _run_kernel_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
+                      assembly, refine_steps, do_sens, iterative, max_iter):
+    """Run one homogeneous group through a kernel body ("moments" or "rows").
+
+    Returns (fi (B, no_g), iters (B,), sens (B, K, no_g) | None).
+    """
     rs = fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None else refine_steps
-    return fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order,
-                                 weighting=weighting, refine_steps=rs)
+    if assembly == "moments":
+        fi = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order,
+                                   weighting=weighting, refine_steps=rs)
+        return fi, torch.zeros(xk.shape[0], dtype=torch.int32, device=fi.device), None
+    return fit_rows.fit_rows(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
+                             weighting=weighting, knowns=knowns, refine_steps=rs,
+                             do_sens=do_sens, max_iter=max_iter if iterative else 0)
 
 
-def _embed_kernel_result(fi_g, fi_init, B, NO, dim, order) -> FitResult:
+def _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO, dim, order) -> FitResult:
     """Embed a kernel group result (no_g DOFs) into the caller's NO-column
-    layout, keeping ``fi_init`` values on the inactive trailing DOFs."""
+    layout, keeping ``fi_init`` values on the inactive trailing DOFs and
+    zero sensitivities there (the engine's convention)."""
     no_g = defs.number_of_dofs(dim, order)
     fi = fi_g
     if no_g < NO:
         tail = (fi.new_zeros((B, NO - no_g)) if fi_init is None
                 else fi_init[:, no_g:NO])
         fi = torch.cat([fi, tail], dim=1)
-    return FitResult(fi=fi, sens=None,
-                     iterations=torch.zeros(B, dtype=torch.int32, device=fi.device),
+        if sens is not None:
+            sens = torch.cat([sens, sens.new_zeros(sens.shape[:2] + (NO - no_g,))],
+                             dim=2)
+    return FitResult(fi=fi, sens=sens, iterations=iters,
                      cond_scaled=torch.full((B,), torch.nan, dtype=fi.dtype,
                                             device=fi.device))
 
@@ -189,15 +219,19 @@ def fit_many(
     order / knowns / weighting: scalars or (B,) arrays (scalars broadcast)
     fi_init: (B, NO) initial DOF array carrying the known values; zeros if None
     precision: None or "f64" (every route computes in f64).
-    backend: "auto" (default — per-(order, knowns, weighting) groups that
-        the moment kernel covers run on it, the rest in ONE engine call),
-        "kernel" (force the kernel; homogeneous batches it covers only) or
-        "engine" (the batched f64 engine).  The JAX package's names
-        "pallas" and "xla" are accepted for the last two.
+    backend: "auto" (default — per-(order, knowns, weighting) groups with
+        K >= 1.5 NO run on a kernel, the moment kernel where it covers the
+        group, else the rows kernel; the rest in ONE engine call), "kernel"
+        (force a kernel; homogeneous batches only, any K) or "engine" (the
+        batched f64 engine).  The JAX package's names "pallas" and "xla"
+        are accepted for the last two.
     refine_steps: residual sweeps of the kernel (default 1).
-    plan: a :class:`FitPlan` from :func:`plan_fit_many`; replays its route.
+    plan: a :class:`FitPlan` from :func:`plan_fit_many`; replays its route,
+        kernel body included.
     device: where to compute; defaults to ``xk``'s device when it is a
-        tensor, else CUDA when present, else the CPU.
+        CUDA tensor, else the card: NumPy input and CPU tensors are moved
+        there, and with no card the call raises.  ``device="cpu"`` computes
+        on the CPU.
 
     Returns a :class:`FitResult` of tensors on that device.
     """
@@ -232,22 +266,31 @@ def fit_many(
             raise ValueError("fi_init must have shape (B, >=NO) = (%d, >=%d); got %s"
                              % (B, NO, tuple(fi_init.shape)))
 
+    want = None
     if plan is not None:
         backend = "kernel" if plan.route.path == "kernel" else "engine"
+        want = plan.route.assembly
         if refine_steps is None:
             refine_steps = plan.route.refine_steps
 
     if backend == "kernel":
         o, kn, wm = (_homogeneous(v, device) for v in (order, knowns, weighting))
-        if debug or None in (o, kn, wm) or not fit_kernel.supported(
-                dim, o, kn, wm, do_sens=do_sens, iterative=iterative):
+        assembly = (None if debug or None in (o, kn, wm)
+                    else _assembly(dim, o, kn, wm, do_sens, iterative, want))
+        if assembly is None:
             raise ValueError(
-                "backend='kernel' requires a homogeneous batch the moment kernel "
-                "covers (dim 2, one order and weighting, no knowns, basic "
-                "algorithm, no sens, no debug); use backend='auto' or 'engine'")
-        fi_g = _run_kernel_group(xk, fk, nk, xi, dim=dim, order=o, weighting=wm,
-                                 refine_steps=refine_steps)
-        return _embed_kernel_result(fi_g, fi_init, B, NO, dim, o)
+                "backend='kernel' requires a homogeneous batch (one order, knowns "
+                "mask and weighting, UNIFORM or CENTER, no debug) that a kernel "
+                "covers: the moment kernel takes dim 2 with no knowns, the basic "
+                "algorithm and no sens; the rows kernel takes dims 1-3, orders "
+                "0-4, knowns, sens and ALGO_ITERATIVE%s; use backend='auto' or "
+                "'engine'" % ("" if want is None else
+                              " (this plan replays the %s kernel)" % want))
+        fi_g, it_g, sens_g = _run_kernel_group(
+            xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
+            assembly=assembly, refine_steps=refine_steps, do_sens=do_sens,
+            iterative=iterative, max_iter=max_iter)
+        return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
 
     order_a = _broadcast_case_param(order, B, torch.int32, device)
     knowns_a = _broadcast_case_param(knowns, B, torch.int64, device)
@@ -279,8 +322,8 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
 
     Groups the batch by (order, knowns, weighting) — ``groups`` holds the
     one group of a scalar configuration, else the groups are found on the
-    device.  Each group the moment kernel covers runs on it; everything else
-    merges into ONE engine call.
+    device.  Each group with K >= 1.5 NO that a kernel covers runs on it
+    (:func:`_assembly`); everything else merges into ONE engine call.
     """
     if groups is None:
         keys = torch.stack([order_a.long(), knowns_a, weighting_a.long()], dim=1)
@@ -288,24 +331,35 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
     whole = len(groups) == 1
 
     fi_out = xk.new_zeros((B, NO)) if fi_init is None else fi_init[:, :NO].clone()
+    iters_out = torch.zeros(B, dtype=torch.int32, device=xk.device)
+    sens_out = None
     leftover = torch.ones(B, dtype=torch.bool, device=xk.device)
     for o, kn, wm in groups:
-        if not (_kernel_shape_ok(K, dim, o)
-                and fit_kernel.supported(dim, o, kn, wm, do_sens=do_sens,
-                                         iterative=iterative)):
+        assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
+                    if _kernel_shape_ok(K, dim, o) else None)
+        if assembly is None:
             continue
-        kw = dict(dim=dim, order=o, weighting=wm, refine_steps=refine_steps)
+        kw = dict(dim=dim, order=o, knowns=kn, weighting=wm, assembly=assembly,
+                  refine_steps=refine_steps, do_sens=do_sens, iterative=iterative,
+                  max_iter=max_iter)
         if whole:
-            fi_g = _run_kernel_group(xk, fk, nk, xi, **kw)
-            return _embed_kernel_result(fi_g, fi_init, B, NO, dim, o)
+            fi_g, it_g, sens_g = _run_kernel_group(xk, fk, nk, xi, fi_init, **kw)
+            return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
         mask = (order_a == o) & (knowns_a == kn) & (weighting_a == wm)
         sel = mask.nonzero().squeeze(1)
-        fi_g = _run_kernel_group(xk[sel], fk[sel], nk[sel], xi[sel], **kw)
+        fi_g, it_g, sens_g = _run_kernel_group(
+            xk[sel], fk[sel], nk[sel], xi[sel],
+            None if fi_init is None else fi_init[sel], **kw)
         fi_out[sel, :fi_g.shape[1]] = fi_g
+        iters_out[sel] = it_g
+        if do_sens:
+            if sens_out is None:
+                sens_out = xk.new_zeros((B, K, NO))
+            sens_out[sel, :, :sens_g.shape[2]] = sens_g
         leftover &= ~mask
 
-    iters_out = torch.zeros(B, dtype=torch.int32, device=xk.device)
-    sens_out = xk.new_zeros((B, K, NO)) if do_sens else None
+    if do_sens and sens_out is None:
+        sens_out = xk.new_zeros((B, K, NO))
     if bool(leftover.any()):
         rest = leftover.nonzero().squeeze(1)
         fi_r, sens_r, iters_r, _ = engine.fit_batch(
@@ -339,13 +393,14 @@ def plan_fit_many(
 ) -> FitPlan:
     """A static :class:`FitPlan` for a homogeneous configuration.
 
-    ``order``/``knowns``/``weighting`` must be scalars.  The route is
-    ``Route(path="kernel", kernel_precision="f64", assembly="moments")``
-    when the moment kernel covers the configuration — on a CPU tensor the
-    kernel route runs its plain torch version — and
-    ``Route(path="xla", precision="f64")`` (the engine) otherwise.  Only
-    the shapes of ``xk`` are read; ``nk`` is accepted for the JAX
-    package's signature.
+    ``order``/``knowns``/``weighting`` must be scalars.  With K >= 1.5 NO
+    the route is ``Route(path="kernel", kernel_precision="f64",
+    assembly=...)``: "moments" when the moment kernel covers the
+    configuration, else "rows" when the rows kernel does (knowns, dims 1
+    and 3, ``do_sens``, ``iterative``) — on a CPU tensor a kernel route
+    runs its plain torch version.  Otherwise it is
+    ``Route(path="xla", precision="f64")`` (the engine).  Only the shapes
+    of ``xk`` are read; ``nk`` is accepted for the JAX package's signature.
     """
     scalars = tuple(_scalar(v) for v in (order, knowns, weighting))
     for name, s in zip(("order", "knowns", "weighting"), scalars):
@@ -358,10 +413,11 @@ def plan_fit_many(
     device = config.resolve_device(device, xk)
     xk, _, _, K, dim = _canon_geometry(xk, xi, device)
     o, kn, wm = scalars
-    if _kernel_shape_ok(K, dim, o) and fit_kernel.supported(
-            dim, o, kn, wm, do_sens=do_sens, iterative=iterative):
+    assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
+                if _kernel_shape_ok(K, dim, o) else None)
+    if assembly is not None:
         return FitPlan(route=ladder.Route(
-            path="kernel", kernel_precision="f64", assembly="moments",
+            path="kernel", kernel_precision="f64", assembly=assembly,
             refine_steps=(fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None
                           else refine_steps)))
     return FitPlan(route=ladder.Route(path="xla", precision=engine.PRECISION_F64))

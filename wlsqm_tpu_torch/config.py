@@ -22,16 +22,26 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device() -> torch.device:
-    """The device used when a caller passes none: CUDA when present."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device used when a caller passes none: the CUDA card.
+
+    Raises when there is none: the package never moves to the CPU on its
+    own.  A CPU run asks for it with ``device="cpu"``.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "wlsqm_tpu_torch computes on a CUDA device by default and none is "
+            "available; pass device='cpu' to compute on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(device, *tensors) -> torch.device:
-    """An explicit ``device``, else the first tensor's, else the default."""
+    """An explicit ``device``, else the first CUDA tensor's device, else the
+    card (:func:`default_device`).  NumPy arrays and CPU tensors go to the
+    card: only ``device="cpu"`` computes on the CPU."""
     if device is not None:
         return torch.device(device)
     for t in tensors:
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
             return t.device
     return default_device()
 

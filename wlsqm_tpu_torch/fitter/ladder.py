@@ -18,10 +18,10 @@ import dataclasses
 class Route:
     """A hashable execution-path decision for one batch or bucket.
 
-    path: "kernel" (the fused moment-assembly kernel, in
-    ``kernel_precision`` arithmetic — always "f64" in this package) or
-    "xla" (the engine at ``precision``; the name is the JAX package's, kept
-    so that a plan reads the same in both).
+    path: "kernel" (a fused kernel, in ``kernel_precision`` arithmetic —
+    always "f64" in this package — with the body named by ``assembly``:
+    "moments" or "rows") or "xla" (the engine at ``precision``; the name is
+    the JAX package's, kept so that a plan reads the same in both).
     """
 
     path: str

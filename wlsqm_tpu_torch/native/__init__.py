@@ -45,7 +45,7 @@ class Library:
     log: str               # nvcc's output (the ptxas resource report)
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()   # guards _loaded; never held across an nvcc run
 _loaded: dict[str, Library] = {}
 
 
@@ -64,7 +64,7 @@ def nvcc() -> str:
 
 
 def _write(path: str, text: str) -> None:
-    tmp = "%s.tmp%d" % (path, os.getpid())
+    tmp = "%s.tmp%d.%d" % (path, os.getpid(), threading.get_ident())
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
@@ -76,45 +76,47 @@ def build(name: str, sources: list[str], headers: dict[str, str],
 
     headers: file name -> text, written into the build directory, which is
     on the include path.  signatures: C function name -> (restype,
-    argtypes), set on the loaded library.
+    argtypes), set on the loaded library.  No lock is held while nvcc runs,
+    so builds of different libraries started from threads run at once.
     """
+    compiler = nvcc()
+    key = hashlib.sha256()
+    for part in [compiler, " ".join(NVCC_FLAGS)]:
+        key.update(part.encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            key.update(f.read())
+    for fname in sorted(headers):
+        key.update(fname.encode() + headers[fname].encode())
+    digest = key.hexdigest()[:16]
     with _lock:
-        compiler = nvcc()
-        key = hashlib.sha256()
-        for part in [compiler, " ".join(NVCC_FLAGS)]:
-            key.update(part.encode())
-        for src in sources:
-            with open(src, "rb") as f:
-                key.update(f.read())
-        for fname in sorted(headers):
-            key.update(fname.encode() + headers[fname].encode())
-        digest = key.hexdigest()[:16]
         if digest in _loaded:
             return _loaded[digest]
 
-        out_dir = os.path.join(BUILD_ROOT, "%s-%s" % (name, digest))
-        path = os.path.join(out_dir, "lib%s.so" % name)
-        log_path = os.path.join(out_dir, "build.log")
-        seconds = 0.0
-        if not os.path.exists(path):
-            os.makedirs(out_dir, exist_ok=True)
-            for fname, text in headers.items():
-                _write(os.path.join(out_dir, fname), text)
-            tmp = "%s.tmp%d" % (path, os.getpid())
-            cmd = [compiler, *NVCC_FLAGS, "-I", out_dir, "-o", tmp, *sources]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed (exit %d): %s\n%s%s" % (
-                    proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
-            _write(log_path, proc.stdout + proc.stderr)
-            os.replace(tmp, path)
-        with open(log_path) as f:
-            log = f.read()
-        lib = ctypes.CDLL(path)
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _loaded[digest] = Library(lib=lib, path=path, build_seconds=seconds, log=log)
-        return _loaded[digest]
+    out_dir = os.path.join(BUILD_ROOT, "%s-%s" % (name, digest))
+    path = os.path.join(out_dir, "lib%s.so" % name)
+    log_path = os.path.join(out_dir, "build.log")
+    seconds = 0.0
+    if not os.path.exists(path):
+        os.makedirs(out_dir, exist_ok=True)
+        for fname, text in headers.items():
+            _write(os.path.join(out_dir, fname), text)
+        tmp = "%s.tmp%d.%d" % (path, os.getpid(), threading.get_ident())
+        cmd = [compiler, *NVCC_FLAGS, "-I", out_dir, "-o", tmp, *sources]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d): %s\n%s%s" % (
+                proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+        _write(log_path, proc.stdout + proc.stderr)
+        os.replace(tmp, path)
+    with open(log_path) as f:
+        log = f.read()
+    lib = ctypes.CDLL(path)
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    with _lock:
+        return _loaded.setdefault(digest, Library(lib=lib, path=path,
+                                                  build_seconds=seconds, log=log))

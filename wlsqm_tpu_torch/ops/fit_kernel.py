@@ -327,8 +327,9 @@ def _launch(xk, fk, nk, xi, inv_s, out, *, order: int, weighting: int,
                 or tuple(t.shape) != shape or t.dtype != dtype
                 or not t.is_contiguous()):
             raise ValueError(
-                "fit_moment kernel wants contiguous %s %s on %s; got %s %s on %s"
-                % (dtype, shape, xk.device, t.dtype, tuple(t.shape), t.device))
+                "fit_moment kernel wants contiguous %s %s on one CUDA device; got "
+                "%s %s on %s (xk on %s)"
+                % (dtype, shape, t.dtype, tuple(t.shape), t.device, xk.device))
     if not supported(dim, order, 0, weighting) or refine_steps < 0:
         raise ValueError("fit_moment kernel does not cover dim=%d order=%d "
                          "weighting=%d refine_steps=%d"

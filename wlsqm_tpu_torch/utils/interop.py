@@ -38,7 +38,6 @@ def prepared_from_numpy(fields: dict, *, dimension: int, solver: str,
     if precision != engine.PRECISION_F64:
         raise ValueError("only precision='f64' state can be carried over; got %r"
                          % (precision,))
-    device = config.resolve_device(device)
     names = [f.name for f in dataclasses.fields(engine.Prepared)
              if f.name not in ("dimension", "solver")]
     extra = {k for k, v in fields.items() if k not in names and v is not None}
@@ -47,6 +46,7 @@ def prepared_from_numpy(fields: dict, *, dimension: int, solver: str,
     missing = [n for n in names if fields.get(n) is None]
     if missing:
         raise ValueError("missing Prepared fields %s" % missing)
+    device = config.resolve_device(device)
 
     def conv(name, a):
         a = np.asarray(a)
