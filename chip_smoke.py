@@ -1,9 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card: build, check, time.
 
-Builds both CUDA kernels from ``wlsqm_tpu_torch/csrc`` (one nvcc run per
-source, started together), checks each against its plain torch version,
-then drives three paths
-through the port's public routes:
+Builds the three CUDA kernels from ``wlsqm_tpu_torch/csrc`` (one nvcc run
+per source, started together), checks each against its plain torch
+version, then drives four paths through the port's public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
@@ -11,7 +10,11 @@ through the port's public routes:
 * the sens path — the same fit with ``do_sens=True`` (the ``sens`` row of
   benchmarks/run_regression_gate.py) on 2^21 cases (the rows kernel);
 * the dim3 path — 3D, order 4, K = 48, WEIGHT_CENTER (the ``dim3`` row) on
-  2^21 cases through ``fit_many(backend="kernel")`` (the rows kernel).
+  2^21 cases through ``fit_many(backend="kernel")`` (the rows kernel);
+* the IBVP heat step — the ``gather`` row (l.238-289) on a 2^22-point
+  Morton-ordered cloud, K = 28: ``prepare`` once, then per step
+  ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
+  three; then the heat example ``wlsqm_tpu_torch.examples.ibvp_heat``.
 
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
@@ -27,12 +30,14 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 B_MAIN = 1 << 23        # the "10M-point-scale" headline cloud of bench.py
@@ -54,6 +59,12 @@ HBM_BYTES_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 FP64_FLOP_S = 67e12     # H100 SXM data sheet: FP64 peak (on the tensor cores)
 COUNT_TV = 0.1          # ALGO_ITERATIVE counts: bar on the histograms' distance
 RADII = (0.03, 0.1, 0.3, 1.0)
+N_IBVP = 1 << 22        # the IBVP cloud (the gather gate row's 20,480 points, grown)
+K_IBVP = 28             # neighbours per case, self included (the gate row's)
+STEPS = 32              # steps per timed IBVP run (the gate row's)
+DT_NU = 1e-5            # the gate row's dt * nu
+EX2 = np.array([0, 1, 0, 2, 1, 0])   # 2D order-2 DOF exponents (F X Y X2 XY Y2)
+EY2 = np.array([0, 0, 1, 0, 1, 2])
 
 
 def _rel(a, b) -> float:
@@ -224,11 +235,12 @@ def _weighted_basis(xk, fk, nk, xi, dim, order, weighting):
 # -- phases ---------------------------------------------------------------------
 
 def phase_build():
-    """Build both libraries, one nvcc run each, started together; print each
-    ptxas report."""
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+    """Build the three libraries, one nvcc run each, started together; print
+    each ptxas report."""
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
-    jobs = {"fit_moment": fit_kernel.load, "fit_rows": fit_rows.load}
+    jobs = {"fit_moment": fit_kernel.load, "fit_rows": fit_rows.load,
+            "gather": gather.load}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in jobs.items()}
@@ -238,6 +250,8 @@ def phase_build():
         if name == "fit_moment":
             ptxas = _ptxas_summary(lib.log, r"fit_moment_2dILi(\d+)ELi(\d+)E",
                                    "order%s_w%s")
+        elif name == "gather":
+            ptxas = _ptxas_summary(lib.log, r"gather_wordsILi(\d+)E", "words%s")
         else:
             ptxas = _ptxas_summary(lib.log, r"fit_rowsILi(\d+)ELi(\d+)ELi(\d+)E",
                                    "d%s_order%s_w%s")
@@ -658,6 +672,328 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
     return {"launches": launches, "ms": med["launch_2^18"], "plain_ms": med["plain_2^18"],
             "library_ms": med["library_lstsq_2^18"], **bounds["2^18"]}
 
+# -- the IBVP path ---------------------------------------------------------------
+
+def _bits(t):
+    """An integer view of a 4- or 8-byte tensor, for bit-for-bit equality."""
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def _local_idx(rng, n, B, K, spread=40):
+    base = np.sort(rng.integers(0, n, B))
+    return np.clip(base[:, None] + rng.integers(-spread, spread, (B, K)), 0, n - 1)
+
+
+def _three_clusters(rng, n, B, K):
+    """tests/test_gather.py:165-185: every 8th block of 16 cases reads from
+    three far-apart clusters, so the plan has overflow blocks."""
+    base = rng.integers(0, 200, (B, 1))
+    idx = base + rng.integers(0, 30, (B, K))
+    three = (np.arange(B) // 16) % 8 == 0
+    pick = rng.integers(0, 3, (B, K))
+    idx = np.where(three[:, None] & (pick == 1), n // 2 + rng.integers(0, 30, (B, K)), idx)
+    return np.where(three[:, None] & (pick == 2), n - 30 + rng.integers(0, 30, (B, K)), idx)
+
+
+def ibvp_setup():
+    """The IBVP cloud on the host: 2^22 points uniform in [-1, 1]^2 from a
+    seed, Morton-ordered, K = 28 nearest (self included) from scipy's tree,
+    and the window plan.  Each step timed on its own."""
+    from wlsqm_tpu_torch.ops import gather
+    from wlsqm_tpu_torch.utils import neighbors
+
+    times = {}
+    t0 = time.perf_counter()
+    pts = np.random.default_rng(11).uniform(-1, 1, (N_IBVP, 2))
+    times["cloud_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pts = pts[gather.morton_order(pts)]
+    times["morton_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx, _ = neighbors.knn(pts, pts, K_IBVP, backend="host")
+    idx = idx.astype(np.int32)
+    times["knn_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = gather.plan_window_gather(idx, N_IBVP)
+    times["plan_s"] = time.perf_counter() - t0
+    if plan is None:
+        raise RuntimeError("the 2^22 Morton cloud gave no window plan")
+    return pts, idx, plan, times
+
+
+def phase_gather_vs_plain(dev, ibvp_idx, ibvp_plan):
+    """The gather kernel against u[idx], bit for bit (torch.equal on integer
+    views): f64 with F = 1 and 3, f32, int32, int64, the f32 pair; float
+    payloads carry NaN, ±0 and ±inf; a ragged tail (B = 16·m + 7); a plan
+    with overflow blocks; and the 2^22 IBVP indices."""
+    from wlsqm_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(2029)
+    n, B, K = 1 << 20, 16 * 4096 + 7, K_IBVP
+    sets = {"local_ragged": _local_idx(rng, n, B, K),
+            "three_clusters": _three_clusters(rng, n, 16 * 512 + 7, 12)}
+    gen = torch.Generator(device=dev).manual_seed(2029)
+    checked, worst_abs = [], 0.0
+
+    def payload(shape, dtype):
+        if dtype.is_floating_point:
+            u = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            flat = u.view(-1)
+            for i, v in enumerate((math.nan, -0.0, math.inf, -math.inf)):
+                flat[i::11] = v
+            return u
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, dtype=dtype, device=dev)
+
+    def check(name, u, idx, plan):
+        nonlocal worst_abs
+        got = gather.gather_rows(u, idx, plan)
+        ref = gather.gather_rows_plain(u, idx)
+        torch.cuda.synchronize()
+        if got.dtype != ref.dtype or got.shape != ref.shape or not torch.equal(
+                _bits(got), _bits(ref)):
+            raise RuntimeError("gather kernel differs from u[idx]: %s" % name)
+        if u.dtype.is_floating_point:
+            fin = torch.isfinite(ref)
+            if not torch.equal(fin, torch.isfinite(got)):
+                raise RuntimeError("gather kernel: non-finite pattern differs: %s" % name)
+            worst_abs = max(worst_abs, (got[fin] - ref[fin]).abs().max().item())
+        checked.append(name)
+
+    for set_name, idx_np in sets.items():
+        idx = torch.as_tensor(idx_np.astype(np.int32), device=dev)
+        plan = gather.plan_window_gather(idx_np, n)
+        if plan is None or (set_name == "three_clusters") != bool(plan.bad_blocks):
+            raise RuntimeError("unexpected plan for %s: %s" % (
+                set_name, None if plan is None else len(plan.bad_blocks)))
+        for dtype, F in ((torch.float64, 1), (torch.float64, 3), (torch.float32, 1),
+                         (torch.int32, 1), (torch.int64, 1)):
+            u = payload((n, F) if F > 1 else (n,), dtype)
+            check("%s_%s_F%d" % (set_name, str(dtype)[6:], F), u, idx, plan)
+        hi, lo = payload((n, 2), torch.float32), payload((n, 2), torch.float32)
+        ghi, glo = gather.gather_rows_pair((hi, lo), idx, plan)
+        torch.cuda.synchronize()
+        if not (torch.equal(_bits(ghi), _bits(hi[idx.long()]))
+                and torch.equal(_bits(glo), _bits(lo[idx.long()]))):
+            raise RuntimeError("gather pair kernel differs: %s" % set_name)
+        checked.append("%s_pair_f32_F2" % set_name)
+    idx = torch.as_tensor(ibvp_idx, device=dev)
+    for F in (1, 3):
+        u = torch.randn((N_IBVP, F) if F > 1 else (N_IBVP,), generator=gen,
+                        dtype=torch.float64, device=dev)
+        check("ibvp_2^22_float64_F%d" % F, u, idx, ibvp_plan)
+    print(json.dumps({"gather_vs_plain": "bit-exact", "cases": checked,
+                      "max_abs_err": worst_abs, "n": n, "B": B}), flush=True)
+    return worst_abs
+
+
+def _svd_fit(xk, xi, fk):
+    """Order-2 2D unweighted least-squares DOFs by SVD (scipy's lstsq,
+    LAPACK gelsd, float64), on offsets scaled by each case's
+    h = max |xk - xi|; returns the DOFs and h (DOF j scales by h^-deg_j)."""
+    from math import factorial
+
+    import scipy.linalg
+
+    invf = np.array([1.0 / (factorial(a) * factorial(b)) for a, b in zip(EX2, EY2)])
+    out, hs = np.empty((len(xk), 6)), np.empty(len(xk))
+    for j in range(len(xk)):
+        d = xk[j] - xi[j]
+        hs[j] = h = np.abs(d).max()
+        d = d / h
+        c = (d[:, 0:1] ** EX2) * (d[:, 1:2] ** EY2) * invf
+        out[j] = scipy.linalg.lstsq(c, fk[j], lapack_driver="gelsd")[0] / h ** (EX2 + EY2)
+    return out, hs
+
+
+def _profile(fn):
+    """Self device time (ms) of the ten costliest ops over one call of fn,
+    from torch.profiler; "not measured" with the reason if it cannot trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+        out = {e.key[:80]: e.self_device_time_total / 1e3 for e in rows[:10]
+               if e.self_device_time_total > 0}
+        return out or "not measured: no device time in the trace"
+    except Exception as e:   # the profiler is instrumentation, not the path
+        return "not measured: %s" % (e,)
+
+
+def phase_ibvp(dev, wtt, pts, idx_np, plan, setup):
+    """The gather gate row at n = 2^22: prepare once (order 2, uniform,
+    Jacobi, chol), then per step fk = gather_rows(u, idx, plan), fi, _ =
+    solve(prep, fk), u += 1e-5 (fi[:, X2] + fi[:, Y2]); one field and three
+    (one gather, one multi-field solve).  Times, the per-step split, the
+    gather launch against its bound and yardsticks, kernel path = plain
+    path, and DOF parity against an f64 SVD fit."""
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    X2, Y2 = wtt.i2_X2, wtt.i2_Y2
+    pts_t = torch.as_tensor(pts, device=dev)
+    idx = torch.as_tensor(idx_np, device=dev)
+    t0 = time.perf_counter()
+    prep = wtt.prepare(pts_t[idx.long()], pts_t, order=2, scaling="jacobi")
+    torch.cuda.synchronize()
+    setup = dict(setup, prepare_s=time.perf_counter() - t0,
+                 prepare_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 prepared_gb=sum(t.numel() * t.element_size() for t in
+                                 (prep.c, prep.w, *prep.fac, prep.row_scale,
+                                  prep.col_scale, prep.xi)) / 1e9,
+                 coverage=plan.coverage, bad_blocks=len(plan.bad_blocks), nblk=plan.nblk)
+    u0 = torch.sin(3 * pts_t[:, 0]) * torch.cos(2 * pts_t[:, 1])
+    u3_0 = torch.stack([u0, torch.cos(pts_t[:, 0]) * torch.sin(pts_t[:, 1]),
+                        pts_t[:, 0] * pts_t[:, 1]], dim=1)
+
+    def kern(v):
+        return gather.gather_rows(v, idx, plan)
+
+    def update(v, fi):
+        lap = fi[..., X2] + fi[..., Y2]                   # (B,) or (F, B)
+        return v + DT_NU * (lap if v.ndim == 1 else lap.T)
+
+    def step(v, gather_fn=kern):
+        fk = gather_fn(v)
+        fi, _ = wtt.solve(prep, fk if v.ndim == 1 else fk.permute(2, 0, 1))
+        return update(v, fi)
+
+    # the main path: STEPS steps of one field, counts read just after
+    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = gather.LAUNCHES = 0
+    u = u0
+    for _ in range(STEPS):
+        u = step(u)
+    torch.cuda.synchronize()
+    launches = gather.LAUNCHES
+    if launches != STEPS or fit_kernel.LAUNCHES or fit_rows.LAUNCHES:
+        raise RuntimeError("IBVP path launches: gather %d (want %d), fit %d/%d"
+                           % (launches, STEPS, fit_kernel.LAUNCHES, fit_rows.LAUNCHES))
+    if not bool(torch.isfinite(u).all()):
+        raise RuntimeError("IBVP path: non-finite u")
+    gather.LAUNCHES = 0
+    u3 = u3_0
+    for _ in range(STEPS):
+        u3 = step(u3)
+    torch.cuda.synchronize()
+    launches3 = gather.LAUNCHES
+    if launches3 != STEPS or tuple(u3.shape) != (N_IBVP, 3) or not bool(
+            torch.isfinite(u3).all()):
+        raise RuntimeError("IBVP F=3 path: %d launches, shape %s"
+                           % (launches3, tuple(u3.shape)))
+
+    # one step through the kernel equals one step through u[idx]
+    a, b = step(u0), step(u0, lambda v: gather.gather_rows_plain(v, idx))
+    same, diff = torch.equal(a, b), (a - b).abs().max().item()
+    del a, b
+    # the DOFs of one solve against an SVD fit on the first cases, held in
+    # the scaled coordinates d / h (DOF j times h^deg_j): in raw DOFs the
+    # data's own rounding is amplified by h^-deg (h ~ 3e-3 here) in any f64
+    # solver, so the raw error is reported, not held
+    s, ix = slice(0, B_SCIPY), idx_np[:B_SCIPY]
+    parity, raw = {}, {}
+    for name, v in (("F1", u0), ("F3", u3_0)):
+        fk = kern(v)
+        fi, _ = wtt.solve(prep, fk if v.ndim == 1 else fk.permute(2, 0, 1))
+        fi, vals = fi.reshape(-1, N_IBVP, 6)[:, s].cpu(), v.reshape(N_IBVP, -1).cpu().numpy()
+        for f in range(fi.shape[0]):
+            ref, h = _svd_fit(pts[ix], pts[s], vals[ix, f])
+            ref, scale = torch.as_tensor(ref), torch.as_tensor(h[:, None] ** (EX2 + EY2))
+            parity[name] = max(parity.get(name, 0.0), _rel(fi[f] * scale, ref * scale))
+            raw[name] = max(raw.get(name, 0.0), _rel(fi[f], ref))
+    del fk, fi
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def run(fn, u_init):
+        def go():
+            v = u_init
+            for _ in range(STEPS):
+                v = fn(v)
+            return v
+        return go
+
+    ms1, ms1_t = _time_ms(run(step, u0))
+    ms3, ms3_t = _time_ms(run(step, u3_0))
+
+    def split(v, n=8):
+        """Median CUDA-event times of the step's three parts over n steps
+        (after one more)."""
+        parts = {"gather": [], "solve": [], "update": []}
+        for _ in range(n + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            fk = kern(v)
+            ev[1].record()
+            fi, _ = wtt.solve(prep, fk if v.ndim == 1 else fk.permute(2, 0, 1))
+            ev[2].record()
+            v = update(v, fi)
+            ev[3].record()
+            ev[3].synchronize()
+            for i, k in enumerate(parts):
+                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        return {k: statistics.median(t[1:]) for k, t in parts.items()}
+
+    split1, split3 = split(u0), split(u3_0)
+    profile1 = _profile(lambda: step(u0))
+
+    # the gather launch at the path's shapes, its bound and its yardsticks
+    words = u0.view(-1, 1).view(torch.int32)
+    out = torch.empty((N_IBVP * K_IBVP, 2), dtype=torch.int32, device=dev)
+    flat = idx.reshape(-1)
+    launch_ms, launch_t = _time_ms(lambda: gather._launch([words], flat, [out]))
+    wrapper_ms, wrapper_t = _time_ms(lambda: gather.gather_rows(u0, idx, plan))
+    plain_ms, plain_t = _time_ms(lambda: gather.gather_rows_plain(u0, idx))
+    flat_long = flat.long()
+    library_ms, library_t = _time_ms(lambda: torch.index_select(u0, 0, flat_long))
+    bound = _bound((flat, out, u0), 0.0)
+    words3 = u3_0.contiguous().view(torch.int32)
+    out3 = torch.empty((N_IBVP * K_IBVP, 6), dtype=torch.int32, device=dev)
+    launch3_ms, launch3_t = _time_ms(lambda: gather._launch([words3], flat, [out3]))
+    library3_ms, library3_t = _time_ms(lambda: torch.index_select(u3_0, 0, flat_long))
+    bound3 = _bound((flat, out3, u3_0), 0.0)
+    del out, out3, flat_long
+    print(json.dumps({
+        "path": "ibvp", "n": N_IBVP, "K": K_IBVP, "steps": STEPS,
+        "setup": setup, "launches": {"gather_rows_F1": launches, "gather_rows_F3": launches3,
+                                     "per_step": launches / STEPS},
+        "ms_per_step": {"F1": ms1 / STEPS, "F3": ms3 / STEPS},
+        "ms_per_run_of_%d" % STEPS: {"F1": ms1_t, "F3": ms3_t},
+        "split_ms": {"F1": split1, "F3": split3},
+        "profile_one_step_F1_self_device_ms": profile1,
+        "gather_ms": {"launch_F1": launch_t, "gather_rows_F1": wrapper_t,
+                      "plain_u[idx]_F1": plain_t, "index_select_F1": library_t,
+                      "launch_F3": launch3_t, "index_select_F3": library3_t},
+        "gather_bound_F1": bound, "gather_bound_F3": bound3,
+        "gather_achieved_gb_s_F1": bound["bytes"] / launch_ms / 1e6,
+        "kernel_step_equals_plain_step": same, "kernel_vs_plain_step_max_abs": diff,
+        "dof_parity_vs_svd_scaled": parity, "dof_rel_err_vs_svd_raw": raw,
+        "tol": PARITY,
+        "peak_mem_gb": round(peak_gb, 3)}), flush=True)
+    if not same:
+        raise RuntimeError("a step through the gather kernel differs from one through "
+                           "u[idx]: %.3e" % diff)
+    if max(parity.values()) > PARITY:
+        raise RuntimeError("IBVP DOF parity vs SVD (scaled): %s > %.0e" % (parity, PARITY))
+    return {"launches": launches, "ms": launch_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound}
+
+
+def phase_heat_example(dev):
+    """``wlsqm_tpu_torch.examples.ibvp_heat.run()`` on the card: each
+    field's max error against the exact solution under 5e-3."""
+    from wlsqm_tpu_torch.examples import ibvp_heat
+
+    t0 = time.perf_counter()
+    res = ibvp_heat.run()
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"heat_example": res}), flush=True)
+    if not res["device"].startswith("cuda") or res["gather_launches"] != 2 * res["steps"]:
+        raise RuntimeError("the heat example did not run its gathers on the card")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -687,13 +1023,19 @@ def main() -> int:
     sens = phase_sens(dev, wtt, parity_check)
     torch.cuda.empty_cache()
     dim3 = phase_dim3(dev, wtt)
+    torch.cuda.empty_cache()
+    pts, idx_np, plan, setup = ibvp_setup()
+    g_abs = phase_gather_vs_plain(dev, idx_np, plan)
+    ibvp = phase_ibvp(dev, wtt, pts, idx_np, plan, setup)
+    torch.cuda.empty_cache()
+    phase_heat_example(dev)
 
-    def entry(name, source, replaces, abs_err, rel_err, t, config):
+    def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": t["launches"], "max_abs_err": abs_err, "max_rel_err": rel_err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "batch": B_PLAIN, "config": config}
+                "batch": batch, "config": config}
 
     print(json.dumps({"kernels": [
         entry("fit_moment_2d", "wlsqm_tpu_torch/csrc/fit_moment.cu",
@@ -702,6 +1044,10 @@ def main() -> int:
         entry("fit_rows", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
               "sens: 2D order 4 K=30 CENTER do_sens"),
+        entry("gather_rows", "wlsqm_tpu_torch/csrc/gather.cu",
+              "wlsqm_tpu/ops/gather.py:168", g_abs, 0.0, ibvp,
+              "IBVP step: n=2^22, K=28, f64, F=1; launches over %d steps, "
+              "library torch.index_select" % STEPS, batch=N_IBVP),
     ], "fit_rows_dim3": dim3, "total_s": round(time.perf_counter() - t_start, 1)}),
         flush=True)
     print(smi.splitlines()[0])

@@ -15,7 +15,8 @@ chip_smoke.py checks that no constant count passes this bar).  The rows kernel a
 plain version measured 57% and 88% over the 2D grid on an H100: FMA
 contraction and the summation order move the last bit of the residual
 norms, and with it the tie.  Data fk = 0 has no tie: both stop after one
-trip.
+trip.  The gather kernel copies words, so it is held to ``u[idx]`` bit for
+bit (``torch.equal`` on integer views).
 """
 
 import numpy as np
@@ -23,7 +24,8 @@ import pytest
 import torch
 
 import wlsqm_tpu_torch as wtt
-from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+from wlsqm_tpu_torch.examples import ibvp_heat
+from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +245,123 @@ def test_diffable_on_the_card(dev):
                                          do_sens=True)
     ref = torch.einsum("bkj,bj->bk", sens, g)
     assert _rel(fk.grad, ref) <= PARITY
+
+
+# ---------------------------------------------------------------------------
+# The gather kernel (csrc/gather.cu)
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def _special(u):
+    """NaN, -0, +inf and -inf planted in a float payload."""
+    flat = u.view(-1)
+    for i, v in enumerate((float("nan"), -0.0, float("inf"), float("-inf"))):
+        flat[i::11] = v
+    return u
+
+
+def _gather_idx(dev, n, B, K, seed, three_clusters=False):
+    g = np.random.default_rng(seed)
+    base = np.sort(g.integers(0, n, B))
+    idx = np.clip(base[:, None] + g.integers(-40, 40, (B, K)), 0, n - 1)
+    if three_clusters:   # tests/test_gather.py:165-185, every 8th block
+        three = (np.arange(B) // gather.BLOCK_T) % 8 == 0
+        pick = g.integers(0, 3, (B, K))
+        idx = np.where(three[:, None] & (pick == 1), n // 2 + g.integers(0, 30, (B, K)), idx)
+        idx = np.where(three[:, None] & (pick == 2), n - 1 - g.integers(0, 30, (B, K)), idx)
+    return torch.as_tensor(idx.astype(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("dtype,F", [(torch.float64, 1), (torch.float64, 3),
+                                     (torch.float32, 1), (torch.float32, 2),
+                                     (torch.int32, 1), (torch.int64, 2)])
+@pytest.mark.parametrize("three_clusters", [False, True])
+def test_gather_kernel_is_bit_exact(dev, dtype, F, three_clusters):
+    n, B, K = 40000, 16 * 61 + 7, 28          # a ragged tail of 7 cases
+    idx = _gather_idx(dev, n, B, K, seed=F, three_clusters=three_clusters)
+    plan = gather.plan_window_gather(idx, n)
+    assert plan is not None and bool(plan.bad_blocks) == three_clusters
+    shape = (n, F) if F > 1 else (n,)
+    if dtype.is_floating_point:
+        u = _special(torch.randn(shape, dtype=dtype, device=dev))
+    else:
+        u = torch.randint(-2**31, 2**31 - 1, shape, dtype=dtype, device=dev)
+    before = gather.LAUNCHES
+    got = gather.gather_rows(u, idx, plan)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    ref = gather.gather_rows_plain(u, idx)
+    assert got.dtype == u.dtype and got.shape == ref.shape
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_gather_pair_kernel_is_bit_exact(dev):
+    n, B, K = 20000, 1000, 16
+    idx = _gather_idx(dev, n, B, K, seed=7)
+    plan = gather.plan_window_gather(idx, n)
+    hi = _special(torch.randn((n, 2), dtype=torch.float32, device=dev))
+    lo = torch.randn((n, 2), dtype=torch.float32, device=dev)
+    before = gather.LAUNCHES
+    ghi, glo = gather.gather_rows_pair((hi, lo), idx, plan)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(_bits(ghi), _bits(hi[idx.long()]))
+    assert torch.equal(_bits(glo), _bits(lo[idx.long()]))
+
+
+def test_gather_cuda_call_never_runs_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(gather, "gather_rows_plain", boom)
+    n = 5000
+    idx = _gather_idx(dev, n, 512, 12, seed=3)
+    plan = gather.plan_window_gather(idx, n)
+    u = torch.randn(n, dtype=torch.float64, device=dev)
+    out = gather.gather_rows(u, idx, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, u[idx.long()])
+
+
+def test_gather_kernel_clamps_bad_indices(dev):
+    n = 3000
+    idx = _gather_idx(dev, n, 64, 8, seed=4)
+    plan = gather.plan_window_gather(idx, n)
+    idx[0, 0], idx[0, 1] = -7, n + 5           # after planning: never read outside u
+    u = torch.arange(n, dtype=torch.float64, device=dev)
+    out = gather.gather_rows(u, idx, plan)
+    torch.cuda.synchronize()
+    assert out[0, 0].item() == 0 and out[0, 1].item() == n - 1
+    assert torch.equal(out[1:], u[idx[1:].long()])
+
+
+def test_ibvp_step_through_the_kernel_equals_the_plain_gather(dev):
+    """One gate-row step (order 2, uniform, Jacobi, K = 28 with self) on a
+    4,096-point Morton cloud: the kernel path and u[idx] give the same u."""
+    import scipy.spatial
+
+    g = np.random.default_rng(11)
+    pts = g.uniform(-1, 1, (4096, 2))
+    pts = pts[gather.morton_order(pts)]
+    _, idx = scipy.spatial.cKDTree(pts).query(pts, k=28)
+    idx = torch.as_tensor(idx.astype(np.int32), device=dev)
+    plan = gather.plan_window_gather(idx, len(pts))
+    pts_t = torch.as_tensor(pts, device=dev)
+    prep = wtt.prepare(pts_t[idx.long()], pts_t, order=2, scaling="jacobi")
+    u = torch.sin(3 * pts_t[:, 0]) * torch.cos(2 * pts_t[:, 1])
+    out = []
+    for fk in (gather.gather_rows(u, idx, plan), gather.gather_rows_plain(u, idx)):
+        fi, _ = wtt.solve(prep, fk)
+        out.append(u + 1e-5 * (fi[:, wtt.i2_X2] + fi[:, wtt.i2_Y2]))
+    assert torch.equal(out[0], out[1])
+
+
+def test_heat_example_on_the_card(dev):
+    before = gather.LAUNCHES
+    res = ibvp_heat.run()
+    assert res["device"].startswith("cuda")
+    assert res["gather_launches"] == 1000 and gather.LAUNCHES == before + 1000
+    assert res["max_error"] < ibvp_heat.TOL and max(res["field_max_errors"]) < ibvp_heat.TOL

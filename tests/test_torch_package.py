@@ -9,8 +9,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     code = ("import sys, wlsqm_tpu_torch, wlsqm_tpu_torch.ops.fit_kernel, "
-            "wlsqm_tpu_torch.ops.fit_rows, "
-            "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.native; "
+            "wlsqm_tpu_torch.ops.fit_rows, wlsqm_tpu_torch.ops.gather, "
+            "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.utils.neighbors, "
+            "wlsqm_tpu_torch.fitter.interp, wlsqm_tpu_torch.fitter.polyeval, "
+            "wlsqm_tpu_torch.examples.ibvp_heat, wlsqm_tpu_torch.native; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wlsqm_tpu' not in sys.modules; print('ok')")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -24,7 +26,8 @@ def test_public_names():
     import wlsqm_tpu_torch as wtt
 
     for name in ("fit", "fit_many", "plan_fit_many", "FitPlan", "FitResult",
-                 "Prepared", "WEIGHT_CENTER", "number_of_dofs", "i2_X4", "b3_XYZ2"):
+                 "Prepared", "prepare", "solve", "interpolate", "WEIGHT_CENTER",
+                 "number_of_dofs", "i2_X4", "b3_XYZ2"):
         assert hasattr(wtt, name), name
 
 

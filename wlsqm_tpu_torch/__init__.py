@@ -9,14 +9,22 @@ float64, which the H100 runs natively.
 
 This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
 
-* :mod:`~wlsqm_tpu_torch.api` — ``fit``, ``fit_many``, ``plan_fit_many``;
+* :mod:`~wlsqm_tpu_torch.api` — ``fit``, ``fit_many``, ``plan_fit_many``,
+  the expert-mode ``prepare`` / ``solve`` and ``interpolate``;
 * :mod:`~wlsqm_tpu_torch.fitter.engine` — the batched f64 engine and
-  ``Prepared``;
+  ``Prepared``; :mod:`~wlsqm_tpu_torch.fitter.interp` and
+  :mod:`~wlsqm_tpu_torch.fitter.polyeval` — evaluation of fitted models;
 * :mod:`~wlsqm_tpu_torch.ops.fit_kernel` — the moment-assembly kernel
   (dim 2, basic, no knowns) and its plain torch version;
 * :mod:`~wlsqm_tpu_torch.ops.fit_rows` — the rows-body kernel (dims 1-3,
   knowns, sensitivities, ALGO_ITERATIVE), its plain torch version and
-  ``fit_rows_diffable``.
+  ``fit_rows_diffable``;
+* :mod:`~wlsqm_tpu_torch.ops.gather` — the IBVP step's gather ``u[idx]``
+  (Morton order, window plan, the gather kernel and its plain version);
+* :mod:`~wlsqm_tpu_torch.utils.neighbors` — kNN on the device or scipy's
+  k-d tree;
+* :mod:`~wlsqm_tpu_torch.examples.ibvp_heat` — the heat-equation time
+  stepper.
 
 The CUDA sources are in ``csrc/``, built with nvcc at first use by
 :mod:`~wlsqm_tpu_torch.native`.  Without ``device=``, the entry points
@@ -32,5 +40,8 @@ from wlsqm_tpu_torch.api import (  # noqa: F401
     plan_fit_many,
     FitPlan,
     FitResult,
+    prepare,
+    solve,
+    interpolate,
 )
 from wlsqm_tpu_torch.fitter.engine import Prepared  # noqa: F401

@@ -1,6 +1,7 @@
-"""Functional PyTorch API for wlsqm_tpu_torch: ``fit_many`` and its plan.
+"""Functional PyTorch API for wlsqm_tpu_torch.
 
-Port of the fit subset of :mod:`wlsqm_tpu.api`.  Typical flow::
+Port of :mod:`wlsqm_tpu.api`: ``fit_many`` and its plan, the expert-mode
+``prepare`` / ``solve`` pair and ``interpolate``.  Typical flow::
 
     import wlsqm_tpu_torch as wtt
 
@@ -9,6 +10,9 @@ Port of the fit subset of :mod:`wlsqm_tpu.api`.  Typical flow::
     res = wtt.fit_many(xk, fk, xi, order=4, weighting=wtt.WEIGHT_CENTER,
                        do_sens=True, plan=plan)
     res.fi, res.sens                       # (B, NO) DOFs, (B, K, NO) d fi / d fk
+
+    prep = wtt.prepare(xk, xi, order=2)    # geometry once (an IBVP cloud)
+    fi, sens = wtt.solve(prep, fk)         # every step; fk (F, B, K) for F fields
 
 Routing is by configuration: a homogeneous group with enough neighbours
 runs on a kernel — the moment kernel
@@ -31,11 +35,12 @@ import numpy as np
 import torch
 
 from wlsqm_tpu_torch import config
-from wlsqm_tpu_torch.fitter import defs, engine, ladder
+from wlsqm_tpu_torch.fitter import defs, engine, interp, ladder
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
 
-__all__ = ["FitResult", "FitPlan", "fit", "fit_many", "plan_fit_many"]
+__all__ = ["FitResult", "FitPlan", "fit", "fit_many", "plan_fit_many", "prepare",
+           "solve", "interpolate"]
 
 #: backend names; the JAX package's "pallas" and "xla" are synonyms
 _BACKENDS = {"auto": "auto", "kernel": "kernel", "engine": "engine",
@@ -445,3 +450,108 @@ def fit(xk, fk, xi=None, **kwargs) -> FitResult:
         iterations=res.iterations[0],
         cond_scaled=res.cond_scaled[0],
     )
+
+
+def prepare(
+    xk,
+    xi=None,
+    *,
+    nk=None,
+    order=2,
+    knowns=0,
+    weighting=defs.WEIGHT_UNIFORM,
+    max_order: int | None = None,
+    solver: str = solve_ops.SOLVER_CHOLESKY,
+    debug: bool = False,
+    precision: str | None = engine.PRECISION_F64,
+    ruiz_max_iter: int = 100,
+    scaling: str = "ruiz",
+    device=None,
+) -> engine.Prepared:
+    """Prepare geometry for repeated solves (expert mode).
+
+    Builds, scales and factors the normal matrices of a batch once and
+    returns a :class:`~wlsqm_tpu_torch.fitter.engine.Prepared` to pass to
+    :func:`solve`.  Sharing it between fields is the reference's "guest
+    mode" (reference: wlsqm/fitter/expert.pyx:110-124).  Same arguments as
+    the JAX package's ``prepare``; ``solver`` is ``"chol"`` and
+    ``precision`` ``"f64"`` (or None).  ``device`` as for :func:`fit_many`.
+    """
+    if solver != solve_ops.SOLVER_CHOLESKY:
+        raise ValueError(
+            "solver %r is not ported: this package has 'chol' (the f64 Cholesky); "
+            "'lu' and 'chol_unrolled' wait on ROADMAP item A2" % (solver,))
+    if precision not in (None, engine.PRECISION_F64):
+        raise ValueError(
+            "precision must be None or 'f64'; got %r (the emulated precisions wait "
+            "on ROADMAP item A15)" % (precision,))
+    device = config.resolve_device(device, xk)
+    xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
+    if tuple(xi.shape) != (B, dim):
+        raise ValueError("xi must have shape (B, dim) = (%d, %d) matching xk; got %s"
+                         % (B, dim, tuple(xi.shape)))
+    nk = (torch.full((B,), K, dtype=torch.int32, device=device) if nk is None
+          else config.as_tensor(nk, device, torch.int32))
+    if tuple(nk.shape) != (B,):
+        raise ValueError("nk must have shape (B,) = (%d,); got %s" % (B, tuple(nk.shape)))
+    _validate_weighting(weighting, device)
+    order_a = _broadcast_case_param(order, B, torch.int32, device)
+    knowns_a = _broadcast_case_param(knowns, B, torch.int64, device)
+    weighting_a = _broadcast_case_param(weighting, B, torch.int32, device)
+    if max_order is None:
+        max_order = _scalar(order)
+        if max_order is None:
+            max_order = int(order_a.max())
+    return engine.prepare(
+        xk, nk, xi, order_a, knowns_a, weighting_a, dimension=dim,
+        NO=defs.number_of_dofs(dim, max_order), solver=solver, debug=debug,
+        ruiz_max_iter=ruiz_max_iter, scaling=scaling)
+
+
+def solve(
+    prep: engine.Prepared,
+    fk,
+    fi_init=None,
+    *,
+    do_sens: bool = False,
+    iterative: bool = False,
+    max_iter: int = 10,
+    mixed_steps: int | None = None,
+):
+    """Solve prepared systems against data ``fk``, on the prepared device.
+
+    fk (B, K) solves one field; fk (F, B, K) solves F fields against the
+    same factorization in one multi-RHS solve.  Returns (fi, sens) for the
+    basic algorithm, or (fi, sens, iterations) with ``iterative=True``;
+    outputs carry the leading field axis when fk does (sens is one
+    geometry-only array, expanded).  ``mixed_steps`` belongs to the JAX
+    package's emulated precisions and must be None.
+    """
+    if mixed_steps is not None:
+        raise ValueError("mixed_steps needs the emulated precisions (ROADMAP A15); "
+                         "this package solves in f64: pass None")
+    device = prep.c.device
+    fk = config.as_tensor(fk, device)
+    B, K, NO = prep.c.shape
+    if tuple(fk.shape[-2:]) != (B, K) or fk.ndim not in (2, 3):
+        raise ValueError(
+            "fk must have shape (B, K) = (%d, %d) matching the prepared geometry "
+            "(or (F, B, K) for multi-field); got %s" % (B, K, tuple(fk.shape)))
+    fi0 = (fk.new_zeros(fk.shape[:-1] + (NO,)) if fi_init is None
+           else config.as_tensor(fi_init, device))
+    if tuple(fi0.shape) != tuple(fk.shape[:-1]) + (NO,):
+        raise ValueError("fi_init must have shape %s; got %s"
+                         % (tuple(fk.shape[:-1]) + (NO,), tuple(fi0.shape)))
+    if iterative:
+        return engine.solve_iterative_prepared(prep, fk, fi0, max_iter, do_sens)
+    return engine.solve_prepared(prep, fk, fi0, do_sens)
+
+
+def interpolate(fi, xi, x, *, dimension: int, order: int, diff: int = 0, device=None):
+    """Evaluate fitted models (or their derivatives) at query points.
+
+    Alias of :func:`wlsqm_tpu_torch.fitter.interp.eval_fit`; batch axes of
+    fi/xi/x broadcast.  ``device`` as for :func:`fit_many`.
+    """
+    return interp.eval_fit(fi, xi, x, dimension=dimension, order=order, diff=diff,
+                           device=device)

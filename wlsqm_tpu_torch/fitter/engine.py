@@ -147,6 +147,14 @@ class Prepared:
     dimension: int
     solver: str
 
+    @property
+    def ncases(self) -> int:
+        return self.c.shape[0]
+
+    @property
+    def no_max(self) -> int:
+        return self.c.shape[2]
+
 
 def prepare(
     xk: torch.Tensor,
@@ -216,25 +224,37 @@ def prepare(
 # -----------------------------------------------------------------------------
 
 def _rhs(prep: Prepared, resid: torch.Tensor) -> torch.Tensor:
-    """Row-scaled, masked RHS b_j = rs_j * sum_k w_k resid_k c[k,j]."""
-    b = torch.einsum("bkj,bk->bj", prep.c * prep.w[..., None], resid)
+    """Row-scaled, masked RHS b_j = rs_j * sum_k w_k resid_k c[k,j];
+    resid (B, K) or, for F fields, (F, B, K)."""
+    b = torch.einsum("bkj,...bk->...bj", prep.c * prep.w[..., None], resid)
     return torch.where(prep.unknown, b * prep.row_scale, 0.0)
+
+
+def _solve(prep: Prepared, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for b (B, NO), or (F, B, NO) as ONE multi-RHS solve."""
+    if b.ndim == 2:
+        return solve_ops.solve_factored(prep.fac, b[..., None], prep.solver)[..., 0]
+    x = solve_ops.solve_factored(prep.fac, b.permute(1, 2, 0), prep.solver)
+    return x.permute(2, 0, 1)
 
 
 def solve_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
                    do_sens: bool = False):
     """Fit the model against data ``fk`` using prepared geometry.
 
+    fk (B, K) with fi (B, NO), or F fields at once: fk (F, B, K) with fi
+    (F, B, NO), solved as one multi-RHS solve against the one factor.
     Returns (fi_out, sens).  ``sens[b,k,j] = d fi[b,j] / d fk[b,k]`` for
     unknown DOFs, NaN for known DOFs, 0 for inactive padding
     (reference: wlsqm/fitter/impl.pyx:768-846); None unless ``do_sens``.
+    It depends on the geometry alone, so F fields share one (B, K, NO)
+    array, expanded (a view) to (F, B, K, NO).
     """
     known_vals = torch.where(prep.known, fi, 0.0)
-    model_known = torch.einsum("bkj,bj->bk", prep.c, known_vals)
+    model_known = torch.einsum("bkj,...bj->...bk", prep.c, known_vals)
     # mask padded-neighbor slots (w == 0) so non-finite fk padding is inert
     resid = torch.where(prep.w > 0, fk - model_known, 0.0)
-    b = _rhs(prep, resid)
-    x = solve_ops.solve_factored(prep.fac, b[..., None], prep.solver)[..., 0]
+    x = _solve(prep, _rhs(prep, resid))
     fi_out = torch.where(prep.unknown, x * prep.col_scale, fi)
 
     sens = None
@@ -246,6 +266,8 @@ def solve_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
         sens = X.transpose(-1, -2) * prep.col_scale[..., None, :]  # (B, K, NO)
         sens = torch.where(prep.unknown[..., None, :], sens, 0.0)
         sens = torch.where(prep.known[..., None, :], torch.nan, sens)
+        if fk.ndim == 3:
+            sens = sens.expand(fk.shape[0], *sens.shape)
     return fi_out, sens
 
 
@@ -259,26 +281,27 @@ def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     on *exact* norm stagnation (norm == previous norm) or after ``max_iter``
     corrective fits.  Sensitivities come from the initial solve only.
 
-    Returns (fi_out, sens, iterations) with per-case iteration counts.
+    Returns (fi_out, sens, iterations) with per-case iteration counts; fk
+    (F, B, K) solves F fields as :func:`solve_prepared` does, with counts
+    (F, B).
     """
     fi_cur, sens = solve_prepared(prep, fk, fi, do_sens)
     kmask = prep.w > 0
-    B = fk.shape[0]
-    done = torch.zeros(B, dtype=torch.bool, device=fk.device)
-    prev_norm = torch.full((B,), -1.0, dtype=fk.dtype, device=fk.device)
-    iters = torch.zeros(B, dtype=torch.int32, device=fk.device)
+    shape = fk.shape[:-1]
+    done = torch.zeros(shape, dtype=torch.bool, device=fk.device)
+    prev_norm = torch.full(shape, -1.0, dtype=fk.dtype, device=fk.device)
+    iters = torch.zeros(shape, dtype=torch.int32, device=fk.device)
     i = 0
     while i < max_iter and not bool(done.all()):
         coeffs = torch.where(prep.active, fi_cur, 0.0)
-        model = torch.einsum("bkj,bj->bk", prep.c, coeffs)
+        model = torch.einsum("bkj,...bj->...bk", prep.c, coeffs)
         resid = torch.where(kmask, fk - model, 0.0)
         norm = resid.abs().amax(dim=-1)
         done = done | (norm == prev_norm)
 
-        b = _rhs(prep, resid)
-        dx = solve_ops.solve_factored(prep.fac, b[..., None], prep.solver)[..., 0]
+        dx = _solve(prep, _rhs(prep, resid))
         fi_new = torch.where(prep.unknown, fi_cur + dx * prep.col_scale, fi_cur)
-        fi_cur = torch.where(done[:, None], fi_cur, fi_new)
+        fi_cur = torch.where(done[..., None], fi_cur, fi_new)
         iters = iters + (~done).to(torch.int32)
         prev_norm = norm
         i += 1

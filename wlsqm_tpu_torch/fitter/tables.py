@@ -11,6 +11,7 @@ Tables are small NumPy constants; the engine converts them to tensors on use.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from math import factorial
 
 import numpy as np
@@ -66,3 +67,38 @@ INV_FACT = {d: _inv_fact(EXPONENTS[d]) for d in (1, 2, 3)}
 
 # total polynomial degree of each DOF's monomial
 DEGREE = {d: EXPONENTS[d].sum(axis=1).astype(np.int32) for d in (1, 2, 3)}
+
+# map tuple(exponents) -> DOF index, per dimension
+_EXP_INDEX = {
+    d: {tuple(int(e) for e in row): j for j, row in enumerate(EXPONENTS[d])}
+    for d in (1, 2, 3)
+}
+
+
+@lru_cache(maxsize=None)
+def diff_projection(dimension: int, diff: int) -> np.ndarray:
+    """Projection matrix P with ``eval_diff(x) = c_baked(x) @ (P @ fi)``.
+
+    ``P[t, s] = 1`` iff DOF ``s``'s monomial exponent equals DOF ``t``'s
+    exponent plus the derivative multi-index of ``diff``.  Because
+    ``∂^m (d**e/e!) = d**(e-m)/(e-m)!``, applying P to the (baked)
+    coefficient vector gives the baked coefficients of the ``diff``-th
+    derivative of the surrogate (reference: wlsqm/fitter/interp.pyx:316-932).
+
+    Returns a (SIZE, SIZE) float64 0/1 matrix.
+    """
+    exp = EXPONENTS[dimension]
+    n = exp.shape[0]
+    if not (0 <= diff < n):
+        raise ValueError(
+            "diff must be a valid DOF index for dimension %d (0..%d); got %d"
+            % (dimension, n - 1, diff))
+    d = exp[diff]
+    P = np.zeros((n, n), dtype=np.float64)
+    for s in range(n):
+        rem = exp[s] - d
+        if (rem >= 0).all():
+            t = _EXP_INDEX[dimension].get(tuple(int(e) for e in rem))
+            if t is not None:
+                P[t, s] = 1.0
+    return P

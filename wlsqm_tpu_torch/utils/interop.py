@@ -2,11 +2,14 @@
 
 WLSQM has no learned weights: the state worth carrying over is the
 prepared geometry of an expert-mode solve (basis rows, weights, scalings
-and the Cholesky factor).  :func:`prepared_from_numpy` builds this
-package's :class:`~wlsqm_tpu_torch.fitter.engine.Prepared` from the fields
-of a JAX ``Prepared`` turned into NumPy arrays, so that
-``solve_prepared`` computes the same thing in both packages.  Nothing here
-imports JAX: the caller does the conversion, e.g.
+and the Cholesky factor) and the window plan of an IBVP gather.
+:func:`prepared_from_numpy` builds this package's
+:class:`~wlsqm_tpu_torch.fitter.engine.Prepared` from the fields of a JAX
+``Prepared`` turned into NumPy arrays, so that ``solve_prepared`` computes
+the same thing in both packages; :func:`gather_plan_from_fields` builds a
+:class:`~wlsqm_tpu_torch.ops.gather.GatherPlan` from
+``dataclasses.asdict`` of a JAX ``GatherPlan``.  Nothing here imports JAX:
+the caller does the conversion, e.g.
 ``{f.name: np.asarray(getattr(prep, f.name)) for f in fields(prep)}`` with
 ``fac`` given as its tuple of arrays.
 """
@@ -20,6 +23,7 @@ import torch
 
 from wlsqm_tpu_torch import config
 from wlsqm_tpu_torch.fitter import engine
+from wlsqm_tpu_torch.ops import gather
 
 _BOOL = ("active", "known", "unknown")
 _INT = ("ruiz_iters",)
@@ -61,3 +65,18 @@ def prepared_from_numpy(fields: dict, *, dimension: int, solver: str,
     fac = tuple(fac) if isinstance(fac, (tuple, list)) else (fac,)
     kw["fac"] = tuple(config.as_tensor(np.asarray(f), device) for f in fac)
     return engine.Prepared(dimension=dimension, solver=solver, **kw)
+
+
+def gather_plan_from_fields(fields: dict) -> gather.GatherPlan:
+    """A port ``GatherPlan`` from the fields of a JAX one (``dataclasses.asdict``).
+
+    Every field must be present and no other; ``meta`` and ``bad_blocks``
+    become tuples of ints, the sizes ints.
+    """
+    names = {f.name for f in dataclasses.fields(gather.GatherPlan)}
+    if set(fields) != names:
+        raise ValueError("GatherPlan fields: missing %s, unknown %s"
+                         % (sorted(names - set(fields)), sorted(set(fields) - names)))
+    kw = {k: tuple(int(v) for v in np.asarray(fields[k]).ravel())
+          if k in ("meta", "bad_blocks") else int(fields[k]) for k in names}
+    return gather.GatherPlan(**kw)
