@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA card: build, check, time.
 
-Builds the three CUDA kernels from ``wlsqm_tpu_torch/csrc`` (one nvcc run
-per source, started together), checks each against its plain torch
-version, then drives four paths through the port's public routes:
+Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (five libraries from
+three sources — each fit kernel without and with its conditioning key —
+one nvcc run each, started together), checks each against its plain torch
+version, then drives five paths through the port's public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
@@ -14,7 +15,18 @@ version, then drives four paths through the port's public routes:
 * the IBVP heat step — the ``gather`` row (l.238-289) on a 2^22-point
   Morton-ordered cloud, K = 28: ``prepare`` once, then per step
   ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
-  three; then the heat example ``wlsqm_tpu_torch.examples.ibvp_heat``.
+  three; then the heat example ``wlsqm_tpu_torch.examples.ibvp_heat``;
+* the certified auto route — 2D, order 4, K = 30, WEIGHT_CENTER on 2^22
+  cases whose radius is log-uniform in [0.1, 1] with 5% near-collinear
+  neighbourhoods (over [0.03, 1], the calibration sweep's range, fewer than
+  half the cases certify and the plan is the engine: planned and printed):
+  ``plan_fit_many`` (probe, ladder, the key on every planning case),
+  ``fit_many(plan=)`` (the per-case split: the moment
+  kernel with its key for all, the f64 engine for the tail window),
+  ``fit_many(backend="auto")`` (the eager split), and the same with a known
+  DOF (the rows kernel with its key); held against a long-double-refined
+  oracle, after ``calibrate_device`` has measured the card's units anew and
+  held the shipped record to them.
 
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
@@ -49,6 +61,17 @@ B_ENGINE = 65536        # slice checked against the port's f64 engine
 B_ENGINE_DIM3 = 16384
 B_SWEEP = 16384         # 3D order-4 radius sweep, per radius
 B_SCIPY = 1024          # slice checked against bench.parity_check (scipy f64)
+B_CERT = 1 << 22        # the certified auto route
+B_CERT_ROWS = 1 << 20   # ... its rows-kernel part (a known DOF)
+B_PLAN = 32768          # cases a plan is made from
+B_ORACLE = 8192         # sample held against the long-double-refined oracle
+B_COND2 = 4096          # keys held against cond_2 by SVD
+KEY_TOL = 1e-6          # kernel key vs plain key, relative (its own sensitivity
+                        # is ~cond * 2^-53)
+COLLINEAR = 0.05        # share of near-collinear cases on the certified route
+SQUEEZE = 1e-3          # their neighbours' extent across a random direction
+RADII_CERT = (0.1, 1.0)   # its radii, log-uniform: about two cases in three certify
+RADII_WIDE = (0.03, 1.0)  # the calibration sweep's range: a minority certifies
 K = 30
 K_DIM3 = 48
 K_GRID = {1: 16, 2: 30, 3: 56}
@@ -208,6 +231,19 @@ def _moment_flops(order, center, n, refine):
     return float(total.sum())
 
 
+def _cond_flops(NO, body):
+    """FP64 operations of the conditioning key per case, from the kernels'
+    loops: the NO^2 row-sum terms (the moment body scales each entry on the
+    fly), NO reciprocals, and per unit column e_i a forward and a backward
+    substitution from row i, with the squares."""
+    total = (4 if body == "moments" else 2) * NO * NO + NO
+    for i in range(NO):
+        for r in range(i, NO):
+            total += 2 * (r - i) + 1            # forward row r
+            total += 2 * (NO - 1 - r) + 1 + 3   # backward row r, x^2 into the sum
+    return total + 2
+
+
 def _bound(tensors, flops):
     """The least time for the work: bytes (each tensor moved once) over the
     HBM rate, or FP64 operations over the FP64 rate, whichever is larger."""
@@ -235,11 +271,14 @@ def _weighted_basis(xk, fk, nk, xi, dim, order, weighting):
 # -- phases ---------------------------------------------------------------------
 
 def phase_build():
-    """Build the three libraries, one nvcc run each, started together; print
+    """Build the five libraries, one nvcc run each, started together; print
     each ptxas report."""
+    from functools import partial
+
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
-    jobs = {"fit_moment": fit_kernel.load, "fit_rows": fit_rows.load,
+    jobs = {"fit_moment": fit_kernel.load, "fit_moment_cond": partial(fit_kernel.load, True),
+            "fit_rows": fit_rows.load, "fit_rows_cond": partial(fit_rows.load, True),
             "gather": gather.load}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
@@ -247,7 +286,7 @@ def phase_build():
         libs = {name: f.result() for name, f in futures.items()}
     wall = time.perf_counter() - t0
     for name, lib in libs.items():
-        if name == "fit_moment":
+        if name.startswith("fit_moment"):
             ptxas = _ptxas_summary(lib.log, r"fit_moment_2dILi(\d+)ELi(\d+)E",
                                    "order%s_w%s")
         elif name == "gather":
@@ -679,6 +718,11 @@ def _bits(t):
     return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit: NaN equals NaN of the same bits."""
+    return torch.equal(_bits(a), _bits(b))
+
+
 def _local_idx(rng, n, B, K, spread=40):
     base = np.sort(rng.integers(0, n, B))
     return np.clip(base[:, None] + rng.integers(-spread, spread, (B, K)), 0, n - 1)
@@ -994,6 +1038,449 @@ def phase_heat_example(dev):
         raise RuntimeError("the heat example did not run its gathers on the card")
 
 
+# -- the certified auto route ------------------------------------------------------
+
+def _key_check(name, key, ref, worst):
+    """Kernel key against plain key: the same non-finite pattern, finite keys
+    within KEY_TOL (relative); tracks the worst differences."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(key)):
+        raise RuntimeError("conditioning key: non-finite pattern differs: %s" % name)
+    if bool(fin.any()):
+        diff = (key[fin] - ref[fin]).abs()
+        worst["abs"] = max(worst["abs"], diff.max().item())
+        rel = (diff / ref[fin]).max().item()
+        worst["rel"] = max(worst["rel"], rel)
+        if not rel <= KEY_TOL:
+            raise RuntimeError("conditioning key vs plain %s: %.3e > %.0e"
+                               % (name, rel, KEY_TOL))
+    return fin
+
+
+def _same(name, a, b):
+    """The outputs of a launch with the key equal those of one without, bit
+    for bit (NaN sens columns of known DOFs compare as bits too)."""
+    for x, y in zip(a, b):
+        if (x is None) != (y is None) or (x is not None and not torch.equal(
+                _bits(x) if x.dtype.is_floating_point else x,
+                _bits(y) if y.dtype.is_floating_point else y)):
+            raise RuntimeError("outputs differ with and without the key: %s" % name)
+
+
+def phase_cond_vs_plain(dev, wtt):
+    """Both kernels with ``emit_cond=True`` against their plain versions at
+    2^18 over the grids of phase_moment_vs_plain and phase_rows_vs_plain (2D
+    orders 0-4, both weightings; dims 1-3 with a random knowns mask; ragged
+    nk, xi off zero): the finite keys agree to KEY_TOL, the non-finite
+    pattern is the same, and every other output is bit-identical with and
+    without the key (the rows kernel's sens and ALGO_ITERATIVE outputs too,
+    at B_GRID).  Then, at 2D and 3D order 4: key >= 0.999 cond_2 amp by SVD
+    on B_COND2 cases, and collapsed or collinear neighbourhoods never
+    certify.  Times the launches with the key at the headline
+    configuration, their plain versions and ``condprobe.cond_key``, and the
+    rows launch without and with the key at the dim3 path's configuration."""
+    from wlsqm_tpu_torch.fitter import condprobe, defs
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    gen = torch.Generator(device=dev).manual_seed(2030)
+    cpu_gen = torch.Generator().manual_seed(2030)
+    worst = {"moments": {"abs": 0.0, "rel": 0.0}, "rows": {"abs": 0.0, "rel": 0.0}}
+    per, B = {}, B_PLAIN
+    for order in range(ORDER + 1):
+        for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+            xk, fk, nk, xi = _cloud(B, gen, dev, order=order, ragged=True, offset=True)
+            kw = dict(dimension=2, order=order, weighting=w)
+            fi0 = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+            fi1, key = fit_kernel.fit_kernel(xk, fk, nk, xi, emit_cond=True, **kw)
+            _, ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, emit_cond=True, **kw)
+            torch.cuda.synchronize()
+            name = "moments_o%d_w%d" % (order, w)
+            _same(name, (fi0,), (fi1,))
+            fin = _key_check(name, key, ref, worst["moments"])
+            per[name] = {"key_median": key[fin].median().item(),
+                         "key_max": key[fin].max().item()}
+            del xk, fk, fi0, fi1, key, ref
+    for dim in (1, 2, 3):
+        for order in range(ORDER + 1):
+            NO = defs.number_of_dofs(dim, order)
+            w = wtt.WEIGHT_CENTER if (dim + order) % 2 else wtt.WEIGHT_UNIFORM
+            xk, fk, nk, xi = _cloud(B, gen, dev, dim=dim, K=K_GRID[dim], order=order,
+                                    ragged=True, offset=True,
+                                    lo=2 * NO if dim == 1 else None)
+            fi_init = torch.randn((B, NO), generator=gen, device=dev, dtype=torch.float64)
+            kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
+            kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
+            name = "rows_d%d_o%d_w%d" % (dim, order, w)
+            got0 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, **kw)
+            got1 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
+            ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
+            torch.cuda.synchronize()
+            _same(name, got0, got1[:3])
+            fin = _key_check(name, got1[3], ref[3], worst["rows"])
+            per[name] = {"key_median": got1[3][fin].median().item(),
+                         "key_max": got1[3][fin].max().item(), "knowns": kn}
+            s = slice(0, B_GRID)
+            small = (xk[s], fk[s], nk[s], xi[s], fi_init[s])
+            for extra in (dict(do_sens=True), dict(max_iter=3)):
+                a = fit_rows.fit_rows(*small, **kw, **extra)
+                b = fit_rows.fit_rows(*small, emit_cond=True, **kw, **extra)
+                _same(name + str(extra), a, b[:3])
+                if not torch.equal(_bits(b[3]), _bits(got1[3][s])):
+                    raise RuntimeError("the key changes with %s: %s" % (extra, name))
+            del xk, fk, fi_init, got0, got1, ref
+
+    # the bound est >= cond_2 * amp, and degenerate cases: 2D and 3D, order 4
+    bounds = {}
+    edges = condprobe.est_certified_edges()
+    top_edge = max(e for e in edges.values() if e)
+    for dim, Kd in ((2, K), (3, K_GRID[3])):
+        xk, fk, nk, xi = _cloud(B_COND2, gen, dev, dim=dim, K=Kd, radius=0.3, offset=True)
+        xk[:64] = xi[:64, None, :]                         # collapsed onto xi
+        line = xi[64:128, None, :] + (xk[64:128, :, :1] - xi[64:128, None, :1])
+        xk[64:128] = line                                  # on a line through xi
+        kw = dict(dimension=dim, order=ORDER, weighting=wtt.WEIGHT_CENTER)
+        keys = {"rows": fit_rows.fit_rows(xk, fk, nk, xi, emit_cond=True, **kw)[3]}
+        if dim == 2:
+            keys["moments"] = fit_kernel.fit_kernel(xk, fk, nk, xi, emit_cond=True, **kw)[1]
+        cond, amp = condprobe.probe(xk[128:], nk[128:], xi[128:], ORDER,
+                                    wtt.WEIGHT_CENTER, dimension=dim,
+                                    sample=B_COND2)
+        ca = torch.as_tensor(cond * amp, device=dev)
+        for body, key in keys.items():
+            if bool((key[:128] <= top_edge).any()):
+                raise RuntimeError("a degenerate case certifies (%s, %dD): %s"
+                                   % (body, dim, key[:128].min().item()))
+            ratio = key[128:] / ca
+            bounds["%s_%dd" % (body, dim)] = {"min": ratio.min().item(),
+                                              "median": ratio.median().item(),
+                                              "max": ratio.max().item()}
+            if not bool((ratio >= 0.999).all()):
+                raise RuntimeError("key < 0.999 cond_2 amp (%s, %dD): %.6f"
+                                   % (body, dim, ratio.min().item()))
+
+    # the launches with the key at the headline configuration, B_PLAIN cases
+    xk, fk, nk, xi = _cloud(B, torch.Generator(device=dev).manual_seed(42), dev)
+    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+    out = torch.empty((B, 15), dtype=torch.float64, device=dev)
+    est = torch.empty((B,), dtype=torch.float64, device=dev)
+    W, RS = wtt.WEIGHT_CENTER, fit_kernel.DEFAULT_REFINE_STEPS
+    kw = dict(order=ORDER, weighting=W, refine_steps=RS)
+    times = {
+        "moments_launch": _time_ms(lambda: fit_kernel._launch(
+            xk, fk, nk, xi, inv_s, out, **kw)),
+        "moments_launch_key": _time_ms(lambda: fit_kernel._launch(
+            xk, fk, nk, xi, inv_s, out, est, **kw)),
+        "rows_launch": _time_ms(lambda: fit_rows._launch(
+            xk, fk, nk, xi, inv_s, None, out, None, None, knowns=0, max_iter=0, **kw)),
+        "rows_launch_key": _time_ms(lambda: fit_rows._launch(
+            xk, fk, nk, xi, inv_s, None, out, None, None, est, knowns=0, max_iter=0,
+            **kw)),
+        "moments_plain_key": _time_ms(lambda: fit_kernel.fit_moments_plain(
+            xk, fk, nk, xi, dimension=2, order=ORDER, weighting=W, emit_cond=True)),
+        "rows_plain_key": _time_ms(lambda: fit_rows.fit_rows_plain(
+            xk, fk, nk, xi, dimension=2, order=ORDER, weighting=W, emit_cond=True)),
+        "library_cond_key": _time_ms(lambda: condprobe.cond_key(
+            xk, nk, xi, dimension=2, order=ORDER, weighting=W)),
+    }
+    # ... and at 3D order 4 (NO = 35: the factor lives in local memory)
+    d3 = _cloud(B, torch.Generator(device=dev).manual_seed(44), dev, dim=3, K=K_DIM3)
+    _, _, _, inv_s3 = fit_kernel._prescale(d3[0], d3[2], d3[3])
+    out3 = torch.empty((B, 35), dtype=torch.float64, device=dev)
+    for name, e in (("rows_dim3_launch", None), ("rows_dim3_launch_key", est)):
+        times[name] = _time_ms(lambda e=e: fit_rows._launch(
+            *d3, inv_s3, None, out3, None, None, e, knowns=0, max_iter=0, **kw))
+    bound_r3 = _bound((*d3, inv_s3, out3, est),
+                      _rows_flops(3, ORDER, True, d3[2].long(), RS, False, 0, 0)
+                      + float(B * _cond_flops(35, "rows")))
+    del d3, inv_s3, out3
+    med = {k: v[0] for k, v in times.items()}
+    n = nk.long()
+    key_flops = float(B * _cond_flops(15, "moments"))
+    bound_m = _bound((xk, fk, nk, xi, inv_s, out, est),
+                     _moment_flops(ORDER, True, n, RS) + key_flops)
+    bound_r = _bound((xk, fk, nk, xi, inv_s, out, est),
+                     _rows_flops(2, ORDER, True, n, RS, False, 0, 0)
+                     + float(B * _cond_flops(15, "rows")))
+    print(json.dumps({"cond_vs_plain": per, "worst": worst, "tol": KEY_TOL, "B": B,
+                      "fi_bit_identical_with_key": True,
+                      "key_over_cond2_amp": bounds, "degenerate_never_certify": True,
+                      "ms_2^18": {k: v[1] for k, v in times.items()},
+                      "bound_moments_key": bound_m, "bound_rows_key": bound_r,
+                      "bound_rows_dim3_key": bound_r3}),
+          flush=True)
+    return {
+        "moments": {"ms": med["moments_launch_key"], "plain_ms": med["moments_plain_key"],
+                    "library_ms": med["library_cond_key"], **bound_m,
+                    "ms_without_key": med["moments_launch"], **{
+                        "max_%s_err" % k: v for k, v in worst["moments"].items()}},
+        "rows": {"ms": med["rows_launch_key"], "plain_ms": med["rows_plain_key"],
+                 "library_ms": med["library_cond_key"], **bound_r,
+                 "ms_without_key": med["rows_launch"], **{
+                     "max_%s_err" % k: v for k, v in worst["rows"].items()}}}
+
+
+def phase_calibrate():
+    """``calibrate_device`` on the card, at the kernels' default sweep count
+    and with a second sweep (does it widen the certified edge?); the shipped
+    record must hold each unit of the first within 2x."""
+    import dataclasses
+
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+
+    shipped = calibration.active()
+    if not (shipped.certified and shipped.source == "shipped"):
+        raise RuntimeError("no shipped calibration record for this card: %s" % (shipped,))
+    out = {}
+    for steps in (None, 2):
+        t0 = time.perf_counter()
+        cal = calibration.calibrate_device(persist=False, refine_steps=steps)
+        edges = condprobe.est_certified_edges()       # of the record just installed
+        gate = condprobe.AUTO_TOL / condprobe.SAFETY
+        out["refine_steps_%s" % (steps or "default")] = {
+            "record": dataclasses.asdict(cal), "seconds": time.perf_counter() - t0,
+            "key_edges": edges,
+            "cond_amp_edges": {"rows": gate / cal.f64_cert_unit,
+                               "moments": gate / cal.f64_cert_unit_m}}
+        if steps is None:
+            measured = cal
+        calibration._reset_cache()                    # back to the shipped record
+    ratios = {}
+    for f in dataclasses.fields(shipped):
+        a, b = getattr(shipped, f.name), getattr(measured, f.name)
+        if f.name.endswith(("unit", "unit_m")):
+            ratios[f.name] = b / a
+    print(json.dumps({"calibrate": out, "shipped": dataclasses.asdict(shipped),
+                      "measured_over_shipped": ratios}), flush=True)
+    bad = {k: v for k, v in ratios.items() if not 0.5 <= v <= 2.0}
+    if bad:
+        raise RuntimeError("the shipped calibration record is off by more than 2x: %s"
+                           % (bad,))
+
+
+def _certified_cloud(B, dev, radii=RADII_CERT):
+    """The certified route's batch: xi uniform in [-1, 1]^2, each case's
+    radius log-uniform in ``radii``, K = 30 neighbours uniform in the
+    radius' square, and a seeded COLLINEAR share of cases squeezed to
+    SQUEEZE of their extent across a random direction (along a coordinate
+    axis the Jacobi scale would undo the squeeze); fk as the calibration's
+    problem (sin 3x cos 2y + 0.3 x y)."""
+    gen = torch.Generator(device=dev).manual_seed(2031)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    xi = rand(B, 2) * 2 - 1
+    radius = torch.exp(math.log(radii[0]) + rand(B) * math.log(radii[1] / radii[0]))
+    d = (rand(B, K, 2) * 2 - 1) * radius[:, None, None]
+    squeezed = rand(B) < COLLINEAR
+    angle = rand(B) * math.pi
+    n = torch.stack([torch.cos(angle), torch.sin(angle)], dim=1)      # across-direction
+    across = (d * n[:, None, :]).sum(-1, keepdim=True) * n[:, None, :]
+    d = torch.where(squeezed[:, None, None], d - (1.0 - SQUEEZE) * across, d)
+    xk = xi[:, None, :] + d
+    fk = torch.sin(3 * xk[..., 0]) * torch.cos(2 * xk[..., 1]) + 0.3 * xk[..., 0] * xk[..., 1]
+    return xk, fk, xi, squeezed
+
+
+def _oracle_err(fi, xk, fk, xi, sel):
+    """Per-case error of fi[sel] against the long-double-refined oracle,
+    relative to the case's max |ref| (the calibration's measure); NaN where
+    the oracle itself fails (a singular neighbourhood)."""
+    from wlsqm_tpu_torch.fitter import calibration
+
+    err = np.full(len(sel), np.nan)
+    if len(sel) == 0:
+        return err
+    a = [t[sel].cpu().numpy() for t in (xk, xi, fk)]
+    got = fi[sel].cpu().numpy()
+    with np.errstate(all="ignore"):
+        for lo in range(0, len(sel), 512):      # a singular case spoils its chunk only
+            s = slice(lo, lo + 512)
+            try:
+                ref = calibration._strong_oracle(a[0][s], a[1][s], a[2][s], 2, 2)
+            except np.linalg.LinAlgError:
+                continue
+            err[s] = np.abs(got[s] - ref).max(-1) / np.abs(ref).max(-1)
+    return err
+
+
+def phase_certified(dev, wtt):
+    """The certified auto route at full width (B_CERT cases): the plan from
+    the first B_PLAN cases, its replay, the eager auto route, and the auto
+    route with a known DOF (the rows kernel), with the launch counts read
+    right after; then the checks and the times."""
+    from wlsqm_tpu_torch import api
+    from wlsqm_tpu_torch.fitter import condprobe
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xk, fk, xi, squeezed = _certified_cloud(B_CERT, dev)
+    nk = torch.full((B_CERT,), K, dtype=torch.int32, device=dev)
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    r = slice(0, B_CERT_ROWS)
+    kn = wtt.b2_F
+    fi_init = torch.zeros((B_CERT_ROWS, 15), dtype=torch.float64, device=dev)
+    fi_init[:, 0] = fk[r, 0]          # the known value of F: some neighbour's fk
+
+    # ---- the main path, counts set to 0 just before and read just after ----
+    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = 0
+    fit_kernel.COND_LAUNCHES = fit_rows.COND_LAUNCHES = 0
+    t0 = time.perf_counter()
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    res_plan = wtt.fit_many(xk, fk, xi, plan=plan, **kw)
+    res_auto = wtt.fit_many(xk, fk, xi, backend="auto", **kw)
+    res_rows = wtt.fit_many(xk[r], fk[r], xi[r], backend="auto", knowns=kn,
+                            fi_init=fi_init, **kw)
+    torch.cuda.synchronize()
+    launches = {"fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
+                "cond_estimate@fit_moment_2d": fit_kernel.COND_LAUNCHES,
+                "cond_estimate@fit_rows": fit_rows.COND_LAUNCHES}
+    route = plan.route
+    shown = ("path", "assembly", "kernel_precision", "refine_steps", "split_edge",
+             "tail_frac")
+    # the same plan over the calibration sweep's radii: a certified minority
+    wide = _certified_cloud(B_PLAN, dev, RADII_WIDE)
+    wide_route = wtt.plan_fit_many(wide[0], wide[2], **kw).route
+    wide_key = fit_kernel.fit_kernel(wide[0], wide[1], nk[:B_PLAN], wide[2], dimension=2,
+                                     emit_cond=True, **kw)[1]
+    edge_m = condprobe.split_partition_choice(assembly="moments")[1]
+    print(json.dumps({"path": "certified", "B": B_CERT, "plan_from": B_PLAN,
+                      "radii": RADII_CERT,
+                      "route": {f: getattr(route, f) for f in shown},
+                      "plan_s": plan_s, "launches": launches,
+                      "radii_wide": RADII_WIDE,
+                      "route_wide": {f: getattr(wide_route, f) for f in shown},
+                      "certified_share_wide": (wide_key <= edge_m).double().mean().item()}),
+          flush=True)
+    del wide, wide_key
+    if (route.path, route.assembly) != ("kernel-split", "moments"):
+        raise RuntimeError("the plan is not a moment-kernel split: %s" % (route,))
+    if launches["cond_estimate@fit_moment_2d"] < 3 or launches["cond_estimate@fit_rows"] < 1:
+        raise RuntimeError("the certified route did not launch the kernels' keys: %s"
+                           % (launches,))
+    for name, res, n in (("plan", res_plan, B_CERT), ("auto", res_auto, B_CERT),
+                         ("rows", res_rows, B_CERT_ROWS)):
+        if tuple(res.fi.shape) != (n, 15):
+            raise RuntimeError("certified %s: shape %s" % (name, tuple(res.fi.shape)))
+
+    # ---- what the route is made of: the kernel alone, the key, the engine ----
+    fi_kernel = wtt.fit_many(xk, fk, xi, backend="kernel", **kw).fi
+    fi_k1, key = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, emit_cond=True, **kw)
+    if not _same_bits(fi_kernel, fi_k1):
+        raise RuntimeError("fi differs with and without the key at 2^22")
+    del fi_k1
+    edge = route.split_edge
+    bad = ~(key <= edge)
+    n_bad = int(bad.sum())
+    k = max(1, min(int(math.ceil(route.tail_frac * B_CERT)), B_CERT))
+    over = bad.nonzero().squeeze(1)
+    gkw = dict(dim=2, order=ORDER, knowns=0, weighting=wtt.WEIGHT_CENTER)
+
+    # (b) the replay equals its composition: the kernel's result with the
+    # first k over-edge cases overwritten by the engine run on those cases
+    idx = api._first_over_edge(key, edge, k)
+    if not torch.equal(idx[idx < B_CERT], over[:k]):
+        raise RuntimeError("the tail window is not the first k over-edge cases")
+    idxc = idx.clamp_max(B_CERT - 1)
+    tail = api._engine_group(xk[idxc], fk[idxc], nk[idxc], xi[idxc], None, **gkw)
+    expect = torch.cat([fi_kernel, fi_kernel.new_empty((1, 15))])
+    expect[idx] = tail
+    plan_equal = _same_bits(res_plan.fi, expect[:B_CERT])
+    del expect, tail
+    # (c) the eager route: kernel bits on the certified cases, the engine run
+    # on exactly the over-edge cases elsewhere
+    tail = api._engine_group(xk[over], fk[over], nk[over], xi[over], None, **gkw)
+    auto_equal = (_same_bits(res_auto.fi[~bad], fi_kernel[~bad])
+                  and _same_bits(res_auto.fi[over], tail))
+    del tail
+    # (e) the rows route: the same two checks with the rows kernel's key
+    fi_r, _, _, key_r = fit_rows.fit_rows(xk[r], fk[r], nk[r], xi[r], fi_init, dimension=2,
+                                          knowns=kn, emit_cond=True, **kw)
+    edge_r = condprobe.split_partition_choice(assembly="rows")[1]
+    bad_r = ~(key_r <= edge_r)
+    over_r = bad_r.nonzero().squeeze(1)
+    tail = api._engine_group(xk[r][over_r], fk[r][over_r], nk[r][over_r], xi[r][over_r],
+                             fi_init[over_r], **dict(gkw, knowns=kn))
+    rows_equal = (_same_bits(res_rows.fi[~bad_r], fi_r[~bad_r])
+                  and _same_bits(res_rows.fi[over_r], tail))
+    rows_vs_engine = _rel(res_rows.fi[:B_ENGINE][~bad_r[:B_ENGINE]], wtt.fit_many(
+        xk[:B_ENGINE], fk[:B_ENGINE], xi[:B_ENGINE], backend="engine", knowns=kn,
+        fi_init=fi_init[:B_ENGINE], **kw).fi[~bad_r[:B_ENGINE]])
+    del tail, fi_r
+
+    # the oracle on a seeded sample: every certified case within 1e-10; the
+    # tail's own error is reported
+    sample = torch.randperm(B_CERT, generator=torch.Generator(device=dev).manual_seed(
+        2032), device=dev)[:B_ORACLE]
+    window = torch.zeros(B_CERT, dtype=torch.bool, device=dev)
+    window[over[:k]] = True
+    groups = {"certified": sample[~bad[sample]],
+              "tail": sample[bad[sample] & ~squeezed[sample]],
+              "tail_collinear": sample[bad[sample] & squeezed[sample]]}
+    errors = {}
+    for name, fi in (("plan", res_plan.fi), ("auto", res_auto.fi), ("kernel", fi_kernel)):
+        for g, sel in groups.items():
+            if name == "plan" and g != "certified":
+                sel = sel[window[sel]]           # overflow cases stay on the kernel
+            e = _oracle_err(fi, xk, fk, xi, sel)
+            fin = e[np.isfinite(e)]
+            errors["%s_%s" % (name, g)] = {
+                "cases": len(sel), "oracle_failed": int(len(e) - len(fin)),
+                "max": float(fin.max()) if len(fin) else None,
+                "median": float(np.median(fin)) if len(fin) else None}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- times ----
+    times = {
+        "fit_many_plan": _time_ms(lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw)),
+        "fit_many_auto": _time_ms(lambda: wtt.fit_many(xk, fk, xi, backend="auto", **kw)),
+        "fit_many_kernel": _time_ms(lambda: wtt.fit_many(xk, fk, xi, backend="kernel", **kw)),
+        "engine_on_tail": _time_ms(lambda: api._engine_group(
+            xk[over], fk[over], nk[over], xi[over], None, **gkw)),
+        "probe": _time_ms(lambda: condprobe.probe(xk, nk, xi, ORDER, wtt.WEIGHT_CENTER,
+                                                  dimension=2)),
+    }
+    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+    out = torch.empty((B_CERT, 15), dtype=torch.float64, device=dev)
+    est = torch.empty((B_CERT,), dtype=torch.float64, device=dev)
+    lkw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER,
+               refine_steps=fit_kernel.DEFAULT_REFINE_STEPS)
+    times["launch"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, inv_s, out, **lkw))
+    times["launch_key"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, inv_s, out,
+                                                              est, **lkw))
+    med = {name: v[0] for name, v in times.items()}
+    print(json.dumps({
+        "path": "certified", "split_edge": edge, "rows_edge": edge_r,
+        "certified_share": 1.0 - n_bad / B_CERT, "tail": n_bad, "tail_window": k,
+        "tail_overflow": max(n_bad - k, 0), "collinear": int(squeezed.sum()),
+        "rows_certified_share": 1.0 - int(bad_r.sum()) / B_CERT_ROWS,
+        "key": {"median": key.nanmedian().item(), "max_finite": key[
+            torch.isfinite(key)].max().item(), "non_finite": int((~torch.isfinite(key)).sum())},
+        "plan_equals_composition": plan_equal, "auto_equals_composition": auto_equal,
+        "rows_auto_equals_composition": rows_equal,
+        "rows_certified_vs_engine": rows_vs_engine,
+        "err_vs_oracle": errors, "oracle_sample": B_ORACLE, "tol": PARITY,
+        "ms": {name: v[1] for name, v in times.items()},
+        "key_share_of_launch_ms": med["launch_key"] - med["launch"],
+        "fits_per_s": {name: B_CERT / med[name] * 1e3 for name in (
+            "fit_many_plan", "fit_many_auto", "fit_many_kernel")},
+        "peak_mem_gb": round(peak_gb, 3)}), flush=True)
+    if not (plan_equal and auto_equal and rows_equal):
+        raise RuntimeError("a certified route differs from its composition: plan %s, "
+                           "auto %s, rows %s" % (plan_equal, auto_equal, rows_equal))
+    for name in ("plan_certified", "auto_certified"):
+        e = errors[name]
+        if e["oracle_failed"] or not e["max"] <= PARITY:
+            raise RuntimeError("certified cases against the oracle (%s): %s > %.0e"
+                               % (name, e, PARITY))
+    if not rows_vs_engine <= PARITY:
+        raise RuntimeError("rows route, certified cases vs engine: %.3e > %.0e"
+                           % (rows_vs_engine, PARITY))
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1016,6 +1503,8 @@ def main() -> int:
     phase_build()
     m_abs, m_rel = phase_moment_vs_plain(dev, wtt)
     r_abs, r_rel = phase_rows_vs_plain(dev, wtt)
+    cond = phase_cond_vs_plain(dev, wtt)
+    phase_calibrate()
     phase_radius_sweep(dev, wtt)
     torch.cuda.empty_cache()
     moment = phase_headline(dev, wtt, parity_check)
@@ -1023,6 +1512,8 @@ def main() -> int:
     sens = phase_sens(dev, wtt, parity_check)
     torch.cuda.empty_cache()
     dim3 = phase_dim3(dev, wtt)
+    torch.cuda.empty_cache()
+    cert_launches = phase_certified(dev, wtt)
     torch.cuda.empty_cache()
     pts, idx_np, plan, setup = ibvp_setup()
     g_abs = phase_gather_vs_plain(dev, idx_np, plan)
@@ -1048,6 +1539,13 @@ def main() -> int:
               "wlsqm_tpu/ops/gather.py:168", g_abs, 0.0, ibvp,
               "IBVP step: n=2^22, K=28, f64, F=1; launches over %d steps, "
               "library torch.index_select" % STEPS, batch=N_IBVP),
+        *(entry("cond_estimate@" + kernel, "wlsqm_tpu_torch/csrc/%s.cu" % src,
+                "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],
+                dict(t, launches=cert_launches["cond_estimate@" + kernel]),
+                "the launch with the key: 2D order 4 K=30 CENTER basic; launches on "
+                "the certified route; library condprobe.cond_key")
+          for kernel, src, t in (("fit_moment_2d", "fit_moment", cond["moments"]),
+                                 ("fit_rows", "fit_rows", cond["rows"]))),
     ], "fit_rows_dim3": dim3, "total_s": round(time.perf_counter() - t_start, 1)}),
         flush=True)
     print(smi.splitlines()[0])

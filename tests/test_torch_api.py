@@ -14,7 +14,7 @@ import torch
 
 import wlsqm_tpu as wt
 import wlsqm_tpu_torch as wtt
-from torch_port_cases import cloud, rel_err
+from torch_port_cases import cloud, rel_err, roomy_units
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
 torch.set_num_threads(1)
@@ -59,18 +59,20 @@ def test_headline_plan_routes_to_the_kernel():
                              device=CPU).route.refine_steps == 3
 
 
-def test_knowns_batch_goes_to_the_engine_and_matches():
+def test_knowns_batch_goes_to_the_engine_and_matches(monkeypatch):
     """A knowns batch with sens: the plan picks the rows kernel (before the
     rows kernel existed it went to the engine); both match the JAX f64
-    route, and the known DOFs keep their prescribed values bit-exactly."""
+    route, and the known DOFs keep their prescribed values bit-exactly.
+    Routing by configuration: the record certifies every case."""
+    roomy_units(monkeypatch)
     rng = np.random.default_rng(1)
     case = cloud(rng, 256, 30, 2, orders=(3,), weightings=(2,), radius=(0.3, 1.0))
     kn = wt.b2_F | wt.b2_XY
     args = (case["xk"], case["fk"], case["xi"])
     kw = dict(nk=case["nk"], order=3, knowns=kn, weighting=2, fi_init=case["fi0"],
               device=CPU)
-    plan = wtt.plan_fit_many(case["xk"], case["xi"], order=3, knowns=kn, weighting=2,
-                             do_sens=True, device=CPU)
+    plan = wtt.plan_fit_many(case["xk"], case["xi"], nk=case["nk"], order=3, knowns=kn,
+                             weighting=2, do_sens=True, device=CPU)
     assert (plan.route.path, plan.route.assembly) == ("kernel", "rows")
     before = fit_kernel.LAUNCHES, fit_rows.LAUNCHES
     res = wtt.fit_many(*args, plan=plan, do_sens=True, **kw)
@@ -85,13 +87,15 @@ def test_knowns_batch_goes_to_the_engine_and_matches():
     assert (fit_kernel.LAUNCHES, fit_rows.LAUNCHES) == before   # CPU: plain version
 
 
-def test_3d_batch_goes_to_the_engine_and_matches():
+def test_3d_batch_goes_to_the_engine_and_matches(monkeypatch):
     """3D: the rows kernel where K >= 1.5 NO (it went to the engine before
-    the rows kernel existed), the engine below that."""
+    the rows kernel existed), the engine below that.  Routing by
+    configuration: the record certifies every case."""
+    roomy_units(monkeypatch)
     rng = np.random.default_rng(2)
     case = cloud(rng, 256, 24, 3, orders=(2,), weightings=(1,), radius=(0.3, 1.0))
     args = (case["xk"], case["fk"], case["xi"])
-    plan = wtt.plan_fit_many(case["xk"], case["xi"], order=2, device=CPU)
+    plan = wtt.plan_fit_many(case["xk"], case["xi"], nk=case["nk"], order=2, device=CPU)
     assert (plan.route.path, plan.route.assembly) == ("kernel", "rows")
     assert wtt.plan_fit_many(case["xk"][:, :14], case["xi"], order=2,
                              device=CPU).route.path == "xla"
@@ -147,8 +151,12 @@ def test_rejections():
     xk, fk, xi = _headline(B=16)
     with pytest.raises(ValueError):
         wtt.fit_many(xk, fk, xi, order=4, backend="bogus", device=CPU)
-    with pytest.raises(ValueError):
-        wtt.fit_many(xk, fk, xi, order=4, precision="ds", device=CPU)
+    with pytest.raises(ValueError, match="f64"):
+        wtt.fit_many(xk, fk, xi, order=4, precision="bogus", device=CPU)
+    ref = wtt.fit_many(xk, fk, xi, order=4, device=CPU).fi
+    for name in ("f64", "ds", "mixed", "fast"):     # the JAX names: each computes in f64
+        assert torch.equal(wtt.fit_many(xk, fk, xi, order=4, precision=name,
+                                        device=CPU).fi, ref)
     with pytest.raises(ValueError):
         wtt.fit_many(xk, fk, xi, order=4, weighting=7, device=CPU)
     with pytest.raises(ValueError):   # knowns are homogeneous per kernel launch
@@ -211,3 +219,120 @@ def test_no_device_and_no_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         wtt.fit(xk[0], fk[0], xi[0], order=4)
     assert wtt.fit_many(xk, fk, xi, order=4, device=CPU).fi.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# The certified auto route: probe, ladder, per-case split
+# ---------------------------------------------------------------------------
+
+def _straddling(B=1024, K=30, seed=51):
+    """2D order-4 clouds with radii log-uniform in [0.15, 1]: their keys span
+    three decades around the card's certified edge, about four in five under it."""
+    rng = np.random.default_rng(seed)
+    xi = rng.uniform(-1, 1, (B, 2))
+    r = np.exp(rng.uniform(np.log(0.15), np.log(1.0), B))
+    xk = xi[:, None, :] + r[:, None, None] * rng.uniform(-1, 1, (B, K, 2))
+    fk = np.sin(3 * xk[..., 0]) * np.cos(2 * xk[..., 1]) + 0.3 * xk[..., 0] * xk[..., 1]
+    return xk, fk, xi
+
+
+def test_certified_auto_route_matches_jax_f64(monkeypatch):
+    """The slice as a whole.  One record serves both packages: the moment
+    body's units as measured on the card, in the JAX record's pair fields
+    (which stand for FP64; its triple units are tiny so that its tail kernel
+    plays the port's engine).  Both packages plan a "kernel-split" of the moment body at that
+    edge; the port's replay and its eager auto route hold every certified
+    case to 1e-10 of the JAX f64 route, and every tail case (the f64 engine
+    here, against the f64 engine there) to 1e-11 — the unrefined-DOF bound of
+    tests/test_torch_engine.py — times max(cond_2 amp / 1e3, 1) of the case:
+    two f64 solves differ by ~eps cond_2, and the de-scale multiplies that by
+    amp = max(inv_s, 1)^order, which is what puts a case in the tail."""
+    import dataclasses
+
+    import jax
+
+    from wlsqm_tpu import api as japi
+    from wlsqm_tpu.fitter import calibration as jcal
+    from wlsqm_tpu.fitter import condprobe as jprobe
+    from wlsqm_tpu.fitter import engine_ds
+    from wlsqm_tpu.fitter import ladder as jladder
+    from wlsqm_tpu_torch import api
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+    from wlsqm_tpu_torch.utils import interop
+
+    xk, fk, xi = _straddling()
+    B = len(xk)
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER)
+    t = [torch.as_tensor(a) for a in (xk, fk, np.full(B, 30, np.int32), xi)]
+    fi_k, key = fit_kernel.fit_kernel(*t, dimension=2, emit_cond=True, **kw)
+    card = calibration._H100
+    edge = 1e-10 / (4 * card["est_f64_cert_unit_m"])
+    jrec = jcal.DeviceCalibration(
+        ds_unit=card["f64_unit_m"], ds_cert_unit=card["f64_cert_unit_m"],
+        ts_parity_unit=1e-24, beyond_parity_floor=1e-8, kernel_max_floor=1e-3,
+        ds_unit_m=card["f64_unit_m"], ds_cert_unit_m=card["f64_cert_unit_m"],
+        ts_parity_unit_m=1e-24, est_ds_cert_unit_m=card["est_f64_cert_unit_m"],
+        certified=True, source="measured")
+    prec = interop.calibration_from_fields(dataclasses.asdict(jrec), f64_from="ds")
+    monkeypatch.setattr(jprobe, "_units", lambda: jrec)
+    monkeypatch.setattr(condprobe, "_units", lambda: prec)
+
+    # the plans: JAX as on its accelerator (its throughput guard set aside:
+    # it compares TPU kernel speeds), the port on CPU tensors
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(engine_ds, "ds_backend_ok", lambda: True)
+    monkeypatch.setattr(jladder, "SPLIT_MIN_GAIN", 0.0)
+    jroute = japi.plan_fit_many(xk, xi, **kw).route
+    monkeypatch.undo()
+    monkeypatch.setattr(condprobe, "_units", lambda: prec)
+    carried = interop.route_from_fields(dataclasses.asdict(jroute))
+    plan = wtt.plan_fit_many(xk, xi, device=CPU, **kw)
+    r = plan.route
+    assert (r.path, r.assembly, r.kernel_precision) == ("kernel-split", "moments", "f64")
+    assert (carried.path, carried.assembly, carried.kernel_precision) == (
+        r.path, r.assembly, r.kernel_precision)
+    assert carried.split_edge == r.split_edge == pytest.approx(edge)
+    over = ~(key <= edge)
+    assert r.tail_frac == pytest.approx(float(over.double().mean()) * 1.6)
+    assert carried.tail_frac == 1.0      # the JAX window adds one 1,024-case tile of slack
+
+    # the executions
+    splits = []
+    eager = api._eager_split_group
+    monkeypatch.setattr(api, "_eager_split_group",
+                        lambda *a, **k: splits.append(k["edge"]) or eager(*a, **k))
+    res_plan = wtt.fit_many(xk, fk, xi, plan=plan, device=CPU, **kw)
+    res_auto = wtt.fit_many(xk, fk, xi, backend="auto", device=CPU, **kw)
+    assert splits == [r.split_edge]                      # the eager route did split
+    assert torch.equal(res_plan.fi, res_auto.fi)         # the window held the whole tail
+    assert torch.equal(res_auto.fi[~over], fi_k[~over])  # certified: the kernel's bits
+    assert not torch.equal(res_auto.fi[over], fi_k[over])
+    _, ref = _jax(xk, fk, xi, **kw)
+    cond, amp = condprobe.probe(xk, None, xi, 4, wtt.WEIGHT_CENTER, dimension=2, sample=B)
+    err = np.abs(res_auto.fi.numpy() - ref).max(1) / np.maximum(np.abs(ref).max(1), 1.0)
+    sure = ~over.numpy()
+    assert 0.7 * B < sure.sum() < 0.9 * B
+    assert err[sure].max() <= PARITY
+    assert (err[~sure] <= 1e-11 * np.maximum((cond * amp)[~sure] / 1e3, 1.0)).all()
+    # forced onto the kernel, the tail is what the certification is for
+    assert bool(torch.equal(wtt.fit_many(xk, fk, xi, backend="kernel", device=CPU,
+                                         **kw).fi, fi_k))
+
+
+def test_auto_route_of_an_uncertifiable_batch_is_the_engine(monkeypatch):
+    """A collapsed batch has no probe: plan and auto route give it to the
+    engine in one call, as the JAX package does
+    (tests/test_autorouting.py::test_auto_routes_extreme_conditioning_to_f64)."""
+    from wlsqm_tpu_torch.fitter import engine
+
+    xk = np.zeros((64, 30, 2))
+    fk = np.ones((64, 30))
+    calls = []
+    fit_batch = engine.fit_batch
+    monkeypatch.setattr(engine, "fit_batch",
+                        lambda *a, **k: calls.append(1) or fit_batch(*a, **k))
+    assert wtt.plan_fit_many(xk, None, order=2, device=CPU).route.path == "xla"
+    res = wtt.fit_many(xk, fk, None, order=2, device=CPU)
+    assert calls == [1]
+    ref = wtt.fit_many(xk, fk, None, order=2, backend="engine", device=CPU)
+    assert torch.equal(torch.nan_to_num(res.fi, 7.0), torch.nan_to_num(ref.fi, 7.0))

@@ -16,7 +16,10 @@ plain version measured 57% and 88% over the 2D grid on an H100: FMA
 contraction and the summation order move the last bit of the residual
 norms, and with it the tie.  Data fk = 0 has no tie: both stop after one
 trip.  The gather kernel copies words, so it is held to ``u[idx]`` bit for
-bit (``torch.equal`` on integer views).
+bit (``torch.equal`` on integer views).  With ``emit_cond`` both fit kernels
+also write the conditioning key: held to the plain version's key at 1e-6
+relative (its own sensitivity is ~cond * 2^-53), and every other output to the
+bits of the launch without the key.
 """
 
 import numpy as np
@@ -39,7 +42,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _cloud(dev, B, K, order, seed, dim=2, lo=None):
+def _cloud(dev, B, K, order, seed, dim=2, lo=None, ragged=True):
     g = torch.Generator(device=dev).manual_seed(seed)
     xk = torch.rand((B, K, dim), generator=g, device=dev, dtype=torch.float64) * 2 - 1
     xi = (torch.rand((B, dim), generator=g, device=dev, dtype=torch.float64) - 0.5) * 0.2
@@ -50,6 +53,8 @@ def _cloud(dev, B, K, order, seed, dim=2, lo=None):
     nk = torch.randint(min(lo, K), K + 1, (B,), generator=g, device=dev,
                        dtype=torch.int32)
     nk[::2] = K
+    if not ragged:
+        nk[:] = K
     pad = torch.arange(K, device=dev)[None, :] >= nk[:, None]
     xk[pad] = torch.nan
     fk = fk.masked_fill(pad, torch.nan)
@@ -102,7 +107,7 @@ def test_kernel_rejects_what_it_does_not_cover(dev):
 
 
 def test_planned_route_launches_the_kernel(dev):
-    xk, fk, nk, xi = _cloud(dev, 8192, 30, 4, seed=2)
+    xk, fk, nk, xi = _cloud(dev, 8192, 30, 4, seed=2, ragged=False)   # certified whole
     plan = wtt.plan_fit_many(xk, xi, order=4, weighting=wtt.WEIGHT_CENTER)
     assert plan.route.path == "kernel"
     before = fit_kernel.LAUNCHES
@@ -121,6 +126,10 @@ def test_planned_route_launches_the_kernel(dev):
 # ---------------------------------------------------------------------------
 
 K_BY_DIM = {1: 16, 2: 30, 3: 56}
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
 def _rel_nan(a, b):
@@ -204,7 +213,7 @@ def test_rows_kernel_rejects_what_it_does_not_cover(dev):
 
 
 def test_sens_route_launches_the_rows_kernel(dev):
-    xk, fk, nk, xi = _cloud(dev, 8192, 30, 4, seed=3)
+    xk, fk, nk, xi = _cloud(dev, 8192, 30, 4, seed=3, ragged=False)   # certified whole
     kw = dict(order=4, weighting=wtt.WEIGHT_CENTER, do_sens=True)
     plan = wtt.plan_fit_many(xk, xi, **kw)
     assert (plan.route.path, plan.route.assembly) == ("kernel", "rows")
@@ -248,12 +257,143 @@ def test_diffable_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# The gather kernel (csrc/gather.cu)
+# The conditioning key (emit_cond, in both fit kernels)
 # ---------------------------------------------------------------------------
 
-def _bits(t):
-    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+KEY_TOL = 1e-6      # kernel key vs plain key, relative: its own sensitivity is ~cond * 2^-53
 
+
+def _key_agrees(key, ref):
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(key))
+    assert ((key[fin] - ref[fin]).abs() / ref[fin]).max().item() <= KEY_TOL
+
+
+@pytest.mark.parametrize("weighting", [wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER])
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+def test_kernel_key_matches_plain(dev, order, weighting):
+    """The moment kernel with emit_cond: the key against the plain version's,
+    and fi the same bits as without the key."""
+    xk, fk, nk, xi = _cloud(dev, 4096, 30, order, seed=50 + order)
+    kw = dict(dimension=2, order=order, weighting=weighting)
+    before = fit_kernel.LAUNCHES, fit_kernel.COND_LAUNCHES
+    fi0 = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+    fi1, key = fit_kernel.fit_kernel(xk, fk, nk, xi, emit_cond=True, **kw)
+    torch.cuda.synchronize()
+    assert (fit_kernel.LAUNCHES, fit_kernel.COND_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(fi0, fi1)
+    _key_agrees(key, fit_kernel.fit_moments_plain(xk, fk, nk, xi, emit_cond=True, **kw)[1])
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_rows_kernel_key_matches_plain(dev, dim):
+    """The rows kernel with emit_cond over every order, with a random knowns
+    mask: the key against the plain version's; the same key bits and the same
+    other outputs for the basic fit, with sens and with ALGO_ITERATIVE."""
+    g = torch.Generator().manual_seed(70 + dim)
+    for order in range(5):
+        NO = wtt.number_of_dofs(dim, order)
+        w = wtt.WEIGHT_CENTER if (dim + order) % 2 else wtt.WEIGHT_UNIFORM
+        xk, fk, nk, xi = _cloud(dev, 2048, K_BY_DIM[dim], order, 60 + order, dim,
+                                lo=2 * NO if dim == 1 else None)
+        fi0 = torch.randn((2048, NO), dtype=torch.float64, device=dev)
+        kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
+        keys = []
+        for extra in ({}, dict(do_sens=True), dict(max_iter=3)):
+            before = fit_rows.COND_LAUNCHES
+            a = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw, **extra)
+            b = fit_rows.fit_rows(xk, fk, nk, xi, fi0, emit_cond=True, **kw, **extra)
+            torch.cuda.synchronize()
+            assert fit_rows.COND_LAUNCHES == before + 1
+            for x, y in zip(a, b[:3]):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    assert torch.equal(_bits(x) if x.dtype.is_floating_point else x,
+                                       _bits(y) if y.dtype.is_floating_point else y)
+            keys.append(b[3])
+        assert torch.equal(_bits(keys[0]), _bits(keys[1]))
+        assert torch.equal(_bits(keys[0]), _bits(keys[2]))
+        _key_agrees(keys[0], fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, emit_cond=True,
+                                                     **kw)[3])
+
+
+def test_key_bounds_cond2_and_degenerate_cases_never_certify(dev):
+    from wlsqm_tpu_torch.fitter import condprobe
+
+    top = max(e for e in condprobe.est_certified_edges().values() if e)
+    for dim, K in ((2, 30), (3, 56)):
+        xk, fk, nk, xi = _cloud(dev, 1024, K, 4, seed=80 + dim, dim=dim)
+        nk[:] = K
+        xk = torch.nan_to_num(xk) * 0.3 + xi[:, None, :] * 0.7
+        xk[:16] = xi[:16, None, :]                              # collapsed onto xi
+        xk[16:32] = xi[16:32, None, :] + (xk[16:32, :, :1] - xi[16:32, None, :1])   # a line
+        kw = dict(dimension=dim, order=4, weighting=wtt.WEIGHT_CENTER, emit_cond=True)
+        keys = [fit_rows.fit_rows(xk, fk, nk, xi, **kw)[3]]
+        if dim == 2:
+            keys.append(fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)[1])
+        cond, amp = condprobe.probe(xk[32:], nk[32:], xi[32:], 4, wtt.WEIGHT_CENTER,
+                                    dimension=dim, sample=1024)
+        ca = torch.as_tensor(cond * amp, device=dev)
+        for key in keys:
+            assert not bool((key[:32] <= top).any())
+            assert bool((key[32:] >= 0.999 * ca).all())
+
+
+def test_certified_split_on_the_card(dev):
+    """A batch whose keys straddle the card's edge: the plan is a moment-kernel
+    split; its replay and the eager auto route equal their compositions bit for
+    bit, and the certified cases agree with the engine to 1e-10."""
+    from wlsqm_tpu_torch import api
+
+    B, K = 32768, 30
+    g = torch.Generator(device=dev).manual_seed(90)
+    xi = torch.rand((B, 2), generator=g, device=dev, dtype=torch.float64) * 2 - 1
+    r = torch.exp(torch.rand(B, generator=g, device=dev, dtype=torch.float64)
+                  * np.log(1.0 / 0.15) + np.log(0.15))     # about four in five certify
+    xk = xi[:, None, :] + (torch.rand((B, K, 2), generator=g, device=dev,
+                                      dtype=torch.float64) * 2 - 1) * r[:, None, None]
+    fk = torch.sin(3 * xk[..., 0]) * torch.cos(2 * xk[..., 1])
+    nk = torch.full((B,), K, dtype=torch.int32, device=dev)
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk, xi, **kw)
+    route = plan.route
+    assert (route.path, route.assembly) == ("kernel-split", "moments")
+    before = fit_kernel.COND_LAUNCHES
+    res_plan = wtt.fit_many(xk, fk, xi, plan=plan, **kw)
+    res_auto = wtt.fit_many(xk, fk, xi, **kw)
+    torch.cuda.synchronize()
+    assert fit_kernel.COND_LAUNCHES == before + 2
+    fi_k, key = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, emit_cond=True, **kw)
+    over = (~(key <= route.split_edge)).nonzero().squeeze(1)
+    assert 0.1 * B < len(over) < 0.5 * B
+    gkw = dict(dim=2, order=4, knowns=0, weighting=wtt.WEIGHT_CENTER)
+    exp = fi_k.clone()
+    exp[over] = api._engine_group(xk[over], fk[over], nk[over], xi[over], None, **gkw)
+    assert torch.equal(res_auto.fi, exp)
+    k = int(np.ceil(route.tail_frac * B))
+    assert len(over) <= k
+    idx = api._first_over_edge(key, route.split_edge, k).clamp_max(B - 1)
+    exp = fi_k.clone()
+    exp[over] = api._engine_group(xk[idx], fk[idx], nk[idx], xi[idx], None,
+                                  **gkw)[:len(over)]
+    assert torch.equal(res_plan.fi, exp)
+    sure = key <= route.split_edge
+    eng = wtt.fit_many(xk, fk, xi, backend="engine", **kw).fi
+    assert _rel(res_plan.fi[sure], eng[sure]) <= PARITY
+
+
+def test_calibration_record_of_this_card_is_shipped(dev):
+    from wlsqm_tpu_torch.fitter import calibration
+
+    calibration._reset_cache()
+    cal = calibration.active()
+    assert cal.certified and cal.source in ("shipped", "measured")
+
+
+# ---------------------------------------------------------------------------
+# The gather kernel (csrc/gather.cu)
+# ---------------------------------------------------------------------------
 
 def _special(u):
     """NaN, -0, +inf and -inf planted in a float payload."""

@@ -144,3 +144,60 @@ def test_supported_predicate():
     assert not S(2, 2, 0, 3)
     assert not S(2, 2, 0, 1, do_sens=True)
     assert not S(2, 2, 0, 1, iterative=True)
+
+
+# ---------------------------------------------------------------------------
+# The conditioning key (emit_cond)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("weighting", [defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER])
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+def test_plain_key_is_the_library_key(order, weighting):
+    """The plain version's key, from its own factor, against cond_key (batched
+    library calls): 1e-8 relative, both float64 (the key's own sensitivity is
+    ~cond * 2^-53); fi is the same bits with and without the key."""
+    from wlsqm_tpu_torch.fitter import condprobe
+
+    rng = np.random.default_rng(20 + 10 * order + weighting)
+    case = cloud(rng, 256, 30, 2, orders=(order,), weightings=(weighting,),
+                 radius=(0.05, 1.0))
+    kw = dict(dimension=2, order=order, weighting=weighting)
+    fi, key = fit_kernel.fit_kernel(*_t(case), emit_cond=True, **kw)
+    assert torch.equal(fi, fit_kernel.fit_kernel(*_t(case), **kw))
+    assert key.shape == (256,) and key.dtype == torch.float64
+    ref = condprobe.cond_key(case["xk"], case["nk"], case["xi"], device="cpu", **kw)
+    torch.testing.assert_close(key, ref, rtol=1e-8, atol=0)
+    assert bool((key >= 1.0).all())              # cond_2 >= 1, amp >= 1
+
+
+def test_plain_key_folds_in_the_radius_amplification():
+    """key = (the scale-free key) * max(inv_s, 1)^order: shrinking a cloud by
+    2^-3 multiplies an order-4 key by 2^12, growing it leaves the key alone."""
+    rng = np.random.default_rng(31)
+    case = cloud(rng, 64, 30, 2, radius=(0.5, 0.6), ragged=False)
+    kw = dict(dimension=2, order=4, weighting=defs.WEIGHT_CENTER, emit_cond=True)
+    xk, fk, nk, xi = _t(case)
+    _, key = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+    _, small = fit_kernel.fit_kernel(xi[:, None, :] + (xk - xi[:, None, :]) / 8, fk, nk, xi,
+                                     **kw)
+    _, large = fit_kernel.fit_kernel(xi[:, None, :] + (xk - xi[:, None, :]) * 8, fk, nk, xi,
+                                     **kw)
+    torch.testing.assert_close(small, key * 2.0 ** 12, rtol=1e-9, atol=0)
+    torch.testing.assert_close(large, key, rtol=1e-9, atol=0)
+
+
+def test_plain_key_matches_interpreted_tpu_kernel_key():
+    """The key the interpreted Pallas moment kernel emits (f32 inside, as
+    tests/test_split.py runs it) against the plain version's: 5e-2 relative."""
+    rng = np.random.default_rng(32)
+    B, K, order = 256, 24, 2
+    case = cloud(rng, B, K, 2, orders=(order,), weightings=(defs.WEIGHT_CENTER,),
+                 radius=(0.1, 1.0))
+    _, ref = fit_pallas(
+        *(jnp.asarray(case[k]) for k in ("xk", "fk", "nk", "xi")), dimension=2,
+        order=order, weighting=defs.WEIGHT_CENTER, interpret=True, tile_s=2,
+        refine_steps=2, assembly="moments", emit_cond=True)
+    _, key = fit_kernel.fit_moments_plain(*_t(case), dimension=2, order=order,
+                                          weighting=defs.WEIGHT_CENTER, emit_cond=True)
+    rel = np.abs(key.numpy() - np.asarray(ref)) / key.numpy()
+    assert rel.max() <= 5e-2 and np.median(rel) <= 2e-3

@@ -27,7 +27,7 @@ import torch
 
 import wlsqm_tpu as wt
 import wlsqm_tpu_torch as wtt
-from torch_port_cases import cloud, rel_err
+from torch_port_cases import cloud, rel_err, roomy_units
 from wlsqm_tpu.fitter import engine as jengine
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
@@ -156,17 +156,19 @@ def test_sens_plan_routes_to_the_rows_kernel_and_matches_jax():
     assert (res.iterations == 0).all()
 
 
-def test_dim3_and_iterative_plans_route_to_the_rows_kernel():
+def test_dim3_and_iterative_plans_route_to_the_rows_kernel(monkeypatch):
+    roomy_units(monkeypatch)      # routing by configuration: every case certifies
     rng = np.random.default_rng(22)
     case = cloud(rng, 64, 56, 3, orders=(4,), radius=(0.3, 1.0))
-    plan = wtt.plan_fit_many(case["xk"], case["xi"], order=4, weighting=2, device=CPU)
+    plan = wtt.plan_fit_many(case["xk"], case["xi"], nk=case["nk"], order=4, weighting=2,
+                             device=CPU)
     assert (plan.route.path, plan.route.assembly) == ("kernel", "rows")
     res = wtt.fit_many(case["xk"], case["fk"], case["xi"], nk=case["nk"], order=4,
                        weighting=2, plan=plan, device=CPU)
     ref = wt.fit_many(case["xk"], case["fk"], case["xi"], nk=case["nk"], order=4,
                       weighting=2, backend="xla", precision="f64")
     assert rel_err(res.fi.numpy(), np.asarray(ref.fi)) <= PARITY
-    xk2 = cloud(rng, 8, 30, 2)["xk"]
+    xk2 = cloud(rng, 8, 30, 2, ragged=False)["xk"]
     it = wtt.plan_fit_many(xk2, None, order=4, iterative=True, device=CPU).route
     assert (it.path, it.assembly) == ("kernel", "rows")
     # below K >= 1.5 NO the plan keeps the engine, as in the JAX package
@@ -178,7 +180,9 @@ def test_auto_batch_splits_between_the_kernels_and_the_engine(monkeypatch):
     """Per-case orders and knowns at K = 20: knowns-free groups go to the
     moment kernel (to the rows kernel when sens are asked for), knowns
     groups to the rows kernel, order 4 (K < 1.5 NO) to one engine call; the
-    whole matches the JAX f64 route, sens included."""
+    whole matches the JAX f64 route, sens included.  Routing by
+    configuration: the record certifies every case."""
+    roomy_units(monkeypatch)
     calls = {"moments": 0, "rows": 0, "engine": 0}
 
     def spy(name, fn):
@@ -314,3 +318,54 @@ def test_supported_predicate():
     assert not S(2, 2, np.array([0, 1]), 1)
     assert not S(2, 2, 0, np.array([1, 2]))
     assert not S(2, 2, 0, 3)
+
+
+# ---------------------------------------------------------------------------
+# The conditioning key (emit_cond)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_plain_key_is_the_library_key(dim):
+    """Every order, both weightings, a random knowns mask: the plain version's
+    key against cond_key (batched library calls) to 1e-8 relative, the same
+    for the basic fit, with sens and with ALGO_ITERATIVE, and every other
+    output the same bits with and without the key."""
+    from wlsqm_tpu_torch.fitter import condprobe
+
+    for order in range(5):
+        for wm in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
+            case, kn = _case(dim, order, wm, seed=300 + 100 * dim + 10 * order + wm, B=96)
+            for knowns in (0, kn):
+                kw = dict(dimension=dim, order=order, weighting=wm, knowns=knowns)
+                ref = condprobe.cond_key(case["xk"], case["nk"], case["xi"], device=CPU, **kw)
+                keys = []
+                for extra in ({}, dict(do_sens=True), dict(max_iter=2)):
+                    with_key = fit_rows.fit_rows(*_t(case), emit_cond=True, **kw, **extra)
+                    without = fit_rows.fit_rows(*_t(case), **kw, **extra)
+                    assert len(with_key) == 4 and len(without) == 3
+                    for x, y in zip(with_key, without):
+                        assert (x is None) == (y is None)
+                        if x is not None:
+                            assert torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+                    keys.append(with_key[3])
+                assert torch.equal(keys[0], keys[1]) and torch.equal(keys[0], keys[2])
+                fin = torch.isfinite(ref)
+                assert torch.equal(fin, torch.isfinite(keys[0]) & (keys[0] < 1e25))
+                torch.testing.assert_close(keys[0][fin], ref[fin], rtol=1e-8, atol=0)
+
+
+def test_plain_key_of_a_known_dof_is_the_reduced_systems():
+    """Known DOFs are identity rows and columns: the key is that of the
+    reduced system, never above the full system's by more than the row-sum
+    norm allows, and equal to the moment body's key when nothing is known."""
+    rng = np.random.default_rng(41)
+    case = cloud(rng, 128, 30, 2, radius=(0.2, 1.0))
+    kw = dict(dimension=2, order=4, weighting=defs.WEIGHT_CENTER, emit_cond=True)
+    full = fit_rows.fit_rows(*_t(case), **kw)[3]
+    mom = fit_kernel.fit_kernel(*_t(case, ("xk", "fk", "nk", "xi")), **kw)[1]
+    torch.testing.assert_close(full, mom, rtol=1e-8, atol=0)
+    all_known = fit_rows.fit_rows(*_t(case), knowns=(1 << 15) - 1, **kw)[3]
+    amp = fit_kernel.cond_amp_factor(fit_kernel._prescale(*_t(case, ("xk", "nk", "xi")))[3], 4)
+    torch.testing.assert_close(all_known, np.sqrt(15.0) * amp, rtol=1e-12, atol=0)
+    one = fit_rows.fit_rows(*_t(case), knowns=int(defs.b2_F), **kw)[3]
+    assert bool((one < full * 1.0001).all())

@@ -180,7 +180,8 @@ def test_prepare_and_solve_reject_what_is_not_ported():
         with pytest.raises(ValueError, match="A2"):
             wtt.prepare(case["xk"], case["xi"], device="cpu", **kw)
     with pytest.raises(ValueError, match="f64"):
-        wtt.prepare(case["xk"], case["xi"], precision="ds", device="cpu")
+        wtt.prepare(case["xk"], case["xi"], precision="bogus", device="cpu")
+    wtt.prepare(case["xk"], case["xi"], precision="ds", device="cpu")   # a JAX name: f64
     with pytest.raises(ValueError, match="matching xk"):
         wtt.prepare(case["xk"], case["xi"][:3], device="cpu")
     prep = wtt.prepare(case["xk"], case["xi"], nk=case["nk"], device="cpu")

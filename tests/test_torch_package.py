@@ -12,6 +12,8 @@ def test_import_leaves_jax_out():
             "wlsqm_tpu_torch.ops.fit_rows, wlsqm_tpu_torch.ops.gather, "
             "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.utils.neighbors, "
             "wlsqm_tpu_torch.fitter.interp, wlsqm_tpu_torch.fitter.polyeval, "
+            "wlsqm_tpu_torch.fitter.condprobe, wlsqm_tpu_torch.fitter.calibration, "
+            "wlsqm_tpu_torch.fitter.ladder, "
             "wlsqm_tpu_torch.examples.ibvp_heat, wlsqm_tpu_torch.native; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wlsqm_tpu' not in sys.modules; print('ok')")

@@ -6,7 +6,18 @@ same numbers; padded neighbor slots hold NaN, which neither may read.
 
 import numpy as np
 
-from wlsqm_tpu_torch.fitter import defs
+from wlsqm_tpu_torch.fitter import calibration, condprobe, defs
+
+
+def roomy_units(monkeypatch):
+    """Install a certified record whose units are so small that every
+    finite-conditioned case certifies: routing is then by configuration alone
+    (which kernel body covers it), the subject of the tests that ask for it."""
+    cal = calibration.DeviceCalibration(
+        f64_unit=1e-24, f64_cert_unit=1e-24, f64_unit_m=1e-24, f64_cert_unit_m=1e-24,
+        est_f64_cert_unit=1e-24, est_f64_cert_unit_m=1e-24, source="measured")
+    monkeypatch.setattr(condprobe, "_units", lambda: cal)
+    return cal
 
 
 def cloud(rng, B, K, dim, *, orders=(4,), weightings=(defs.WEIGHT_CENTER,),

@@ -14,17 +14,23 @@ Port of :mod:`wlsqm_tpu.api`: ``fit_many`` and its plan, the expert-mode
     prep = wtt.prepare(xk, xi, order=2)    # geometry once (an IBVP cloud)
     fi, sens = wtt.solve(prep, fk)         # every step; fk (F, B, K) for F fields
 
-Routing is by configuration: a homogeneous group with enough neighbours
-runs on a kernel — the moment kernel
+Routing is by configuration and by conditioning.  A homogeneous group with
+enough neighbours is kernel-eligible — the moment kernel
 (:func:`wlsqm_tpu_torch.ops.fit_kernel.supported`: dim 2, basic, no
 knowns) where it covers the group, else the rows kernel
 (:func:`wlsqm_tpu_torch.ops.fit_rows.supported`: dims 1-3, knowns,
-sensitivities, ALGO_ITERATIVE) — the CUDA kernel for CUDA tensors, its
-plain torch version for CPU tensors; everything else runs ONE f64 engine
-call.  There is no conditioning probe and no precision ladder: every route
-computes in f64.  Without ``device=``, NumPy input and CPU tensors go to
-the card, and a machine without one raises (``device="cpu"`` runs on the
-CPU).
+sensitivities, ALGO_ITERATIVE); the CUDA kernel for CUDA tensors, its plain
+torch version for CPU tensors.  ``backend="auto"`` and ``plan_fit_many``
+then probe the group's conditioning
+(:func:`wlsqm_tpu_torch.fitter.condprobe.probe`) and take the cheapest rung
+of :func:`wlsqm_tpu_torch.fitter.ladder.choose` that the device's
+calibration record certifies to 1e-10 against a correct f64 fit: a kernel
+for the whole group; or, for the basic algorithm, the per-case split — the
+kernel on every case with its per-case conditioning key, and the f64 engine
+on exactly the cases whose key exceeds the certified edge; or the engine.
+Every route computes in f64.  Everything not kernel-eligible runs in ONE
+engine call.  Without ``device=``, NumPy input and CPU tensors go to the
+card, and a machine without one raises (``device="cpu"`` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from wlsqm_tpu_torch import config
-from wlsqm_tpu_torch.fitter import defs, engine, interp, ladder
+from wlsqm_tpu_torch.fitter import condprobe, defs, engine, interp, ladder
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
 
@@ -45,6 +51,15 @@ __all__ = ["FitResult", "FitPlan", "fit", "fit_many", "plan_fit_many", "prepare"
 #: backend names; the JAX package's "pallas" and "xla" are synonyms
 _BACKENDS = {"auto": "auto", "kernel": "kernel", "engine": "engine",
              "pallas": "kernel", "xla": "engine"}
+
+#: precision names of the JAX package; this package computes each in f64
+_PRECISIONS = (None, engine.PRECISION_F64, "mixed", "fast", "ds")
+
+
+def _check_precision(precision) -> None:
+    if precision not in _PRECISIONS:
+        raise ValueError("precision must be None, 'f64', 'mixed', 'fast' or 'ds' "
+                         "(each computes in f64 here); got %r" % (precision,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,19 +110,158 @@ def _assembly(dim, order, knowns, weighting, do_sens, iterative, want=None):
 
 
 def _run_kernel_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
-                      assembly, refine_steps, do_sens, iterative, max_iter):
+                      assembly, refine_steps, do_sens=False, iterative=False,
+                      max_iter=0, emit_cond=False):
     """Run one homogeneous group through a kernel body ("moments" or "rows").
 
-    Returns (fi (B, no_g), iters (B,), sens (B, K, no_g) | None).
+    Returns (fi (B, no_g), iters (B,), sens (B, K, no_g) | None), and with
+    ``emit_cond`` the per-case conditioning key (B,) after them.
     """
     rs = fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None else refine_steps
     if assembly == "moments":
-        fi = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order,
-                                   weighting=weighting, refine_steps=rs)
-        return fi, torch.zeros(xk.shape[0], dtype=torch.int32, device=fi.device), None
+        out = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order,
+                                    weighting=weighting, refine_steps=rs,
+                                    emit_cond=emit_cond)
+        fi, key = out if emit_cond else (out, None)
+        res = (fi, torch.zeros(xk.shape[0], dtype=torch.int32, device=fi.device), None)
+        return res + (key,) if emit_cond else res
     return fit_rows.fit_rows(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
                              weighting=weighting, knowns=knowns, refine_steps=rs,
-                             do_sens=do_sens, max_iter=max_iter if iterative else 0)
+                             do_sens=do_sens, max_iter=max_iter if iterative else 0,
+                             emit_cond=emit_cond)
+
+
+def _engine_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting):
+    """The basic fit of a homogeneous group on the f64 engine: the tail rung
+    of the split routes.  Returns fi (n, no_g)."""
+    n = xk.shape[0]
+    no_g = defs.number_of_dofs(dim, order)
+    fi0 = xk.new_zeros((n, no_g)) if fi_init is None else fi_init[:, :no_g]
+
+    def full(v, dtype):
+        return torch.full((n,), v, dtype=dtype, device=xk.device)
+
+    return engine.fit_batch(xk, fk, nk, xi, fi0, full(order, torch.int32),
+                            full(knowns, torch.int64), full(weighting, torch.int32),
+                            dimension=dim, NO=no_g)[0]
+
+
+def _first_over_edge(est, edge: float, k: int):
+    """Indices of the first ``k`` cases whose key fails ``est <= edge`` (NaN
+    keys fail), in order, padded with B: a static-shape compaction with no
+    host synchronisation."""
+    B = est.shape[0]
+    bad = ~(est <= edge)
+    pos = torch.cumsum(bad, 0) - 1
+    slot = torch.where(bad & (pos < k), pos, k)      # slot k collects the rest
+    idx = torch.full((k + 1,), B, dtype=torch.int64, device=est.device)
+    idx.scatter_(0, slot, torch.arange(B, device=est.device))
+    return idx[:k]
+
+
+def _run_kernel_split(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
+                      route):
+    """Run one homogeneous group through the per-case certified split.
+
+    The ``route.assembly`` kernel fits ALL cases and emits the per-case
+    conditioning key; the cases whose key exceeds ``route.split_edge`` — the
+    first of them in order, up to the static ``route.tail_frac`` window — are
+    re-solved by the f64 engine and scattered over the kernel's result.
+    Cases beyond the window stay on the kernel's (uncertified) result.
+    Shapes are static throughout and nothing is read back, so a planned call
+    never waits for the host here.  Certified cases take the kernel's
+    envelope, tail cases the engine's result — a per-case decision over EVERY
+    case, which the sampled probe of the batch-level routes cannot give.
+    Basic algorithm only.  Returns (fi (B, no_g), iters zeros, None) like
+    :func:`_run_kernel_group`.
+    """
+    B = xk.shape[0]
+    kw = dict(dim=dim, order=order, knowns=knowns, weighting=weighting)
+    fi, iters, _, est = _run_kernel_group(
+        xk, fk, nk, xi, fi_init, assembly=route.assembly,
+        refine_steps=route.refine_steps, emit_cond=True, **kw)
+    if B == 0:
+        return fi, iters, None
+    k = max(1, min(int(np.ceil(route.tail_frac * B)), B))
+    idx = _first_over_edge(est, route.split_edge, k)
+    idxc = idx.clamp_max(B - 1)            # clipped gather; the fills are dropped
+    fi_tail = _engine_group(xk[idxc], fk[idxc], nk[idxc], xi[idxc],
+                            None if fi_init is None else fi_init[idxc], **kw)
+    out = torch.cat([fi, fi.new_empty((1, fi.shape[1]))])   # row B takes the fills
+    out[idx] = fi_tail
+    return out[:B], iters, None
+
+
+def _eager_split_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
+                       assembly, edge):
+    """Eager (concrete-data) per-case split of one homogeneous group.
+
+    Unlike the planned :func:`_run_kernel_split`, the eager path reads the
+    kernel-emitted key and re-solves EXACTLY the uncertified cases on the f64
+    engine — no static tail window, no margin: every case is either under
+    the certified edge on the kernel, or solved by the reference algorithm.
+    """
+    kw = dict(dim=dim, order=order, knowns=knowns, weighting=weighting)
+    fi, iters, _, est = _run_kernel_group(
+        xk, fk, nk, xi, fi_init, assembly=assembly,
+        refine_steps=condprobe.pick_steps_at_edge(edge, assembly=assembly),
+        emit_cond=True, **kw)
+    sel = (~(est <= edge)).nonzero().squeeze(1)
+    if sel.numel():
+        fi[sel] = _engine_group(xk[sel], fk[sel], nk[sel], xi[sel],
+                                None if fi_init is None else fi_init[sel], **kw)
+    return fi, iters, None
+
+
+def _maybe_split_route(route, xk, nk, xi, *, dim, o, kn, wm, assembly,
+                       certified: bool, basic: bool):
+    """Re-route an uncertified batch-level route on the FULL key distribution.
+
+    The sampled probe that picked the batch-level route sees a few hundred
+    cases, so a batch it could not certify may still be certifiable case by
+    case.  This pass launches the ``assembly`` kernel with ``emit_cond`` on
+    the concrete planning batch (data zero: the key depends on the geometry
+    alone) and re-routes on the exact key distribution, fastest per-case-sound
+    rung first:
+
+    1. every key under a body's key edge -> the whole batch on that kernel
+       (the moment body first), now certified per case, not on the sample;
+    2. a certified majority (:data:`ladder.SPLIT_MIN_FRAC`) -> the
+       "kernel-split" route: the kernel for all, the engine for the tail
+       window (the planning batch's tail fraction times
+       :data:`ladder.TAIL_MARGIN`).
+
+    A NaN key (a degenerate case) poisons the maximum, failing rung 1 —
+    exactly right: such cases certify nothing.  A route the sample already
+    certified, and a batch with sensitivities or ALGO_ITERATIVE, pass
+    through untouched.  The decision needs concrete data; replayed batches
+    ride the plan-representativeness contract that FitPlan carries
+    throughout.
+    """
+    if certified or not basic or assembly is None:
+        return route
+    edges = condprobe.est_certified_edges()
+    if not edges.get(assembly):
+        return route
+    B, K, _ = xk.shape
+    est = _run_kernel_group(xk, xk.new_zeros((B, K)), nk, xi, None, dim=dim,
+                            order=o, knowns=kn, weighting=wm, assembly=assembly,
+                            refine_steps=None, emit_cond=True)[3]
+    max_est = float(est.max()) if B else float("nan")
+    for body in (("moments", "rows") if assembly == "moments" else ("rows",)):
+        if edges.get(body) and max_est <= edges[body]:
+            return ladder.Route(
+                path="kernel", assembly=body,
+                refine_steps=condprobe.pick_steps_at_edge(max_est, assembly=body))
+    _, edge = condprobe.split_partition_choice(assembly=assembly)
+    frac_fast = float((est <= edge).double().mean())
+    if frac_fast < ladder.SPLIT_MIN_FRAC:
+        return route
+    return ladder.Route(
+        path="kernel-split", assembly=assembly,
+        refine_steps=condprobe.pick_steps_at_edge(edge, assembly=assembly),
+        split_edge=edge,
+        tail_frac=float(min(1.0, (1.0 - frac_fast) * ladder.TAIL_MARGIN)))
 
 
 def _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO, dim, order) -> FitResult:
@@ -223,16 +377,19 @@ def fit_many(
     nk: (B,) valid neighbor counts; defaults to K for every case
     order / knowns / weighting: scalars or (B,) arrays (scalars broadcast)
     fi_init: (B, NO) initial DOF array carrying the known values; zeros if None
-    precision: None or "f64" (every route computes in f64).
+    precision: None, or one of the JAX package's names ("f64", "mixed",
+        "fast", "ds"); every route computes in f64 whichever is given.
     backend: "auto" (default — per-(order, knowns, weighting) groups with
-        K >= 1.5 NO run on a kernel, the moment kernel where it covers the
-        group, else the rows kernel; the rest in ONE engine call), "kernel"
-        (force a kernel; homogeneous batches only, any K) or "engine" (the
+        K >= 1.5 NO that a kernel covers are probed and take the cheapest
+        certified rung: the kernel, the per-case split or the engine; the
+        rest runs in ONE engine call), "kernel" (force a kernel, no
+        accuracy guard; homogeneous batches only, any K) or "engine" (the
         batched f64 engine).  The JAX package's names "pallas" and "xla"
         are accepted for the last two.
-    refine_steps: residual sweeps of the kernel (default 1).
+    refine_steps: residual sweeps of the kernel (default 1); given, the
+        auto route does not split.
     plan: a :class:`FitPlan` from :func:`plan_fit_many`; replays its route,
-        kernel body included.
+        kernel body included, with no inspection of the data.
     device: where to compute; defaults to ``xk``'s device when it is a
         CUDA tensor, else the card: NumPy input and CPU tensors are moved
         there, and with no card the call raises.  ``device="cpu"`` computes
@@ -244,8 +401,7 @@ def fit_many(
         raise ValueError("backend must be one of %s; got %r"
                          % (sorted(_BACKENDS), backend))
     backend = _BACKENDS[backend]
-    if precision not in (None, engine.PRECISION_F64):
-        raise ValueError("precision must be None or 'f64'; got %r" % (precision,))
+    _check_precision(precision)
 
     device = config.resolve_device(device, xk)
     xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
@@ -272,8 +428,12 @@ def fit_many(
                              % (B, NO, tuple(fi_init.shape)))
 
     want = None
+    split = plan is not None and plan.route.path == "kernel-split"
     if plan is not None:
-        backend = "kernel" if plan.route.path == "kernel" else "engine"
+        if split and (do_sens or iterative):
+            raise ValueError("a kernel-split plan covers the basic algorithm only; "
+                             "re-plan with do_sens/iterative set")
+        backend = "engine" if plan.route.path == "xla" else "kernel"
         want = plan.route.assembly
         if refine_steps is None:
             refine_steps = plan.route.refine_steps
@@ -291,10 +451,15 @@ def fit_many(
                 "0-4, knowns, sens and ALGO_ITERATIVE%s; use backend='auto' or "
                 "'engine'" % ("" if want is None else
                               " (this plan replays the %s kernel)" % want))
-        fi_g, it_g, sens_g = _run_kernel_group(
-            xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
-            assembly=assembly, refine_steps=refine_steps, do_sens=do_sens,
-            iterative=iterative, max_iter=max_iter)
+        if split:
+            fi_g, it_g, sens_g = _run_kernel_split(
+                xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
+                route=dataclasses.replace(plan.route, refine_steps=refine_steps))
+        else:
+            fi_g, it_g, sens_g = _run_kernel_group(
+                xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
+                assembly=assembly, refine_steps=refine_steps, do_sens=do_sens,
+                iterative=iterative, max_iter=max_iter)
         return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
 
     order_a = _broadcast_case_param(order, B, torch.int32, device)
@@ -323,12 +488,19 @@ def fit_many(
 def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
                    knowns_a, weighting_a, groups, do_sens, iterative, max_iter,
                    refine_steps, ruiz_max_iter, scaling, solver) -> FitResult:
-    """Route a concrete batch by configuration.
+    """Certified routing of a concrete batch (see fitter/ladder.py).
 
     Groups the batch by (order, knowns, weighting) — ``groups`` holds the
     one group of a scalar configuration, else the groups are found on the
-    device.  Each group with K >= 1.5 NO that a kernel covers runs on it
-    (:func:`_assembly`); everything else merges into ONE engine call.
+    device.  Each group with K >= 1.5 NO that a kernel covers
+    (:func:`_assembly`) is probed and takes the cheapest rung that clears
+    the accuracy bar: the kernel for the whole group, the eager per-case
+    split (basic algorithm, when the sampled probe predicts a certified
+    majority), or the engine.  Everything else merges into ONE engine call:
+    with a single engine rung there is nothing to choose for the leftover,
+    so it is not probed.  The JAX package also keeps groups under a quarter
+    tile on the engine; that rule guards its tile padding, which a CUDA grid
+    does not have.
     """
     if groups is None:
         keys = torch.stack([order_a.long(), knowns_a, weighting_a.long()], dim=1)
@@ -344,17 +516,41 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
                     if _kernel_shape_ok(K, dim, o) else None)
         if assembly is None:
             continue
-        kw = dict(dim=dim, order=o, knowns=kn, weighting=wm, assembly=assembly,
-                  refine_steps=refine_steps, do_sens=do_sens, iterative=iterative,
-                  max_iter=max_iter)
         if whole:
-            fi_g, it_g, sens_g = _run_kernel_group(xk, fk, nk, xi, fi_init, **kw)
+            mask, data = None, (xk, fk, nk, xi, fi_init)
+        else:
+            mask = (order_a == o) & (knowns_a == kn) & (weighting_a == wm)
+            sel = mask.nonzero().squeeze(1)
+            data = (xk[sel], fk[sel], nk[sel], xi[sel],
+                    None if fi_init is None else fi_init[sel])
+        cond_amp = condprobe.probe(data[0], data[2], data[3], o, wm, dimension=dim,
+                                   knowns=kn)
+        route = ladder.choose(cond_amp, moments_ok=assembly == "moments")
+        kw = dict(dim=dim, order=o, knowns=kn, weighting=wm)
+        edge = None
+        if (cond_amp is not None and refine_steps is None
+                and not (do_sens or iterative)
+                and not (route.path == "kernel" and condprobe.accuracy_ok_from(
+                    cond_amp, assembly=route.assembly))):
+            choice = condprobe.split_partition_choice(assembly=assembly)
+            # perf heuristic on the sampled probe (soundness comes from the
+            # per-case runtime key): engage when the median-slack-scaled
+            # sample mostly certifies
+            if choice is not None and float(
+                    (cond_amp[0] * cond_amp[1] * ladder.EST_OVER_COND_MED
+                     <= choice[1]).mean()) >= ladder.SPLIT_MIN_FRAC:
+                edge = choice[1]
+        if edge is not None:
+            fi_g, it_g, sens_g = _eager_split_group(*data, assembly=assembly,
+                                                    edge=edge, **kw)
+        elif route.path == "kernel":
+            fi_g, it_g, sens_g = _run_kernel_group(
+                *data, assembly=route.assembly, refine_steps=refine_steps,
+                do_sens=do_sens, iterative=iterative, max_iter=max_iter, **kw)
+        else:
+            continue   # the engine takes it in the merged leftover call
+        if whole:
             return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
-        mask = (order_a == o) & (knowns_a == kn) & (weighting_a == wm)
-        sel = mask.nonzero().squeeze(1)
-        fi_g, it_g, sens_g = _run_kernel_group(
-            xk[sel], fk[sel], nk[sel], xi[sel],
-            None if fi_init is None else fi_init[sel], **kw)
         fi_out[sel, :fi_g.shape[1]] = fi_g
         iters_out[sel] = it_g
         if do_sens:
@@ -396,16 +592,21 @@ def plan_fit_many(
     refine_steps: int | None = None,
     device=None,
 ) -> FitPlan:
-    """A static :class:`FitPlan` for a homogeneous configuration.
+    """Compute a static :class:`FitPlan` from concrete representative data.
 
-    ``order``/``knowns``/``weighting`` must be scalars.  With K >= 1.5 NO
-    the route is ``Route(path="kernel", kernel_precision="f64",
-    assembly=...)``: "moments" when the moment kernel covers the
-    configuration, else "rows" when the rows kernel does (knowns, dims 1
-    and 3, ``do_sens``, ``iterative``) — on a CPU tensor a kernel route
-    runs its plain torch version.  Otherwise it is
-    ``Route(path="xla", precision="f64")`` (the engine).  Only the shapes
-    of ``xk`` are read; ``nk`` is accepted for the JAX package's signature.
+    Runs the same probe + ladder decision as ``fit_many(backend="auto")``
+    and captures the outcome, so ``fit_many(..., plan=plan)`` runs with no
+    inspection of the data.  ``order``/``knowns``/``weighting`` must be
+    scalars.  With K >= 1.5 NO and a kernel that covers the configuration
+    ("moments" where the moment kernel does, else "rows": knowns, dims 1 and
+    3, ``do_sens``, ``iterative``) the route is the cheapest certified rung:
+    ``Route(path="kernel", kernel_precision="f64", assembly=...)``; for the
+    basic algorithm, when the sample does not certify the batch,
+    :func:`_maybe_split_route` may upgrade to a kernel certified on the
+    batch's exact key maximum, or to ``path="kernel-split"``; else
+    ``Route(path="xla", precision="f64")`` (the engine).  ``refine_steps``
+    pins the kernel's sweeps and disables the split.  On CPU tensors a
+    kernel route runs the kernel's plain torch version.
     """
     scalars = tuple(_scalar(v) for v in (order, knowns, weighting))
     for name, s in zip(("order", "knowns", "weighting"), scalars):
@@ -413,19 +614,28 @@ def plan_fit_many(
             raise ValueError(
                 "plan_fit_many requires a scalar %s (homogeneous batch); "
                 "heterogeneous batches must use eager fit_many bucketing" % name)
-    if precision not in (None, engine.PRECISION_F64):
-        raise ValueError("precision must be None or 'f64'; got %r" % (precision,))
+    _check_precision(precision)
     device = config.resolve_device(device, xk)
-    xk, _, _, K, dim = _canon_geometry(xk, xi, device)
+    xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
+    nk = (torch.full((B,), K, dtype=torch.int32, device=device) if nk is None
+          else config.as_tensor(nk, device, torch.int32))
     o, kn, wm = scalars
     assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
                 if _kernel_shape_ok(K, dim, o) else None)
-    if assembly is not None:
-        return FitPlan(route=ladder.Route(
-            path="kernel", kernel_precision="f64", assembly=assembly,
-            refine_steps=(fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None
-                          else refine_steps)))
-    return FitPlan(route=ladder.Route(path="xla", precision=engine.PRECISION_F64))
+    if assembly is None:
+        return FitPlan(route=ladder.Route(path="xla", precision=engine.PRECISION_F64))
+    cond_amp = condprobe.probe(xk, nk, xi, o, wm, dimension=dim, knowns=kn)
+    route = ladder.choose(cond_amp, moments_ok=assembly == "moments")
+    if refine_steps is not None:
+        if route.path == "kernel":
+            route = dataclasses.replace(route, refine_steps=refine_steps)
+    else:
+        route = _maybe_split_route(
+            route, xk, nk, xi, dim=dim, o=o, kn=kn, wm=wm, assembly=assembly,
+            certified=route.path == "kernel" and condprobe.accuracy_ok_from(
+                cond_amp, assembly=route.assembly),
+            basic=not (do_sens or iterative))
+    return FitPlan(route=route)
 
 
 def fit(xk, fk, xi=None, **kwargs) -> FitResult:
@@ -474,17 +684,14 @@ def prepare(
     returns a :class:`~wlsqm_tpu_torch.fitter.engine.Prepared` to pass to
     :func:`solve`.  Sharing it between fields is the reference's "guest
     mode" (reference: wlsqm/fitter/expert.pyx:110-124).  Same arguments as
-    the JAX package's ``prepare``; ``solver`` is ``"chol"`` and
-    ``precision`` ``"f64"`` (or None).  ``device`` as for :func:`fit_many`.
+    the JAX package's ``prepare``; ``solver`` is ``"chol"``; every
+    ``precision`` name of the JAX package computes in f64.  ``device`` as for :func:`fit_many`.
     """
     if solver != solve_ops.SOLVER_CHOLESKY:
         raise ValueError(
             "solver %r is not ported: this package has 'chol' (the f64 Cholesky); "
             "'lu' and 'chol_unrolled' wait on ROADMAP item A2" % (solver,))
-    if precision not in (None, engine.PRECISION_F64):
-        raise ValueError(
-            "precision must be None or 'f64'; got %r (the emulated precisions wait "
-            "on ROADMAP item A15)" % (precision,))
+    _check_precision(precision)
     device = config.resolve_device(device, xk)
     xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
     if tuple(xi.shape) != (B, dim):
@@ -524,12 +731,12 @@ def solve(
     same factorization in one multi-RHS solve.  Returns (fi, sens) for the
     basic algorithm, or (fi, sens, iterations) with ``iterative=True``;
     outputs carry the leading field axis when fk does (sens is one
-    geometry-only array, expanded).  ``mixed_steps`` belongs to the JAX
-    package's emulated precisions and must be None.
+    geometry-only array, expanded).  ``mixed_steps`` is the sweep dial of
+    the JAX package's emulated precisions and must be None.
     """
     if mixed_steps is not None:
-        raise ValueError("mixed_steps needs the emulated precisions (ROADMAP A15); "
-                         "this package solves in f64: pass None")
+        raise ValueError("mixed_steps belongs to the JAX package's emulated "
+                         "precisions; this package solves in f64: pass None")
     device = prep.c.device
     fk = config.as_tensor(fk, device)
     B, K, NO = prep.c.shape

@@ -27,6 +27,22 @@
 // local memory; and each thread reads its own 480 contiguous bytes of xk,
 // so neighbouring threads do not read neighbouring addresses.
 //
+// Built with -DWLSQM_EMIT_COND=1 the kernel also writes the per-case
+// conditioning key, replacing _cond_estimate (pallas_fit.py:382) and
+// _cond_inv_f2 (l.412), the emit_cond output of that kernel (l.717-719,
+// 747-748): est = ||A_jac||_inf * ||A_jac^-1||_F >= cond_2(A_jac), from the
+// moments, the scale and the factor the fit already holds: NO^2 row-sum
+// terms, then per unit column e_i one forward and one backward substitution
+// started at row i (rows above i follow by symmetry and are counted twice),
+// ~NO^3/3 multiply-adds, 8 more bytes written per case.  The wrapper folds
+// in the radius amplification max(inv_s, 1)^order.  A collapsed
+// neighbourhood meets the pivot guard, so its key is huge or non-finite and
+// compares False against any edge.  The key is a second library of the same
+// source.  Both are compiled with -fmad=false and every fused multiply-add
+// is written out as fma(): the compiler contracts nothing on its own, so the
+// fit's arithmetic does not depend on what else the kernel computes, and fi
+// is the same bits with and without the key.
+//
 // Layout: 128 threads per block, grid ceil(B / 128), ragged tail masked.
 // One template instance per (ORDER, WEIGHTING), so every table lookup is a
 // compile-time constant after unrolling.  Plain C entry point, loaded with
@@ -38,8 +54,13 @@
 
 #include "fit_moment_tables.cuh"  // generated from the Python chain tables
 
+#ifndef WLSQM_EMIT_COND
+#define WLSQM_EMIT_COND 0
+#endif
+
 namespace {
 
+constexpr bool kEmitCond = WLSQM_EMIT_COND != 0;  // this library writes the key
 constexpr int kThreads = 128;
 constexpr int kWeightCenter = 2;  // defs.WEIGHT_CENTER
 constexpr double kAlpha = 1e-4;   // reference: wlsqm/fitter/infra.pyx:45-46
@@ -56,16 +77,48 @@ __device__ __forceinline__ void chol_solve(const double (&L)[NO * (NO + 1) / 2],
   for (int i = 0; i < NO; ++i) {
     double t = x[i];
 #pragma unroll
-    for (int q = 0; q < i; ++q) t -= L[lt(i, q)] * x[q];
+    for (int q = 0; q < i; ++q) t = fma(-L[lt(i, q)], x[q], t);
     x[i] = t / L[lt(i, i)];
   }
 #pragma unroll
   for (int i = NO - 1; i >= 0; --i) {
     double t = x[i];
 #pragma unroll
-    for (int q = i + 1; q < NO; ++q) t -= L[lt(q, i)] * x[q];
+    for (int q = i + 1; q < NO; ++q) t = fma(-L[lt(q, i)], x[q], t);
     x[i] = t / L[lt(i, i)];
   }
+}
+
+// ||(L L^T)^-1||_F^2 = sum_i ||(L L^T)^-1 e_i||^2 for a packed lower factor.
+// Column i is solved from row i down (the rows above are 0 after the forward
+// pass) and back up to row i; its entries above row i equal entries of later
+// columns by symmetry, so every entry below the diagonal counts twice.
+template <int NO>
+__device__ __forceinline__ double inv_frob2(const double (&L)[NO * (NO + 1) / 2]) {
+  double rd[NO];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) rd[j] = 1.0 / L[lt(j, j)];
+  double f2 = 0.0;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) {
+    double x[NO];
+#pragma unroll
+    for (int r = i; r < NO; ++r) {
+      double t = r == i ? 1.0 : 0.0;
+#pragma unroll
+      for (int q = i; q < r; ++q) t = fma(-L[lt(r, q)], x[q], t);
+      x[r] = t * rd[r];
+    }
+#pragma unroll
+    for (int r = NO - 1; r >= i; --r) {
+      double t = x[r];
+#pragma unroll
+      for (int q = r + 1; q < NO; ++q) t = fma(-L[lt(q, r)], x[q], t);
+      x[r] = t * rd[r];
+      f2 = fma(r == i ? x[r] : 2.0 * x[r], x[r], f2);
+    }
+  }
+  return f2;
 }
 
 template <int ORDER, int WEIGHTING>
@@ -73,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
 fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
               const int* __restrict__ nk, const double* __restrict__ xi,
               const double* __restrict__ inv_s, double* __restrict__ fi,
-              int64_t B, int K, int refine_steps) {
+              double* __restrict__ est, int64_t B, int K, int refine_steps) {
   using T = MomentTables<ORDER>;
   constexpr int NO = T::NO;
   constexpr int NM = T::NM;
@@ -91,7 +144,7 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
     double m = 0.0;
     for (int k = 0; k < n; ++k) {
       const double dx = (xc[2 * k] - x0) * is, dy = (xc[2 * k + 1] - y0) * is;
-      m = fmax(m, dx * dx + dy * dy);
+      m = fmax(m, fma(dx, dx, dy * dy));
     }
     max_d2 = m > 0.0 ? m : 1.0;
   }
@@ -106,8 +159,8 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
     const double d[2] = {(xc[2 * k] - x0) * is, (xc[2 * k + 1] - y0) * is};
     double w = 1.0;
     if (WEIGHTING == kWeightCenter) {
-      const double t = 1.0 - sqrt((d[0] * d[0] + d[1] * d[1]) / max_d2);
-      w = kAlpha + kBeta * t * t;
+      const double t = 1.0 - sqrt(fma(d[0], d[0], d[1] * d[1]) / max_d2);
+      w = fma(kBeta * t, t, kAlpha);
     }
     double v[NM];
     v[0] = w;
@@ -115,7 +168,7 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll
     for (int i = 1; i < NM; ++i) {
       v[i] = v[T::mpar(i)] * d[T::maxis(i)];
-      M[i] += v[i];
+      M[i] = fma(v[T::mpar(i)], d[T::maxis(i)], M[i]);
     }
     double r[NO];
     r[0] = w * fc[k];
@@ -123,7 +176,7 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll
     for (int j = 1; j < NO; ++j) {
       r[j] = r[T::bpar(j)] * d[T::baxis(j)];
-      b[j] += r[j];
+      b[j] = fma(r[T::bpar(j)], d[T::baxis(j)], b[j]);
     }
   }
 
@@ -141,7 +194,7 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
   for (int j = 0; j < NO; ++j) {
     double acc = M[T::slot(j, j)] * (s[j] * s[j]);
 #pragma unroll
-    for (int q = 0; q < j; ++q) acc -= L[lt(j, q)] * L[lt(j, q)];
+    for (int q = 0; q < j; ++q) acc = fma(-L[lt(j, q)], L[lt(j, q)], acc);
     const double dj = sqrt(acc < 1e-30 ? 1e-30 : acc);
     L[lt(j, j)] = dj;
     const double invd = 1.0 / dj;
@@ -149,9 +202,23 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
     for (int i = j + 1; i < NO; ++i) {
       double t = M[T::slot(j, i)] * (s[j] * s[i]);
 #pragma unroll
-      for (int q = 0; q < j; ++q) t -= L[lt(i, q)] * L[lt(j, q)];
+      for (int q = 0; q < j; ++q) t = fma(-L[lt(i, q)], L[lt(j, q)], t);
       L[lt(i, j)] = t * invd;
     }
+  }
+
+  // the conditioning key: max abs row sum of the scaled matrix (NaN kept),
+  // times the Frobenius norm of its inverse
+  if constexpr (kEmitCond) {
+    double ninf = 0.0;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      double r = 0.0;
+#pragma unroll
+      for (int m = 0; m < NO; ++m) r += fabs(M[T::slot(j, m)] * (s[j] * s[m]));
+      ninf = (r > ninf || r != r) ? r : ninf;
+    }
+    est[c] = ninf * sqrt(inv_frob2<NO>(L));
   }
 
   // solve in the scaled space, then sweep: y += solve(s (b - A (s y)))
@@ -167,7 +234,7 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
     for (int j = 0; j < NO; ++j) {
       double acc = 0.0;
 #pragma unroll
-      for (int m = 0; m < NO; ++m) acc += M[T::slot(j, m)] * sx[m];
+      for (int m = 0; m < NO; ++m) acc = fma(M[T::slot(j, m)], sx[m], acc);
       r[j] = (b[j] - acc) * s[j];
     }
     chol_solve<NO>(L, r);
@@ -182,21 +249,24 @@ fit_moment_2d(const double* __restrict__ xk, const double* __restrict__ fk,
 
 template <int ORDER, int WEIGHTING>
 void launch(const double* xk, const double* fk, const int* nk, const double* xi,
-            const double* inv_s, double* fi, int64_t B, int K, int refine_steps,
-            cudaStream_t stream) {
+            const double* inv_s, double* fi, double* est, int64_t B, int K,
+            int refine_steps, cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + kThreads - 1) / kThreads);
   fit_moment_2d<ORDER, WEIGHTING><<<grid, kThreads, 0, stream>>>(
-      xk, fk, nk, xi, inv_s, fi, B, K, refine_steps);
+      xk, fk, nk, xi, inv_s, fi, est, B, K, refine_steps);
 }
 
 }  // namespace
 
 // xk (B, K, 2) f64 | fk (B, K) f64 | nk (B,) i32 | xi (B, 2) f64 |
-// inv_s (B,) f64 -> fi (B, NO) f64, in the scaled plain-monomial space.
+// inv_s (B,) f64 -> fi (B, NO) f64, in the scaled plain-monomial space |
+// est (B,) f64, the key before the radius amplification: given exactly when
+// the library was built with WLSQM_EMIT_COND=1, else null.
 extern "C" int wlsqm_fit_moment_2d(const void* xk, const void* fk, const void* nk,
                                    const void* xi, const void* inv_s, void* fi,
-                                   int64_t B, int K, int order, int weighting,
-                                   int refine_steps, void* stream) {
+                                   void* est, int64_t B, int K, int order,
+                                   int weighting, int refine_steps, void* stream) {
+  if ((est != nullptr) != kEmitCond) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   const double* x = (const double*)xk;
   const double* f = (const double*)fk;
@@ -204,14 +274,15 @@ extern "C" int wlsqm_fit_moment_2d(const void* xk, const void* fk, const void* n
   const double* o = (const double*)xi;
   const double* s = (const double*)inv_s;
   double* out = (double*)fi;
+  double* e = (double*)est;
   cudaStream_t st = (cudaStream_t)stream;
   const bool center = weighting == kWeightCenter;
 #define WLSQM_CASE(ORD)                                                    \
   case ORD:                                                                \
     if (center)                                                            \
-      launch<ORD, 2>(x, f, n, o, s, out, B, K, refine_steps, st);          \
+      launch<ORD, 2>(x, f, n, o, s, out, e, B, K, refine_steps, st);       \
     else                                                                   \
-      launch<ORD, 1>(x, f, n, o, s, out, B, K, refine_steps, st);          \
+      launch<ORD, 1>(x, f, n, o, s, out, e, B, K, refine_steps, st);       \
     break;
   switch (order) {
     WLSQM_CASE(0)

@@ -35,6 +35,23 @@
 // spill through L1 to L2; each thread reads its own contiguous xk and writes
 // its own contiguous K x NO sens block, so those accesses do not coalesce.
 //
+// Built with -DWLSQM_EMIT_COND=1 the kernel also writes the per-case
+// conditioning key, replacing _cond_estimate (pallas_fit.py:382) and
+// _cond_inv_f2 (l.412), the emit_cond output of that kernel (l.1067-1068):
+// est = ||A_jac||_inf * ||A_jac^-1||_F >= cond_2(A_jac) of the scaled matrix
+// with its identity rows for the known DOFs.  The row sums are taken before
+// the Cholesky overwrites the matrix; the inverse's norm comes from the
+// factor, per unit column e_i one forward and one backward substitution
+// started at row i (~NO^3/3 multiply-adds, 8 more bytes written per case).
+// The wrapper folds in the radius amplification max(inv_s, 1)^order.  A
+// collapsed neighbourhood meets the pivot guard, so its key is huge or
+// non-finite and compares False against any edge.  The key is a second
+// library of the same source.  Both are compiled with -fmad=false and every
+// fused multiply-add is written out as fma(): the compiler contracts nothing
+// on its own, so the fit's arithmetic does not depend on what else the
+// kernel computes, and every other output is the same bits with and without
+// the key.
+//
 // Layout: 128 threads per block, grid ceil(B / 128), ragged tail masked.
 // One template instance per (DIM, ORDER, WEIGHTING), 30 in all, so NO is a
 // compile-time constant and the basis exponent lookups fold away.  The
@@ -49,8 +66,13 @@
 
 #include "fit_rows_tables.cuh"  // generated from tables.EXPONENTS
 
+#ifndef WLSQM_EMIT_COND
+#define WLSQM_EMIT_COND 0
+#endif
+
 namespace {
 
+constexpr bool kEmitCond = WLSQM_EMIT_COND != 0;  // this library writes the key
 constexpr int kThreads = 128;
 constexpr int kWeightCenter = 2;  // defs.WEIGHT_CENTER
 constexpr double kAlpha = 1e-4;   // reference: wlsqm/fitter/infra.pyx:45-46
@@ -67,16 +89,48 @@ __device__ __forceinline__ void chol_solve(const double* L, double (&x)[NO]) {
   for (int i = 0; i < NO; ++i) {
     double t = x[i];
 #pragma unroll (U)
-    for (int q = 0; q < i; ++q) t -= L[lt(i, q)] * x[q];
+    for (int q = 0; q < i; ++q) t = fma(-L[lt(i, q)], x[q], t);
     x[i] = t / L[lt(i, i)];
   }
 #pragma unroll (U)
   for (int i = NO - 1; i >= 0; --i) {
     double t = x[i];
 #pragma unroll (U)
-    for (int q = i + 1; q < NO; ++q) t -= L[lt(q, i)] * x[q];
+    for (int q = i + 1; q < NO; ++q) t = fma(-L[lt(q, i)], x[q], t);
     x[i] = t / L[lt(i, i)];
   }
+}
+
+// ||(L L^T)^-1||_F^2 = sum_i ||(L L^T)^-1 e_i||^2 for a packed lower factor.
+// Column i is solved from row i down (the rows above are 0 after the forward
+// pass) and back up to row i; its entries above row i equal entries of later
+// columns by symmetry, so every entry below the diagonal counts twice.
+template <int NO, int U>
+__device__ __forceinline__ double inv_frob2(const double* L) {
+  double rd[NO];
+#pragma unroll (U)
+  for (int j = 0; j < NO; ++j) rd[j] = 1.0 / L[lt(j, j)];
+  double f2 = 0.0;
+#pragma unroll (U)
+  for (int i = 0; i < NO; ++i) {
+    double x[NO];
+#pragma unroll (U)
+    for (int r = i; r < NO; ++r) {
+      double t = r == i ? 1.0 : 0.0;
+#pragma unroll (U)
+      for (int q = i; q < r; ++q) t = fma(-L[lt(r, q)], x[q], t);
+      x[r] = t * rd[r];
+    }
+#pragma unroll (U)
+    for (int r = NO - 1; r >= i; --r) {
+      double t = x[r];
+#pragma unroll (U)
+      for (int q = r + 1; q < NO; ++q) t = fma(-L[lt(q, r)], x[q], t);
+      x[r] = t * rd[r];
+      f2 = fma(r == i ? x[r] : 2.0 * x[r], x[r], f2);
+    }
+  }
+  return f2;
 }
 
 // One case's view of its neighbourhood: offsets, weights and basis rows.
@@ -98,7 +152,7 @@ struct Hood {
   static __device__ __forceinline__ double sq(const double (&d)[DIM]) {
     double s = d[0] * d[0];
 #pragma unroll
-    for (int a = 1; a < DIM; ++a) s += d[a] * d[a];
+    for (int a = 1; a < DIM; ++a) s = fma(d[a], d[a], s);
     return s;
   }
 
@@ -131,7 +185,7 @@ struct Hood {
     }
     if (WEIGHTING != kWeightCenter) return 1.0;
     const double t = 1.0 - sqrt(sq(d) / max_d2);
-    return kAlpha + kBeta * t * t;
+    return fma(kBeta * t, t, kAlpha);
   }
 
   // ax = (C^T W C) sx over the valid neighbours (a sweep "through the rows")
@@ -145,10 +199,10 @@ struct Hood {
       const double w = row(k, c);
       double t = 0.0;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) t += c[j] * sx[j];
+      for (int j = 0; j < NO; ++j) t = fma(c[j], sx[j], t);
       t *= w;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) ax[j] += c[j] * t;
+      for (int j = 0; j < NO; ++j) ax[j] = fma(c[j], t, ax[j]);
     }
   }
 };
@@ -159,8 +213,8 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
          const int* __restrict__ nk, const double* __restrict__ xi,
          const double* __restrict__ inv_s, const double* __restrict__ ghat,
          double* __restrict__ fi, int* __restrict__ iters,
-         double* __restrict__ sens, int64_t B, int K, int64_t knowns,
-         int refine_steps, int max_iter) {
+         double* __restrict__ sens, double* __restrict__ est, int64_t B, int K,
+         int64_t knowns, int refine_steps, int max_iter) {
   using H = Hood<DIM, ORDER, WEIGHTING>;
   constexpr int NO = H::NO;
   constexpr int NT = NO * (NO + 1) / 2;
@@ -208,14 +262,14 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
     if (km != 0) {
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        if (known(j)) f -= g[j] * c[j];
+        if (known(j)) f = fma(-g[j], c[j], f);
     }
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const double wc = c[j] * w;
-      b[j] += wc * f;
+      b[j] = fma(wc, f, b[j]);
 #pragma unroll (U)
-      for (int m = 0; m <= j; ++m) A[lt(j, m)] += wc * c[m];
+      for (int m = 0; m <= j; ++m) A[lt(j, m)] = fma(wc, c[m], A[lt(j, m)]);
     }
   }
 
@@ -242,11 +296,30 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll (U)
     for (int m = 0; m <= i; ++m) A[lt(i, m)] *= s[i] * s[m];
   }
+  // the key's first factor: max abs row sum of the full symmetric scaled
+  // matrix (NaN kept), taken before the factor overwrites it
+  double ninf = 0.0;
+  if constexpr (kEmitCond) {
+    double rs[NO];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) rs[j] = 0.0;
+#pragma unroll (U)
+    for (int i = 0; i < NO; ++i) {
+#pragma unroll (U)
+      for (int m = 0; m <= i; ++m) {
+        const double v = fabs(A[lt(i, m)]);
+        rs[i] += v;
+        if (m != i) rs[m] += v;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) ninf = (rs[j] > ninf || rs[j] != rs[j]) ? rs[j] : ninf;
+  }
 #pragma unroll (U)
   for (int j = 0; j < NO; ++j) {
     double acc = A[lt(j, j)];
 #pragma unroll (U)
-    for (int q = 0; q < j; ++q) acc -= A[lt(j, q)] * A[lt(j, q)];
+    for (int q = 0; q < j; ++q) acc = fma(-A[lt(j, q)], A[lt(j, q)], acc);
     const double dj = sqrt(acc < 1e-30 ? 1e-30 : acc);
     A[lt(j, j)] = dj;
     const double invd = 1.0 / dj;
@@ -254,10 +327,12 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
     for (int i = j + 1; i < NO; ++i) {
       double t = A[lt(i, j)];
 #pragma unroll (U)
-      for (int q = 0; q < j; ++q) t -= A[lt(i, q)] * A[lt(j, q)];
+      for (int q = 0; q < j; ++q) t = fma(-A[lt(i, q)], A[lt(j, q)], t);
       A[lt(i, j)] = t * invd;
     }
   }
+
+  if constexpr (kEmitCond) est[cs] = ninf * sqrt(inv_frob2<NO, U>(A));
 
   // ---- solve in the scaled space, then sweep: y += solve(s b - s A (s y)) ----
   double y[NO];
@@ -271,7 +346,7 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
     for (int j = 0; j < NO; ++j) sx[j] = y[j] * s[j];
     h.matvec(n, sx, r);
 #pragma unroll
-    for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : b[j] * s[j] - s[j] * r[j];
+    for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : fma(-s[j], r[j], b[j] * s[j]);
     chol_solve<NO, U>(A, r);
 #pragma unroll
     for (int j = 0; j < NO; ++j) y[j] += r[j];
@@ -298,11 +373,11 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
         const double w = h.row(k, c);
         double m = 0.0;
 #pragma unroll
-        for (int j = 0; j < NO; ++j) m += c[j] * xh[j];
+        for (int j = 0; j < NO; ++j) m = fma(c[j], xh[j], m);
         const double r = fc[k] - m;
         nrm = fmax(nrm, fabs(r));
 #pragma unroll
-        for (int j = 0; j < NO; ++j) bp[j] += (c[j] * w) * r;
+        for (int j = 0; j < NO; ++j) bp[j] = fma(c[j] * w, r, bp[j]);
       }
       done = nrm == prev;
       if (!done) {
@@ -311,7 +386,7 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
         chol_solve<NO, U>(A, bp);
 #pragma unroll
         for (int j = 0; j < NO; ++j)
-          if (!known(j)) xh[j] += bp[j] * s[j];
+          if (!known(j)) xh[j] = fma(bp[j], s[j], xh[j]);
         ++itn;
       }
       prev = nrm;
@@ -350,7 +425,7 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
       for (int j = 0; j < NO; ++j) sy[j] = yk[j] * s[j];
       h.matvec(n, sy, r);
 #pragma unroll
-      for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : bk[j] - s[j] * r[j];
+      for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : fma(-s[j], r[j], bk[j]);
       chol_solve<NO, U>(A, r);
 #pragma unroll
       for (int j = 0; j < NO; ++j) yk[j] += r[j];
@@ -367,6 +442,7 @@ struct Args {
   double* fi;
   int* iters;
   double* sens;
+  double* est;
   int64_t B;
   int K;
   int64_t knowns;
@@ -377,8 +453,8 @@ template <int DIM, int ORDER, int WEIGHTING>
 void launch(const Args& a, cudaStream_t stream) {
   const unsigned grid = (unsigned)((a.B + kThreads - 1) / kThreads);
   fit_rows<DIM, ORDER, WEIGHTING><<<grid, kThreads, 0, stream>>>(
-      a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi, a.iters, a.sens, a.B, a.K,
-      a.knowns, a.refine_steps, a.max_iter);
+      a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi, a.iters, a.sens, a.est, a.B,
+      a.K, a.knowns, a.refine_steps, a.max_iter);
 }
 
 // the (ORDER, WEIGHTING) instance of one dimension; false: no such order
@@ -408,18 +484,22 @@ bool launch_dim(const Args& a, int order, bool center, cudaStream_t st) {
 // xk (B, K, DIM) f64 | fk (B, K) f64 | nk (B,) i32 | xi (B, DIM) f64 |
 // inv_s (B,) f64 | ghat (B, NO) f64 or null (null: no known DOF) ->
 // fi (B, NO) f64 in the scaled plain-monomial space | iters (B,) i32, written
-// when max_iter > 0 | sens (B, K, NO) f64 or null.
+// when max_iter > 0 | sens (B, K, NO) f64 or null | est (B,) f64, the key
+// before the radius amplification: given exactly when the library was built
+// with WLSQM_EMIT_COND=1, else null.
 extern "C" int wlsqm_fit_rows(const void* xk, const void* fk, const void* nk,
                               const void* xi, const void* inv_s, const void* ghat,
-                              void* fi, void* iters, void* sens, int64_t B, int K,
-                              int dim, int order, int weighting, int64_t knowns,
-                              int refine_steps, int max_iter, void* stream) {
+                              void* fi, void* iters, void* sens, void* est,
+                              int64_t B, int K, int dim, int order, int weighting,
+                              int64_t knowns, int refine_steps, int max_iter,
+                              void* stream) {
   if (max_iter > 0 && iters == nullptr) return (int)cudaErrorInvalidValue;
+  if ((est != nullptr) != kEmitCond) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   const Args a{(const double*)xk, (const double*)fk, (const int*)nk,
                (const double*)xi, (const double*)inv_s, (const double*)ghat,
-               (double*)fi, (int*)iters, (double*)sens, B, K, knowns,
-               refine_steps, max_iter};
+               (double*)fi, (int*)iters, (double*)sens, (double*)est, B, K,
+               knowns, refine_steps, max_iter};
   cudaStream_t st = (cudaStream_t)stream;
   const bool center = weighting == kWeightCenter;
   const bool ok = dim == 1   ? launch_dim<1>(a, order, center, st)

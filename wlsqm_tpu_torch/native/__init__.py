@@ -4,8 +4,8 @@ Counterpart of :mod:`wlsqm_tpu.native` (the on-demand g++ build of the
 k-d tree).  Each library is compiled from ``wlsqm_tpu_torch/csrc/*.cu`` at
 its first use on a CUDA device — never at import, so the package imports on
 machines without ``nvcc`` — into ``build/wlsqm_tpu_torch/<name>-<hash>/``
-beside the package, keyed by a hash of the sources, the generated headers
-and the flags.  The library is written under a temporary name and renamed
+beside the package, keyed by a hash of the sources, the generated headers,
+the flags and the ``-D`` defines.  The library is written under a temporary name and renamed
 into place, so concurrent builds never load a half-written file.  A
 failed build raises with the compiler's output.
 
@@ -30,9 +30,11 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "wlsqm_tpu_torch")
 
 #: Hopper only: keep the "a" so sm_90a-only instructions stay available.
 #: ``-Xptxas -v`` prints each kernel's registers, stack and spills into the
-#: build log.
+#: build log.  ``-fmad=false``: the sources write each fused multiply-add as
+#: ``fma()`` and the compiler contracts nothing else, so a kernel's bits do
+#: not depend on what else was compiled into it.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,17 +73,19 @@ def _write(path: str, text: str) -> None:
 
 
 def build(name: str, sources: list[str], headers: dict[str, str],
-          signatures: dict[str, tuple]) -> Library:
+          signatures: dict[str, tuple], defines: tuple[str, ...] = ()) -> Library:
     """Compile ``sources`` with the generated ``headers`` and load the result.
 
     headers: file name -> text, written into the build directory, which is
     on the include path.  signatures: C function name -> (restype,
-    argtypes), set on the loaded library.  No lock is held while nvcc runs,
-    so builds of different libraries started from threads run at once.
+    argtypes), set on the loaded library.  defines: ``NAME=value`` macros
+    (one source can give several libraries).  No lock is held while nvcc
+    runs, so builds of different libraries started from threads run at once.
     """
     compiler = nvcc()
+    dflags = ["-D" + d for d in defines]
     key = hashlib.sha256()
-    for part in [compiler, " ".join(NVCC_FLAGS)]:
+    for part in [compiler, " ".join(NVCC_FLAGS), " ".join(dflags)]:
         key.update(part.encode())
     for src in sources:
         with open(src, "rb") as f:
@@ -102,7 +106,7 @@ def build(name: str, sources: list[str], headers: dict[str, str],
         for fname, text in headers.items():
             _write(os.path.join(out_dir, fname), text)
         tmp = "%s.tmp%d.%d" % (path, os.getpid(), threading.get_ident())
-        cmd = [compiler, *NVCC_FLAGS, "-I", out_dir, "-o", tmp, *sources]
+        cmd = [compiler, *NVCC_FLAGS, *dflags, "-I", out_dir, "-o", tmp, *sources]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -26,6 +26,16 @@ f64 engine.  Two versions of the same math:
 :func:`fit_kernel` takes the JAX public layout and returns (B, NO) f64
 DOFs.  On a CPU tensor it runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  :data:`LAUNCHES` counts kernel launches.
+
+With ``emit_cond=True`` both versions also return the per-case
+conditioning key (``_cond_estimate``, pallas_fit.py l.382, the
+``emit_cond`` output of that kernel): ``‖A_jac‖∞ · ‖A_jac⁻¹‖_F · amp``, an
+upper bound of ``cond₂(A_jac) · amp`` with ``amp = max(inv_s, 1)^order``,
+from the scaled matrix and the Cholesky factor the fit already holds
+(:func:`cond_key_from_factor` is the plain version).  The kernel with the
+key is a second library of the same source (``-DWLSQM_EMIT_COND=1``), so
+the instances without it compile as before; :data:`COND_LAUNCHES` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -42,13 +52,17 @@ import torch
 from wlsqm_tpu_torch import native
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 
-__all__ = ["fit_kernel", "fit_moments_plain", "supported", "LAUNCHES"]
+__all__ = ["fit_kernel", "fit_moments_plain", "supported", "LAUNCHES",
+           "COND_LAUNCHES", "cond_key_from_factor", "cond_amp_factor"]
 
 #: residual sweeps after the direct f64 solve
 DEFAULT_REFINE_STEPS = 1
 
 #: number of CUDA kernel launches made by :func:`fit_kernel`
 LAUNCHES = 0
+
+#: of those, the launches that also wrote the conditioning key
+COND_LAUNCHES = 0
 
 #: the kernel's configuration space (anything else routes to the engine)
 KERNEL_DIMENSION = 2
@@ -226,9 +240,29 @@ def _chol_solve(L, r):
     return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
 
 
-def _solve_moments(d, fk, kmask, *, dimension, order, weighting, refine_steps):
+def cond_key_from_factor(As, L):
+    """‖As‖∞ · ‖As⁻¹‖_F of the scaled matrices ``As`` (B, NO, NO) with lower
+    Cholesky factors ``L``: the kernels' conditioning key before the radius
+    amplification, in plain torch (NaN row sums are kept)."""
+    ninf = As.abs().sum(-1).amax(-1)
+    eye = torch.eye(As.shape[-1], dtype=As.dtype, device=As.device).expand_as(As)
+    Y = torch.linalg.solve_triangular(L, eye, upper=False)
+    Ai = torch.linalg.solve_triangular(L.mT, Y, upper=True)
+    return ninf * torch.sqrt((Ai * Ai).sum((-2, -1)))
+
+
+def cond_amp_factor(inv_s, order: int):
+    """The radius amplification of the key: max(inv_s, 1)^order, the factor
+    by which the de-scale multiplies the solve's error (pallas_fit.py
+    l.1544-1549)."""
+    return torch.clamp_min(inv_s, 1.0) ** order
+
+
+def _solve_moments(d, fk, kmask, *, dimension, order, weighting, refine_steps,
+                   emit_cond=False):
     """Solution in the scaled plain-monomial space, from prescaled offsets
-    ``d`` (B, K, dim) and data ``fk`` (B, K), both zero on padded slots."""
+    ``d`` (B, K, dim) and data ``fk`` (B, K), both zero on padded slots;
+    with ``emit_cond`` also the key before the radius amplification."""
     _, parents, _ = moment_lattice(dimension, 2 * order)
     _, chain = dof_chain(dimension, order)
     slots = torch.as_tensor(moment_slots(dimension, order), device=d.device)
@@ -248,27 +282,36 @@ def _solve_moments(d, fk, kmask, *, dimension, order, weighting, refine_steps):
     A = M[:, slots]                                               # (B, NO, NO)
     djj = torch.diagonal(A, dim1=-2, dim2=-1)
     s = torch.where(djj > 0, 1.0 / torch.sqrt(torch.where(djj > 0, djj, 1.0)), 1.0)
-    L = _cholesky_guarded(A * (s[:, :, None] * s[:, None, :]))
+    As = A * (s[:, :, None] * s[:, None, :])
+    L = _cholesky_guarded(As)
     y = _chol_solve(L, b * s)
     for _ in range(refine_steps):
         acc = (A @ (y * s)[..., None])[..., 0]
         y = y + _chol_solve(L, (b - acc) * s)
+    if emit_cond:
+        return y * s, cond_key_from_factor(As, L)
     return y * s
 
 
 def fit_moments_plain(xk, fk, nk, xi, *, dimension: int, order: int,
-                      weighting: int, refine_steps: int = DEFAULT_REFINE_STEPS):
+                      weighting: int, refine_steps: int = DEFAULT_REFINE_STEPS,
+                      emit_cond: bool = False):
     """The kernel's computation in batched torch f64, any dimension and order.
 
     xk (B, K, dim) | fk (B, K) | nk (B,) | xi (B, dim).  Returns fi (B, NO)
-    in the reference's DOF convention.  Memory is O(B·K·NM): the chain
-    values of every moment are live at once.
+    in the reference's DOF convention, and with ``emit_cond`` the key (B,)
+    after it.  Memory is O(B·K·NM): the chain values of every moment are
+    live at once.
     """
     delta, kmask, e_s, inv_s = _prescale(xk, nk, xi)
-    y = _solve_moments(delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0),
-                       kmask, dimension=dimension, order=order,
-                       weighting=weighting, refine_steps=refine_steps)
-    return y * _dof_scale(e_s, dimension, order)
+    out = _solve_moments(delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0),
+                         kmask, dimension=dimension, order=order,
+                         weighting=weighting, refine_steps=refine_steps,
+                         emit_cond=emit_cond)
+    dscale = _dof_scale(e_s, dimension, order)
+    if emit_cond:
+        return out[0] * dscale, out[1] * cond_amp_factor(inv_s, order)
+    return out * dscale
 
 
 # ---------------------------------------------------------------------------
@@ -298,30 +341,36 @@ def supported(dimension: int, order, knowns, weighting, *, do_sens: bool = False
 
 
 @functools.cache
-def load() -> native.Library:
-    """The kernel's shared library, built with nvcc on first use."""
+def load(emit_cond: bool = False) -> native.Library:
+    """The kernel's shared library, built with nvcc on first use; with
+    ``emit_cond`` the library whose instances also write the key."""
     vp = ctypes.c_void_p
     return native.build(
-        "fit_moment", [_SRC], {_HEADER: tables_header()},
-        {_ENTRY: (ctypes.c_int, [vp, vp, vp, vp, vp, vp, ctypes.c_int64,
+        "fit_moment_cond" if emit_cond else "fit_moment", [_SRC],
+        {_HEADER: tables_header()},
+        {_ENTRY: (ctypes.c_int, [vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, vp])})
+                                 ctypes.c_int, vp])},
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond,))
 
 
-def _launch(xk, fk, nk, xi, inv_s, out, *, order: int, weighting: int,
+def _launch(xk, fk, nk, xi, inv_s, out, est=None, *, order: int, weighting: int,
             refine_steps: int) -> None:
-    """Launch the kernel on the current stream: out = scaled solution.
+    """Launch the kernel on the current stream: out = scaled solution, and
+    est (B,) = the key before the radius amplification when it is given.
 
     Checks device, dtype, shape and contiguity, and raises on a refused
     launch (the C entry returns ``cudaGetLastError()``).  Does not
     synchronise.
     """
-    global LAUNCHES
+    global LAUNCHES, COND_LAUNCHES
     B, K, dim = xk.shape
     NO = defs.number_of_dofs(dim, order)
-    expect = ((xk, (B, K, dim), torch.float64), (fk, (B, K), torch.float64),
+    expect = [(xk, (B, K, dim), torch.float64), (fk, (B, K), torch.float64),
               (nk, (B,), torch.int32), (xi, (B, dim), torch.float64),
-              (inv_s, (B,), torch.float64), (out, (B, NO), torch.float64))
+              (inv_s, (B,), torch.float64), (out, (B, NO), torch.float64)]
+    if est is not None:
+        expect.append((est, (B,), torch.float64))
     for t, shape, dtype in expect:
         if (t.device != xk.device or t.device.type != "cuda"
                 or tuple(t.shape) != shape or t.dtype != dtype
@@ -336,36 +385,45 @@ def _launch(xk, fk, nk, xi, inv_s, out, *, order: int, weighting: int,
                          % (dim, order, weighting, refine_steps))
     if B == 0:
         return
-    lib = load().lib
+    lib = load(est is not None).lib
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream(xk.device).cuda_stream
         status = getattr(lib, _ENTRY)(
             xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(),
-            inv_s.data_ptr(), out.data_ptr(), B, K, order, weighting,
+            inv_s.data_ptr(), out.data_ptr(),
+            None if est is None else est.data_ptr(), B, K, order, weighting,
             refine_steps, stream)
     if status != 0:
         raise RuntimeError("fit_moment kernel launch failed: CUDA error %d" % status)
     LAUNCHES += 1
+    COND_LAUNCHES += est is not None
 
 
 def fit_kernel(xk, fk, nk, xi, *, dimension: int, order: int, weighting: int,
-               refine_steps: int = DEFAULT_REFINE_STEPS):
+               refine_steps: int = DEFAULT_REFINE_STEPS, emit_cond: bool = False):
     """Fit a homogeneous batch with the moment-assembly kernel.
 
     xk (B, K, dim) f64 | fk (B, K) f64 | nk (B,) int | xi (B, dim) f64, all
-    on one device.  Returns fi (B, NO) f64.  A CPU tensor runs
-    :func:`fit_moments_plain`; a CUDA tensor launches the kernel (see
-    :func:`supported` for what it covers) or raises.
+    on one device.  Returns fi (B, NO) f64, and with ``emit_cond`` the
+    conditioning key (B,) f64 after it (fi is the same bits either way).  A
+    CPU tensor runs :func:`fit_moments_plain`; a CUDA tensor launches the
+    kernel (see :func:`supported` for what it covers) or raises.
     """
     if xk.device.type == "cpu":
         return fit_moments_plain(xk, fk, nk, xi, dimension=dimension, order=order,
-                                 weighting=weighting, refine_steps=refine_steps)
+                                 weighting=weighting, refine_steps=refine_steps,
+                                 emit_cond=emit_cond)
     if xk.shape[-1] != dimension:
         raise ValueError("xk has dimension %d, not %d" % (xk.shape[-1], dimension))
     nk = nk.to(torch.int32).contiguous()
     _, _, e_s, inv_s = _prescale(xk, nk, xi)
     out = torch.empty((xk.shape[0], defs.number_of_dofs(dimension, order)),
                       dtype=torch.float64, device=xk.device)
-    _launch(xk.contiguous(), fk.contiguous(), nk, xi.contiguous(), inv_s, out,
+    est = (torch.empty((xk.shape[0],), dtype=torch.float64, device=xk.device)
+           if emit_cond else None)
+    _launch(xk.contiguous(), fk.contiguous(), nk, xi.contiguous(), inv_s, out, est,
             order=order, weighting=weighting, refine_steps=refine_steps)
-    return out * _dof_scale(e_s, dimension, order)
+    fi = out * _dof_scale(e_s, dimension, order)
+    if emit_cond:
+        return fi, est * cond_amp_factor(inv_s, order)
+    return fi

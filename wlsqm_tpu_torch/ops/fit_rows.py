@@ -30,6 +30,13 @@ both versions here compute in float64:
 :func:`fit_rows` is the host contract of ``fit_pallas`` for the rows body;
 :func:`fit_rows_diffable` is ``fit_pallas_diffable`` (gradient in fk from
 the sensitivities).  :data:`LAUNCHES` counts kernel launches.
+
+With ``emit_cond=True`` both versions also return, last, the per-case
+conditioning key of the scaled matrix with its identity rows for the known
+DOFs (``_cond_estimate``, pallas_fit.py l.382, written at l.1067-1068), for
+the basic fit, with ``do_sens`` and with ``max_iter`` alike; see
+:mod:`wlsqm_tpu_torch.ops.fit_kernel`.  The kernel with the key is a second
+library of the same source; :data:`COND_LAUNCHES` counts its launches.
 """
 
 from __future__ import annotations
@@ -46,13 +53,16 @@ from wlsqm_tpu_torch.fitter import defs, engine, tables
 from wlsqm_tpu_torch.ops import fit_kernel
 
 __all__ = ["fit_rows", "fit_rows_plain", "fit_rows_diffable", "basis_rows",
-           "supported", "LAUNCHES"]
+           "supported", "LAUNCHES", "COND_LAUNCHES"]
 
 #: residual sweeps after each direct f64 solve (DOFs and sensitivities)
 DEFAULT_REFINE_STEPS = fit_kernel.DEFAULT_REFINE_STEPS
 
 #: number of CUDA kernel launches made by :func:`fit_rows`
 LAUNCHES = 0
+
+#: of those, the launches that also wrote the conditioning key
+COND_LAUNCHES = 0
 
 _SRC = os.path.join(native.CSRC, "fit_rows.cu")
 _HEADER = "fit_rows_tables.cuh"
@@ -139,13 +149,14 @@ def _scaled_knowns(fi_init, dscale, KN):
     return g
 
 
-def _finish(y, iters, sens, fi_init, dscale, KN):
+def _finish(y, iters, sens, fi_init, dscale, KN, key=None):
     """De-scale the kernel's outputs into the reference's DOF convention.
 
     fi = y · fact · 2^(-e_s·deg); known fi restored bit-exactly from
     ``fi_init`` (pallas_fit.py l.1524-1529); sens de-scaled in place per DOF
     column, NaN in the known columns (l.1536-1541).  Returns (fi, iters,
-    sens) with zero counts when the basic algorithm ran.
+    sens) with zero counts when the basic algorithm ran, and the
+    conditioning ``key`` after them when it is given.
     """
     fi = y * dscale
     if KN:
@@ -157,6 +168,8 @@ def _finish(y, iters, sens, fi_init, dscale, KN):
             sens[:, :, KN] = torch.nan
     if iters is None:
         iters = torch.zeros(y.shape[0], dtype=torch.int32, device=y.device)
+    if key is not None:
+        return fi, iters, sens, key
     return fi, iters, sens
 
 
@@ -171,11 +184,12 @@ def _chol_solve_cols(L, R):
 
 
 def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
-                refine_steps, do_sens, max_iter):
+                refine_steps, do_sens, max_iter, emit_cond=False):
     """The kernel body on prescaled offsets ``d`` (B, K, dim) and data
     ``fk`` (B, K), both zero on padded slots.  Returns the scaled solution
-    x̂ (B, NO) (ĝ on known DOFs), the counts or None, and the scaled
-    sensitivities (B, K, NO) or None."""
+    x̂ (B, NO) (ĝ on known DOFs), the counts or None, the scaled
+    sensitivities (B, K, NO) or None, and the conditioning key before the
+    radius amplification or None."""
     NO = defs.number_of_dofs(dimension, order)
     c = basis_rows(d, dimension, order)                                # (B, K, NO)
     w = engine.neighbor_weights(torch.sum(d * d, dim=-1), kmask,
@@ -196,7 +210,9 @@ def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
         b[:, KN] = 0.0
     djj = torch.diagonal(A, dim1=-2, dim2=-1)
     s = torch.where(djj > 0, 1.0 / torch.sqrt(torch.where(djj > 0, djj, 1.0)), 1.0)
-    L = fit_kernel._cholesky_guarded(A * (s[:, :, None] * s[:, None, :]))
+    As = A * (s[:, :, None] * s[:, None, :])
+    L = fit_kernel._cholesky_guarded(As)
+    key = fit_kernel.cond_key_from_factor(As, L) if emit_cond else None
     sc = s[..., None]
 
     def solve(rhs):
@@ -232,13 +248,13 @@ def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
     if do_sens:
         rhs = torch.where(unknown[:, None], cw.mT * sc, 0.0)          # (B, NO, K)
         sens = (solve(rhs) * sc).mT.contiguous()                       # (B, K, NO)
-    return xh, iters, sens
+    return xh, iters, sens, key
 
 
 def fit_rows_plain(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
                    weighting: int, knowns: int = 0,
                    refine_steps: int = DEFAULT_REFINE_STEPS, do_sens: bool = False,
-                   max_iter: int = 0):
+                   max_iter: int = 0, emit_cond: bool = False):
     """The kernel's computation in batched torch f64, for any dimension 1-3
     and order 0-4; same arguments and results as :func:`fit_rows`.
 
@@ -248,11 +264,14 @@ def fit_rows_plain(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
     dscale = fit_kernel._dof_scale(e_s, dimension, order)
     KN = known_dofs(knowns, dimension, order)
     ghat = _scaled_knowns(fi_init, dscale, KN)
-    y, iters, sens = _solve_rows(
+    y, iters, sens, key = _solve_rows(
         delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0), kmask, ghat,
         dimension=dimension, order=order, weighting=weighting, KN=KN,
-        refine_steps=refine_steps, do_sens=do_sens, max_iter=max_iter)
-    return _finish(y, iters, sens, fi_init, dscale, KN)
+        refine_steps=refine_steps, do_sens=do_sens, max_iter=max_iter,
+        emit_cond=emit_cond)
+    if emit_cond:
+        key = key * fit_kernel.cond_amp_factor(inv_s, order)
+    return _finish(y, iters, sens, fi_init, dscale, KN, key)
 
 
 # ---------------------------------------------------------------------------
@@ -280,28 +299,32 @@ def supported(dimension: int, order, knowns, weighting) -> bool:
 
 
 @functools.cache
-def load() -> native.Library:
-    """The kernel's shared library, built with nvcc on first use."""
+def load(emit_cond: bool = False) -> native.Library:
+    """The kernel's shared library, built with nvcc on first use; with
+    ``emit_cond`` the library whose instances also write the key."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     return native.build(
-        "fit_rows", [_SRC], {_HEADER: tables_header()},
-        {_ENTRY: (i32, [vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                        i32, i64, i32, i32, vp])})
+        "fit_rows_cond" if emit_cond else "fit_rows", [_SRC],
+        {_HEADER: tables_header()},
+        {_ENTRY: (i32, [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                        i32, i32, i64, i32, i32, vp])},
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond,))
 
 
-def _launch(xk, fk, nk, xi, inv_s, ghat, out, iters, sens, *, order: int,
+def _launch(xk, fk, nk, xi, inv_s, ghat, out, iters, sens, est=None, *, order: int,
             weighting: int, knowns: int, refine_steps: int, max_iter: int) -> None:
     """Launch the kernel on the current stream.
 
     Writes the scaled solution into ``out`` (B, NO), the counts into
-    ``iters`` (B,) when ``max_iter > 0`` and the scaled sensitivities into
-    ``sens`` (B, K, NO) when it is given.  ``ghat`` (B, NO) holds the scaled
+    ``iters`` (B,) when ``max_iter > 0``, the scaled sensitivities into
+    ``sens`` (B, K, NO) when it is given, and the key before the radius
+    amplification into ``est`` (B,) when it is given.  ``ghat`` (B, NO) holds the scaled
     known values and is given exactly when the knowns mask marks a DOF below
     NO.  Checks device, dtype, shape and contiguity, and raises on a refused
     launch (the C entry returns ``cudaGetLastError()``).  Does not
     synchronise.
     """
-    global LAUNCHES
+    global LAUNCHES, COND_LAUNCHES
     B, K, dim = xk.shape
     NO = defs.number_of_dofs(dim, order)
     has_known = bool(known_dofs(knowns, dim, order))
@@ -310,7 +333,8 @@ def _launch(xk, fk, nk, xi, inv_s, ghat, out, iters, sens, *, order: int,
               (inv_s, (B,), torch.float64), (out, (B, NO), torch.float64)]
     for t, shape, dtype, want in ((ghat, (B, NO), torch.float64, has_known),
                                   (iters, (B,), torch.int32, max_iter > 0),
-                                  (sens, (B, K, NO), torch.float64, sens is not None)):
+                                  (sens, (B, K, NO), torch.float64, sens is not None),
+                                  (est, (B,), torch.float64, est is not None)):
         if (t is not None) != want:
             raise ValueError("fit_rows kernel: an optional tensor of shape %s is %s"
                              % (shape, "missing" if want else "not expected"))
@@ -335,30 +359,33 @@ def _launch(xk, fk, nk, xi, inv_s, ghat, out, iters, sens, *, order: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = load().lib
+    lib = load(est is not None).lib
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream(xk.device).cuda_stream
         status = getattr(lib, _ENTRY)(
             xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(),
             inv_s.data_ptr(), ptr(ghat), out.data_ptr(), ptr(iters), ptr(sens),
-            B, K, dim, order, weighting, int(knowns), refine_steps, max_iter,
-            stream)
+            ptr(est), B, K, dim, order, weighting, int(knowns), refine_steps,
+            max_iter, stream)
     if status != 0:
         raise RuntimeError("fit_rows kernel launch failed: CUDA error %d" % status)
     LAUNCHES += 1
+    COND_LAUNCHES += est is not None
 
 
 def fit_rows(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
              weighting: int, knowns: int = 0,
              refine_steps: int = DEFAULT_REFINE_STEPS, do_sens: bool = False,
-             max_iter: int = 0):
+             max_iter: int = 0, emit_cond: bool = False):
     """Fit a homogeneous batch with the rows-body kernel.
 
     xk (B, K, dim) f64 | fk (B, K) f64 | nk (B,) int | xi (B, dim) f64 |
     fi_init (B, >=NO) f64 or None (the known values), all on one device.
     Returns (fi (B, NO), iters (B,) int32, sens (B, K, NO) or None): counts
     are 0 unless ``max_iter > 0`` (ALGO_ITERATIVE); sens is
-    d fi / d fk when ``do_sens``, NaN on known DOFs.  A CPU tensor runs
+    d fi / d fk when ``do_sens``, NaN on known DOFs.  With ``emit_cond`` the
+    conditioning key (B,) f64 comes last, and the rest is the same bits as
+    without it.  A CPU tensor runs
     :func:`fit_rows_plain`; a CUDA tensor launches the kernel (see
     :func:`supported` for what it covers) or raises.
     """
@@ -366,7 +393,7 @@ def fit_rows(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
         return fit_rows_plain(xk, fk, nk, xi, fi_init, dimension=dimension,
                               order=order, weighting=weighting, knowns=knowns,
                               refine_steps=refine_steps, do_sens=do_sens,
-                              max_iter=max_iter)
+                              max_iter=max_iter, emit_cond=emit_cond)
     if xk.shape[-1] != dimension:
         raise ValueError("xk has dimension %d, not %d" % (xk.shape[-1], dimension))
     B, K, _ = xk.shape
@@ -381,10 +408,13 @@ def fit_rows(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
     iters = (torch.empty((B,), dtype=torch.int32, device=xk.device) if max_iter > 0
              else None)
     sens = torch.empty((B, K, NO), **f64) if do_sens else None
+    est = torch.empty((B,), **f64) if emit_cond else None
     _launch(xk.contiguous(), fk.contiguous(), nk, xi.contiguous(), inv_s, ghat,
-            out, iters, sens, order=order, weighting=weighting, knowns=knowns,
+            out, iters, sens, est, order=order, weighting=weighting, knowns=knowns,
             refine_steps=refine_steps, max_iter=max_iter)
-    return _finish(out, iters, sens, fi_init, dscale, KN)
+    if emit_cond:
+        est = est * fit_kernel.cond_amp_factor(inv_s, order)
+    return _finish(out, iters, sens, fi_init, dscale, KN, est)
 
 
 # ---------------------------------------------------------------------------
