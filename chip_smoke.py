@@ -3,15 +3,17 @@
 Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (five libraries from
 three sources — each fit kernel without and with its conditioning key —
 one nvcc run each, started together), checks each against its plain torch
-version, then drives five paths through the port's public routes:
+version (both bodies of the rows kernel, every instance of the gather),
+then drives five paths through the port's public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
   on 2^23 cases (the moment kernel);
 * the sens path — the same fit with ``do_sens=True`` (the ``sens`` row of
-  benchmarks/run_regression_gate.py) on 2^21 cases (the rows kernel);
+  benchmarks/run_regression_gate.py) on 2^21 cases (the rows kernel's warp
+  body);
 * the dim3 path — 3D, order 4, K = 48, WEIGHT_CENTER (the ``dim3`` row) on
-  2^21 cases through ``fit_many(backend="kernel")`` (the rows kernel);
+  2^21 cases through ``fit_many(backend="kernel")`` (the warp body);
 * the IBVP heat step — the ``gather`` row (l.238-289) on a 2^22-point
   Morton-ordered cloud, K = 28: ``prepare`` once, then per step
   ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
@@ -31,7 +33,9 @@ version, then drives five paths through the port's public routes:
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
 launch or check raises, so the script exits non-zero and prints no result
-line; so does a machine without a CUDA device.
+line; so does a machine without a CUDA device.  ``measure_rows_cut`` and
+``measure_gather_variants``, run by hand, time the designs that the rows
+kernel's two bodies and the gather kernel were chosen from.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -60,7 +64,7 @@ B_PLAIN = 1 << 18       # the plain versions' intermediates cap their batch
 B_ENGINE = 65536        # slice checked against the port's f64 engine
 B_ENGINE_DIM3 = 16384
 B_SWEEP = 16384         # 3D order-4 radius sweep, per radius
-B_SCIPY = 1024          # slice checked against bench.parity_check (scipy f64)
+B_SCIPY = 1024          # slice checked against parity_check (scipy f64)
 B_CERT = 1 << 22        # the certified auto route
 B_CERT_ROWS = 1 << 20   # ... its rows-kernel part (a known DOF)
 B_PLAN = 32768          # cases a plan is made from
@@ -75,8 +79,10 @@ RADII_WIDE = (0.03, 1.0)  # the calibration sweep's range: a minority certifies
 K = 30
 K_DIM3 = 48
 K_GRID = {1: 16, 2: 30, 3: 56}
+K_WIDE = 130            # the warp body's configurations again: five chunks of 32, the
+                        # last ragged
 ORDER = 4
-PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), bench.parity_check's bar
+PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), parity_check's bar
 REPS = 5                # timed repetitions after one warm-up; the median is reported
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 FP64_FLOP_S = 67e12     # H100 SXM data sheet: FP64 peak (on the tensor cores)
@@ -133,6 +139,32 @@ def _cloud(B, gen, dev, *, dim=2, K=K, order=ORDER, ragged=False, offset=False,
     return xk, fk, nk, xi
 
 
+def parity_check(xk, fk, fi_dev):
+    """L∞ error relative to max(|ref|, 1) of the DOFs of the 2D order-4
+    CENTER fit (xi = 0) against scipy's f64 symmetric solve of the normal
+    equations, case by case: the JAX package's benchmark check
+    (bench.py:274-296), kept here so that this script reads nothing of it."""
+    from math import factorial
+
+    import scipy.linalg
+
+    ex = np.array([0, 1, 0, 2, 1, 0, 3, 2, 1, 0, 4, 3, 2, 1, 0])
+    ey = np.array([0, 0, 1, 0, 1, 2, 0, 1, 2, 3, 0, 1, 2, 3, 4])
+    invf = np.array([1.0 / (factorial(a) * factorial(b)) for a, b in zip(ex, ey)])
+    worst = 0.0
+    for j in range(xk.shape[0]):
+        c = (xk[j][:, 0:1] ** ex) * (xk[j][:, 1:2] ** ey) * invf
+        d2 = (xk[j] ** 2).sum(1)
+        t = 1.0 - np.sqrt(d2 / d2.max())
+        w = 1e-4 + (1.0 - 1e-4) * t * t
+        A = c.T @ (w[:, None] * c)
+        b = c.T @ (w * fk[j])
+        ref = scipy.linalg.solve(A, b, assume_a="sym")
+        scale = max(np.abs(ref).max(), 1.0)
+        worst = max(worst, np.abs(ref - fi_dev[j]).max() / scale)
+    return worst
+
+
 def _time_ms(fn):
     """Median and spread of REPS CUDA-event timings after one warm-up."""
     fn()
@@ -149,14 +181,15 @@ def _time_ms(fn):
     return statistics.median(times), times
 
 
-def _ptxas_summary(log: str, pattern: str, fmt: str) -> dict:
+def _ptxas_summary(log: str) -> dict:
     """Registers, stack and spill bytes of each kernel instance, from
-    ``nvcc -Xptxas -v``; ``pattern`` matches the mangled template name."""
+    ``nvcc -Xptxas -v``, keyed by the template's name and arguments."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(pattern, line)
+        m = re.search(r"\d+((?:fit|gather)_[a-z_0-9]+?)(?:I((?:L[a-z]+\d+E)+)E|E)", line)
         if m and "Compiling entry function" in line:
-            name = fmt % m.groups()
+            name = "%s<%s>" % (m.group(1), ",".join(re.findall(r"L[a-z]+(\d+)E",
+                                                               m.group(2) or "")))
             out[name] = {}
         elif name:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -286,16 +319,8 @@ def phase_build():
         libs = {name: f.result() for name, f in futures.items()}
     wall = time.perf_counter() - t0
     for name, lib in libs.items():
-        if name.startswith("fit_moment"):
-            ptxas = _ptxas_summary(lib.log, r"fit_moment_2dILi(\d+)ELi(\d+)E",
-                                   "order%s_w%s")
-        elif name == "gather":
-            ptxas = _ptxas_summary(lib.log, r"gather_wordsILi(\d+)E", "words%s")
-        else:
-            ptxas = _ptxas_summary(lib.log, r"fit_rowsILi(\d+)ELi(\d+)ELi(\d+)E",
-                                   "d%s_order%s_w%s")
         print(json.dumps({"library": name, "nvcc_s": round(lib.build_seconds, 3),
-                          "path": lib.path, "ptxas": ptxas}), flush=True)
+                          "path": lib.path, "ptxas": _ptxas_summary(lib.log)}), flush=True)
     print(json.dumps({"build_wall_s": round(wall, 3), "parallel_nvcc": len(jobs)}),
           flush=True)
 
@@ -330,6 +355,13 @@ def phase_moment_vs_plain(dev, wtt):
     return worst_abs, worst_rel
 
 
+def _warp_configs():
+    """The (dim, order) instances that the rows kernel runs on its warp body."""
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    return [(d, o) for d in (1, 2, 3) for o in range(ORDER + 1) if fit_rows.warp_body(d, o)]
+
+
 def _count_check(equal, within, tv, total):
     """The ALGO_ITERATIVE count bar, pooled over a grid: >= 50% equal,
     >= 80% within one, and the per-configuration count histograms at most
@@ -340,14 +372,18 @@ def _count_check(equal, within, tv, total):
 def phase_rows_vs_plain(dev, wtt):
     """The rows kernel against its plain version over dims 1-3, orders 0-4,
     both weightings: with sens, with a random knowns mask (and sens), and
-    with max_iter 3 (and the mask).
+    with max_iter 3 (and the mask); both bodies (the thread body below
+    fit_rows.WARP_MIN_NO, the warp body from it) at the grid's K, and the
+    warp body's configurations again at K_WIDE.
 
     Counts: exact-stagnation ties follow the last bit of the residual norms,
     which FMA contraction and the summation order move, so they are held
     pooled (_count_check; the 2D grid measured 57% equal and 88% within one
-    on an H100).  Constant counts 1, 2 and max_iter are run through the same
-    check as controls, and each must fail it.  Data fk = 0 has residual 0 at
-    every trip, so there both versions must stop at the first repeat: count
+    on an H100 in PR 2; the warp body sums A on the tensor cores, in
+    another order than the plain version's matmuls, which moves more ties).
+    Constant counts 1, 2 and max_iter are run through the same check as
+    controls, and each must fail it.  Data fk = 0 has residual 0 at every
+    trip, so there both versions must stop at the first repeat: count
     exactly 1, fi exactly 0.
 
     1D clouds keep nk >= 2 NO: at 1D order 4 with 7-9 random neighbours
@@ -365,63 +401,64 @@ def phase_rows_vs_plain(dev, wtt):
     tally = {name: [0, 0, 0] for name in ("kernel", *("constant_%d" % c for c in controls))}
     total = 0
     per = {}
-    for dim in (1, 2, 3):
-        for order in range(ORDER + 1):
-            NO = defs.number_of_dofs(dim, order)
-            B = B_CHECK if order == ORDER and dim > 1 else B_GRID
-            for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
-                xk, fk, nk, xi = _cloud(B, gen, dev, dim=dim, K=K_GRID[dim], order=order,
-                                        ragged=True, offset=True,
-                                        lo=2 * NO if dim == 1 else None)
-                fi0 = torch.randn((B, NO), generator=gen, device=dev, dtype=torch.float64)
-                kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
-                errs = []
-                for knowns, sens, max_iter in ((0, True, 0), (kn, True, 0), (kn, False, MI)):
-                    kw = dict(dimension=dim, order=order, weighting=w, knowns=knowns,
-                              do_sens=sens, max_iter=max_iter)
-                    got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
-                    ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
-                    torch.cuda.synchronize()
-                    if not bool(torch.isfinite(got[0]).all()):
-                        raise RuntimeError("rows kernel gave non-finite DOFs: %s" % (kw,))
-                    KN = fit_rows.known_dofs(knowns, dim, order)
-                    if not torch.equal(got[0][:, KN], fi0[:, KN]):
-                        raise RuntimeError("known DOFs not restored exactly: %s" % (kw,))
-                    pairs = [(got[0], ref[0])] + ([(got[2], ref[2])] if sens else [])
-                    for a, b in pairs:
-                        rel = _rel_nan(a, b)
-                        errs.append(rel)
-                        worst_rel = max(worst_rel, rel)
-                        worst_abs = max(worst_abs, (torch.nan_to_num(a) - torch.nan_to_num(b))
-                                        .abs().max().item())
-                        if rel > PARITY:
-                            raise RuntimeError("rows kernel vs plain %s: %.3e > %.0e"
-                                               % (kw, rel, PARITY))
-                    if max_iter:
-                        it, rit = got[1].long(), ref[1].long()
-                        if not (1 <= int(it.min()) and int(it.max()) <= max_iter):
-                            raise RuntimeError("iteration counts out of range: %s" % (kw,))
-                        hist = torch.bincount(rit, minlength=max_iter + 1)
-                        for name, c in (("kernel", it), *(("constant_%d" % v,
-                                                           torch.full_like(rit, v))
-                                                          for v in controls)):
-                            h = torch.bincount(c, minlength=max_iter + 1)
-                            t = tally[name]
-                            t[0] += int((c == rit).sum())
-                            t[1] += int(((c - rit).abs() <= 1).sum())
-                            t[2] += int((h - hist).abs().sum()) // 2
-                        total += B
-                        per["d%d_o%d_w%d_iters" % (dim, order, w)] = {
-                            "kernel": torch.bincount(it, minlength=max_iter + 1)[1:].tolist(),
-                            "plain": hist[1:].tolist()}
-                        kw = dict(kw, knowns=0)
-                        zero = fk * 0.0        # NaN stays in the padded slots
-                        for fi_z, it_z, _ in (fit_rows.fit_rows(xk, zero, nk, xi, **kw),
-                                              fit_rows.fit_rows_plain(xk, zero, nk, xi, **kw)):
-                            if not (bool((it_z == 1).all()) and bool((fi_z == 0).all())):
-                                raise RuntimeError("fk = 0 did not stop at the first "
-                                                   "repeat: %s" % (kw,))
-                per["d%d_o%d_w%d_B%d" % (dim, order, w, B)] = max(errs)
+    grid = [(dim, order, K_GRID[dim], B_CHECK if order == ORDER and dim > 1 else B_GRID)
+            for dim in (1, 2, 3) for order in range(ORDER + 1)]
+    grid += [(dim, order, K_WIDE, B_GRID) for dim, order in _warp_configs()]
+    for dim, order, Kg, B in grid:
+        NO = defs.number_of_dofs(dim, order)
+        for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+            xk, fk, nk, xi = _cloud(B, gen, dev, dim=dim, K=Kg, order=order,
+                                    ragged=True, offset=True,
+                                    lo=2 * NO if dim == 1 else None)
+            fi0 = torch.randn((B, NO), generator=gen, device=dev, dtype=torch.float64)
+            kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
+            errs = []
+            for knowns, sens, max_iter in ((0, True, 0), (kn, True, 0), (kn, False, MI)):
+                kw = dict(dimension=dim, order=order, weighting=w, knowns=knowns,
+                          do_sens=sens, max_iter=max_iter)
+                got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got[0]).all()):
+                    raise RuntimeError("rows kernel gave non-finite DOFs: %s" % (kw,))
+                KN = fit_rows.known_dofs(knowns, dim, order)
+                if not torch.equal(got[0][:, KN], fi0[:, KN]):
+                    raise RuntimeError("known DOFs not restored exactly: %s" % (kw,))
+                pairs = [(got[0], ref[0])] + ([(got[2], ref[2])] if sens else [])
+                for a, b in pairs:
+                    rel = _rel_nan(a, b)
+                    errs.append(rel)
+                    worst_rel = max(worst_rel, rel)
+                    worst_abs = max(worst_abs, (torch.nan_to_num(a) - torch.nan_to_num(b))
+                                    .abs().max().item())
+                    if rel > PARITY:
+                        raise RuntimeError("rows kernel vs plain %s: %.3e > %.0e"
+                                           % (kw, rel, PARITY))
+                if max_iter:
+                    it, rit = got[1].long(), ref[1].long()
+                    if not (1 <= int(it.min()) and int(it.max()) <= max_iter):
+                        raise RuntimeError("iteration counts out of range: %s" % (kw,))
+                    hist = torch.bincount(rit, minlength=max_iter + 1)
+                    for name, c in (("kernel", it), *(("constant_%d" % v,
+                                                       torch.full_like(rit, v))
+                                                      for v in controls)):
+                        h = torch.bincount(c, minlength=max_iter + 1)
+                        t = tally[name]
+                        t[0] += int((c == rit).sum())
+                        t[1] += int(((c - rit).abs() <= 1).sum())
+                        t[2] += int((h - hist).abs().sum()) // 2
+                    total += B
+                    per["d%d_o%d_w%d_K%d_iters" % (dim, order, w, Kg)] = {
+                        "kernel": torch.bincount(it, minlength=max_iter + 1)[1:].tolist(),
+                        "plain": hist[1:].tolist()}
+                    kw = dict(kw, knowns=0)
+                    zero = fk * 0.0        # NaN stays in the padded slots
+                    for fi_z, it_z, _ in (fit_rows.fit_rows(xk, zero, nk, xi, **kw),
+                                          fit_rows.fit_rows_plain(xk, zero, nk, xi, **kw)):
+                        if not (bool((it_z == 1).all()) and bool((fi_z == 0).all())):
+                            raise RuntimeError("fk = 0 did not stop at the first "
+                                               "repeat: %s" % (kw,))
+            per["d%d_o%d_w%d_K%d_B%d" % (dim, order, w, Kg, B)] = max(errs)
     counts = {name: {"equal": t[0] / total, "within_one": t[1] / total,
                      "histogram_distance": t[2] / total, "passes": _count_check(*t, total)}
               for name, t in tally.items()}
@@ -465,7 +502,7 @@ def phase_radius_sweep(dev, wtt):
                            % (bad, PARITY))
 
 
-def phase_headline(dev, wtt, parity_check):
+def phase_headline(dev, wtt):
     """The headline path at 2^23 through the moment kernel, and its times."""
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
@@ -557,7 +594,7 @@ def phase_headline(dev, wtt, parity_check):
             "library_ms": library_ms, **small_bound}
 
 
-def phase_sens(dev, wtt, parity_check):
+def phase_sens(dev, wtt):
     """The sens path at 2^21 through plan_fit_many(do_sens=True) +
     fit_many(plan=, do_sens=True): the rows kernel, and its times."""
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
@@ -769,7 +806,8 @@ def phase_gather_vs_plain(dev, ibvp_idx, ibvp_plan):
     """The gather kernel against u[idx], bit for bit (torch.equal on integer
     views): f64 with F = 1 and 3, f32, int32, int64, the f32 pair; float
     payloads carry NaN, ±0 and ±inf; a ragged tail (B = 16·m + 7); a plan
-    with overflow blocks; and the 2^22 IBVP indices."""
+    with overflow blocks; every vector instance on an odd row count, with u
+    aligned and one element off; and the 2^22 IBVP indices."""
     from wlsqm_tpu_torch.ops import gather
 
     rng = np.random.default_rng(2029)
@@ -820,12 +858,32 @@ def phase_gather_vs_plain(dev, ibvp_idx, ibvp_plan):
                 and torch.equal(_bits(glo), _bits(lo[idx.long()]))):
             raise RuntimeError("gather pair kernel differs: %s" % set_name)
         checked.append("%s_pair_f32_F2" % set_name)
+    # every instance of the vector plan, an odd number of rows (a ragged
+    # last group), and u viewed one element off its allocation, so that it
+    # is not 16-byte aligned and the 16-byte loads are not taken
+    idx_np = _local_idx(rng, n, 16 * 2048 + 5, 7)              # 229,411 rows
+    idx, plan = torch.as_tensor(idx_np.astype(np.int32), device=dev), gather.plan_window_gather(
+        idx_np, n)
+    instances = {}
+    for dtype, F in ((torch.float64, 1), (torch.float64, 2), (torch.float64, 3),
+                     (torch.float32, 1), (torch.float32, 3), (torch.int32, 1),
+                     (torch.int64, 1)):
+        base = payload(((n + 1) * F,), dtype)
+        for off in (0, 1):
+            u = base[off:off + n * F]
+            u = u.view(n, F) if F > 1 else u
+            name = "odd_rows_%s_F%d_offset%d" % (str(dtype)[6:], F, off)
+            instances[name] = gather._vector_plan(u.element_size() * F, u.data_ptr(), 1 << 20)
+            if off and instances[name] == 16:
+                raise RuntimeError("a misaligned view took the 16-byte loads: %s" % name)
+            check(name, u, idx, plan)
     idx = torch.as_tensor(ibvp_idx, device=dev)
     for F in (1, 3):
         u = torch.randn((N_IBVP, F) if F > 1 else (N_IBVP,), generator=gen,
                         dtype=torch.float64, device=dev)
         check("ibvp_2^22_float64_F%d" % F, u, idx, ibvp_plan)
     print(json.dumps({"gather_vs_plain": "bit-exact", "cases": checked,
+                      "vector_plan_load_bytes": instances,
                       "max_abs_err": worst_abs, "n": n, "B": B}), flush=True)
     return worst_abs
 
@@ -1021,7 +1079,9 @@ def phase_ibvp(dev, wtt, pts, idx_np, plan, setup):
     if max(parity.values()) > PARITY:
         raise RuntimeError("IBVP DOF parity vs SVD (scaled): %s > %.0e" % (parity, PARITY))
     return {"launches": launches, "ms": launch_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bound}
+            "library_ms": library_ms, **bound, "ms_F3": launch3_ms,
+            "library_ms_F3": library3_ms, "bound_ms_F3": bound3["bound_ms"],
+            "launches_F3": launches3}
 
 
 def phase_heat_example(dev):
@@ -1100,34 +1160,35 @@ def phase_cond_vs_plain(dev, wtt):
             per[name] = {"key_median": key[fin].median().item(),
                          "key_max": key[fin].max().item()}
             del xk, fk, fi0, fi1, key, ref
-    for dim in (1, 2, 3):
-        for order in range(ORDER + 1):
-            NO = defs.number_of_dofs(dim, order)
-            w = wtt.WEIGHT_CENTER if (dim + order) % 2 else wtt.WEIGHT_UNIFORM
-            xk, fk, nk, xi = _cloud(B, gen, dev, dim=dim, K=K_GRID[dim], order=order,
-                                    ragged=True, offset=True,
-                                    lo=2 * NO if dim == 1 else None)
-            fi_init = torch.randn((B, NO), generator=gen, device=dev, dtype=torch.float64)
-            kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
-            kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
-            name = "rows_d%d_o%d_w%d" % (dim, order, w)
-            got0 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, **kw)
-            got1 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
-            ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
-            torch.cuda.synchronize()
-            _same(name, got0, got1[:3])
-            fin = _key_check(name, got1[3], ref[3], worst["rows"])
-            per[name] = {"key_median": got1[3][fin].median().item(),
-                         "key_max": got1[3][fin].max().item(), "knowns": kn}
-            s = slice(0, B_GRID)
-            small = (xk[s], fk[s], nk[s], xi[s], fi_init[s])
-            for extra in (dict(do_sens=True), dict(max_iter=3)):
-                a = fit_rows.fit_rows(*small, **kw, **extra)
-                b = fit_rows.fit_rows(*small, emit_cond=True, **kw, **extra)
-                _same(name + str(extra), a, b[:3])
-                if not torch.equal(_bits(b[3]), _bits(got1[3][s])):
-                    raise RuntimeError("the key changes with %s: %s" % (extra, name))
-            del xk, fk, fi_init, got0, got1, ref
+    grid = [(dim, order, K_GRID[dim], B_PLAIN) for dim in (1, 2, 3) for order in range(ORDER + 1)]
+    grid += [(dim, order, K_WIDE, B_GRID) for dim, order in _warp_configs()]
+    for dim, order, Kg, Bg in grid:
+        NO = defs.number_of_dofs(dim, order)
+        w = wtt.WEIGHT_CENTER if (dim + order) % 2 else wtt.WEIGHT_UNIFORM
+        xk, fk, nk, xi = _cloud(Bg, gen, dev, dim=dim, K=Kg, order=order,
+                                ragged=True, offset=True,
+                                lo=2 * NO if dim == 1 else None)
+        fi_init = torch.randn((Bg, NO), generator=gen, device=dev, dtype=torch.float64)
+        kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
+        name = "rows_d%d_o%d_w%d_K%d" % (dim, order, w, Kg)
+        got0 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, **kw)
+        got1 = fit_rows.fit_rows(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
+        ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi_init, emit_cond=True, **kw)
+        torch.cuda.synchronize()
+        _same(name, got0, got1[:3])
+        fin = _key_check(name, got1[3], ref[3], worst["rows"])
+        per[name] = {"key_median": got1[3][fin].median().item(),
+                     "key_max": got1[3][fin].max().item(), "knowns": kn}
+        s = slice(0, B_GRID)
+        small = (xk[s], fk[s], nk[s], xi[s], fi_init[s])
+        for extra in (dict(do_sens=True), dict(max_iter=3)):
+            a = fit_rows.fit_rows(*small, **kw, **extra)
+            b = fit_rows.fit_rows(*small, emit_cond=True, **kw, **extra)
+            _same(name + str(extra), a, b[:3])
+            if not torch.equal(_bits(b[3]), _bits(got1[3][s])):
+                raise RuntimeError("the key changes with %s: %s" % (extra, name))
+        del xk, fk, fi_init, got0, got1, ref
 
     # the bound est >= cond_2 * amp, and degenerate cases: 2D and 3D, order 4
     bounds = {}
@@ -1482,13 +1543,228 @@ def phase_certified(dev, wtt):
     return launches
 
 
+def measure_rows_cut():
+    """The table that set fit_rows.WARP_MIN_NO, run by hand, not by main():
+    both bodies of the rows kernel at NO = 10 (2D order 3, 3D order 2), 15
+    (2D order 4) and 20 (3D order 3), 2^18 cases, CENTER, launch alone,
+    without and with sens.  Two extra libraries are built from the same
+    source, their headers generated with the rule moved (all four thread,
+    all four warp); the shipped library has one body per instance.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_rows_cut()"
+    """
+    import ctypes
+    from unittest import mock
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    dev = torch.device("cuda")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    sig = {fit_rows._ENTRY: (i32, [vp] * 10 + [i64, i32, i32, i32, i32, i64, i32, i32, vp])}
+    libs = {}
+    for body, cut in (("thread", 21), ("warp", 10)):
+        with mock.patch.object(fit_rows, "WARP_MIN_NO", cut):
+            header = fit_rows.tables_header()
+        libs[body] = native.build("fit_rows_cut_" + body, [fit_rows._SRC],
+                                  {fit_rows._HEADER: header}, sig).lib
+    gen = torch.Generator(device=dev).manual_seed(5)
+    table = {}
+    for dim, order, Kc in ((2, 3, K), (3, 2, K_DIM3), (2, 4, K), (3, 3, K_DIM3)):
+        NO = defs.number_of_dofs(dim, order)
+        xk, fk, nk, xi = _cloud(B_PLAIN, gen, dev, dim=dim, K=Kc, order=order)
+        _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+        out = torch.empty((B_PLAIN, NO), dtype=torch.float64, device=dev)
+        sens = torch.empty((B_PLAIN, Kc, NO), dtype=torch.float64, device=dev)
+        row = {}
+        for body, lib in libs.items():
+            for with_sens in (False, True):
+                def launch(lib=lib, with_sens=with_sens):
+                    status = lib.wlsqm_fit_rows(
+                        xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(),
+                        inv_s.data_ptr(), None, out.data_ptr(), None,
+                        sens.data_ptr() if with_sens else None, None, B_PLAIN, Kc, dim,
+                        order, defs.WEIGHT_CENTER, 0, fit_rows.DEFAULT_REFINE_STEPS, 0,
+                        torch.cuda.current_stream().cuda_stream)
+                    if status != 0:
+                        raise RuntimeError("rows kernel launch failed: CUDA error %d" % status)
+                row["%s%s_ms" % (body, "_sens" if with_sens else "")] = _time_ms(launch)[0]
+        table["d%d_order%d_NO%d_K%d" % (dim, order, NO, Kc)] = row
+        del xk, fk, nk, xi, inv_s, out, sens
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"rows_cut_2^18_launch_ms": table, "card": smi.splitlines()[0],
+                      "warp_min_no": fit_rows.WARP_MIN_NO}), flush=True)
+    return table
+
+
+_GATHER_VARIANTS = r"""
+#include "%s"
+namespace {
+// the row-group design: one thread per R = 2 output rows, 8-byte loads, the
+// group's 16-byte vectors stored by the same thread (48 B at F = 3)
+template <int W, bool EVICT_LAST>
+__global__ void __launch_bounds__(kThreads)
+gather_group(const uint32_t* __restrict__ u, const int32_t* __restrict__ idx,
+             uint32_t* __restrict__ out, int64_t n, int64_t rows) {
+  const int64_t r0 = 2 * ((int64_t)blockIdx.x * kThreads + threadIdx.x);
+  if (r0 + 2 > rows) return;  // even row counts only
+  const int2 ix = __ldg(reinterpret_cast<const int2*>(idx + r0));
+  uint64_t pol = 0;
+  if (EVICT_LAST) asm volatile("createpolicy.fractional.L2::evict_last.b64 %%0, 1.0;" : "=l"(pol));
+  uint32_t w[2 * W];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t* p = u + clamp_row(j ? ix.y : ix.x, n) * W;
+#pragma unroll
+    for (int c = 0; c < W / 2; ++c) {
+      if (EVICT_LAST) {
+        asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%%0, %%1}, [%%2], %%3;"
+                     : "=r"(w[j * W + 2 * c]), "=r"(w[j * W + 2 * c + 1]) : "l"(p + 2 * c), "l"(pol));
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + c);
+        w[j * W + 2 * c] = v.x, w[j * W + 2 * c + 1] = v.y;
+      }
+    }
+  }
+  uint4* o = reinterpret_cast<uint4*>(out + r0 * W);
+#pragma unroll
+  for (int v = 0; v < W / 2; ++v)
+    __stcs(o + v, make_uint4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]));
+}
+// the shipped 16-byte-vector kernel (8-byte pieces) with evict_last on the u loads
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+vec16_evict_last(const uint32_t* __restrict__ u, const int32_t* __restrict__ idx,
+                 uint32_t* __restrict__ out, int64_t n, int64_t rows) {
+  const int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (4 * v + 4 > rows * W) return;  // whole vectors only
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %%0, 1.0;" : "=l"(pol));
+  uint32_t x[4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int64_t p = 2 * v + q, r = p / (W / 2);
+    const uint32_t* src = u + clamp_row(__ldg(idx + r), n) * W + (p - r * (W / 2)) * 2;
+    asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%%0, %%1}, [%%2], %%3;"
+                 : "=r"(x[2 * q]), "=r"(x[2 * q + 1]) : "l"(src), "l"(pol));
+  }
+  __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
+}
+template <int W, bool E>
+int run(const void* u, const void* idx, void* out, int64_t n, int64_t rows, void* st) {
+  const unsigned grid = (unsigned)((rows / 2 + kThreads - 1) / kThreads);
+  gather_group<W, E><<<grid, kThreads, 0, (cudaStream_t)st>>>(
+      (const uint32_t*)u, (const int32_t*)idx, (uint32_t*)out, n, rows);
+  return (int)cudaGetLastError();
+}
+template <int W>
+int run_vec(const void* u, const void* idx, void* out, int64_t n, int64_t rows, void* st) {
+  const unsigned grid = (unsigned)((rows * W / 4 + kThreads - 1) / kThreads);
+  vec16_evict_last<W><<<grid, kThreads, 0, (cudaStream_t)st>>>(
+      (const uint32_t*)u, (const int32_t*)idx, (uint32_t*)out, n, rows);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+// variant 0: row groups; 1: row groups with evict_last on the u loads;
+// 2: 16-byte vectors with evict_last on the u loads
+extern "C" int gather_variant(int variant, const void* u, const void* idx, void* out,
+                              int64_t n, int64_t rows, int words, void* st) {
+  if (variant == 2) return words == 2 ? run_vec<2>(u, idx, out, n, rows, st)
+                                      : run_vec<6>(u, idx, out, n, rows, st);
+  if (words == 2) return variant ? run<2, true>(u, idx, out, n, rows, st)
+                                 : run<2, false>(u, idx, out, n, rows, st);
+  if (words == 6) return variant ? run<6, true>(u, idx, out, n, rows, st)
+                                 : run<6, false>(u, idx, out, n, rows, st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+
+
+def measure_gather_variants():
+    """The designs the gather kernel was chosen from, run by hand, not by
+    main(): at the IBVP shapes (n = 2^22, K = 28, f64, F = 1 and 3), the
+    shipped kernel's two instances -- the word copy (PR 3's design, now the
+    generic instance, with a runtime row width) and the 16-byte vectors --
+    against the row-group
+    design (a thread per two rows, 16-byte stores), each without and with an
+    L2 evict_last hint on the u loads (built here from gather.cu plus the
+    variants), and torch.index_select, in turns, each checked against u[idx]
+    (the IBVP row counts are even and whole 16-byte vectors).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_gather_variants()"
+    """
+    import ctypes
+    import os
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    src_dir = os.path.join(native.BUILD_ROOT, "gather_variants_src")
+    os.makedirs(src_dir, exist_ok=True)
+    src = os.path.join(src_dir, "gather_variants.cu")
+    with open(src, "w") as f:
+        f.write(_GATHER_VARIANTS % os.path.join(native.CSRC, "gather.cu"))
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib = native.build("gather_variants", [src], {}, {
+        "gather_variant": (i32, [i32, vp, vp, vp, i64, i64, i32, vp]),
+        gather._ENTRY: (i32, [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])}).lib
+    _, idx_np, _, _ = ibvp_setup()
+    flat = torch.as_tensor(idx_np, device=dev).reshape(-1)
+    flat_long, rows = flat.long(), flat.numel()
+    out = {}
+    for F in (1, 3):
+        u = torch.randn((N_IBVP, F), dtype=torch.float64, device=dev)
+        words, W = u.view(torch.int32), 2 * F
+        dst = torch.empty((rows, W), dtype=torch.int32, device=dev)
+
+        def entry(load_bytes):
+            def go():
+                status = getattr(lib, gather._ENTRY)(
+                    words.data_ptr(), None, flat.data_ptr(), dst.data_ptr(), None, N_IBVP,
+                    rows, W, load_bytes, torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError("gather launch failed: CUDA error %d" % status)
+            return go
+
+        def variant(v):
+            def go():
+                status = lib.gather_variant(v, words.data_ptr(), flat.data_ptr(), dst.data_ptr(),
+                                            N_IBVP, rows, W, torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError("gather variant failed: CUDA error %d" % status)
+            return go
+
+        runs = [("words", entry(0)), ("vec16", entry(8)), ("vec16_evict_last", variant(2)),
+                ("row_groups", variant(0)), ("row_groups_evict_last", variant(1))]
+        times = {name: [] for name, _ in runs}
+        times["index_select"] = []
+        ref = u[flat_long].view(torch.int32).reshape(rows, W)
+        for name, fn in runs + runs[::-1]:
+            dst.zero_()
+            times[name].append(_time_ms(fn)[0])
+            torch.cuda.synchronize()
+            if not torch.equal(dst, ref):
+                raise RuntimeError("gather variant %s differs from u[idx]" % name)
+        for _ in range(2):
+            times["index_select"].append(_time_ms(lambda: torch.index_select(u, 0, flat_long))[0])
+        out["F%d" % F] = {**times, "bound_ms": _bound((flat, dst, u), 0.0)["bound_ms"]}
+        del u, words, dst, ref
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"gather_variants_ms_median_of_5_twice": out, "card": smi.splitlines()[0],
+                      "n": N_IBVP, "K": K_IBVP}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
               file=sys.stderr)
         return 1
     import wlsqm_tpu_torch as wtt
-    from bench import parity_check
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1507,9 +1783,9 @@ def main() -> int:
     phase_calibrate()
     phase_radius_sweep(dev, wtt)
     torch.cuda.empty_cache()
-    moment = phase_headline(dev, wtt, parity_check)
+    moment = phase_headline(dev, wtt)
     torch.cuda.empty_cache()
-    sens = phase_sens(dev, wtt, parity_check)
+    sens = phase_sens(dev, wtt)
     torch.cuda.empty_cache()
     dim3 = phase_dim3(dev, wtt)
     torch.cuda.empty_cache()
@@ -1521,12 +1797,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_heat_example(dev)
 
-    def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN):
+    def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": t["launches"], "max_abs_err": abs_err, "max_rel_err": rel_err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "batch": batch, "config": config}
+                "batch": batch, "config": config, **extra}
 
     print(json.dumps({"kernels": [
         entry("fit_moment_2d", "wlsqm_tpu_torch/csrc/fit_moment.cu",
@@ -1534,11 +1810,16 @@ def main() -> int:
               "headline: 2D order 4 K=30 CENTER"),
         entry("fit_rows", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
-              "sens: 2D order 4 K=30 CENTER do_sens"),
+              "sens: 2D order 4 K=30 CENTER do_sens (warp body)"),
+        entry("fit_rows@dim3", "wlsqm_tpu_torch/csrc/fit_rows.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, dim3,
+              "dim3: 3D order 4 K=48 CENTER (warp body); library torch.linalg.lstsq"),
         entry("gather_rows", "wlsqm_tpu_torch/csrc/gather.cu",
               "wlsqm_tpu/ops/gather.py:168", g_abs, 0.0, ibvp,
-              "IBVP step: n=2^22, K=28, f64, F=1; launches over %d steps, "
-              "library torch.index_select" % STEPS, batch=N_IBVP),
+              "IBVP step: n=2^22, K=28, f64, F=1 (ms_F3, library_ms_F3, bound_ms_F3: "
+              "F=3); launches over %d steps, library torch.index_select" % STEPS,
+              batch=N_IBVP, **{k: ibvp[k] for k in ("ms_F3", "library_ms_F3", "bound_ms_F3",
+                                                    "launches_F3")}),
         *(entry("cond_estimate@" + kernel, "wlsqm_tpu_torch/csrc/%s.cu" % src,
                 "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],
                 dict(t, launches=cert_launches["cond_estimate@" + kernel]),
@@ -1546,7 +1827,7 @@ def main() -> int:
                 "the certified route; library condprobe.cond_key")
           for kernel, src, t in (("fit_moment_2d", "fit_moment", cond["moments"]),
                                  ("fit_rows", "fit_rows", cond["rows"]))),
-    ], "fit_rows_dim3": dim3, "total_s": round(time.perf_counter() - t_start, 1)}),
+    ], "total_s": round(time.perf_counter() - t_start, 1)}),
         flush=True)
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

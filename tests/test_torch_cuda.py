@@ -256,6 +256,88 @@ def test_diffable_on_the_card(dev):
     assert _rel(fk.grad, ref) <= PARITY
 
 
+def _warp_configs():
+    """Every (dim, order) that the cut sends to the warp body."""
+    return [(d, o) for d in (1, 2, 3) for o in range(5) if fit_rows.warp_body(d, o)]
+
+
+@pytest.mark.parametrize("K", [53, 56, 130])
+def test_warp_body_matches_plain(dev, K):
+    """The warp body at every (dim, order) it takes (3D orders 3 and 4
+    among them), both weightings: with sens, with a random knowns mask (and
+    sens), with max_iter 3 (and the mask); ragged nk >= 1.5 NO with NaN in
+    the padded slots; K = 53 (no multiple of 4), 56, 130 (above one chunk).
+    Counts: in [1, max_iter], within one of the plain count on >= 80% of
+    the cases pooled over these configurations, and exactly 1 (fi exactly
+    0) on fk = 0.  The equal share and the histogram distance are held
+    pooled over the whole grid, where these configurations sit beside the
+    thread body's (test_rows_kernel_matches_plain, chip_smoke's
+    phase_rows_vs_plain): the kernel takes more trips than its plain
+    version on every configuration of either body, by 0.03-0.16 of the
+    cases per configuration on an H100 (chip_smoke's per-configuration
+    histograms), and the warp body's configurations sit inside that spread."""
+    g = torch.Generator().manual_seed(K)
+    within = total = 0
+    for dim, order in _warp_configs():
+        NO = wtt.number_of_dofs(dim, order)
+        for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+            xk, fk, nk, xi = _cloud(dev, 1024, K, order, 7 * K + 10 * order + w, dim)
+            assert bool(torch.isnan(xk).any())
+            fi0 = torch.randn((1024, NO), dtype=torch.float64, device=dev)
+            kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
+            for knowns, sens, max_iter in ((0, True, 0), (kn, True, 0), (kn, False, 3)):
+                kw = dict(dimension=dim, order=order, weighting=w, knowns=knowns,
+                          do_sens=sens, max_iter=max_iter)
+                before = fit_rows.LAUNCHES
+                got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                torch.cuda.synchronize()
+                assert fit_rows.LAUNCHES == before + 1
+                ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+                assert torch.isfinite(got[0]).all()
+                assert _rel(got[0], ref[0]) <= PARITY, (dim, order, w, knowns, sens, max_iter)
+                if sens:
+                    assert _rel_nan(got[2], ref[2]) <= PARITY
+                    pad = torch.arange(K, device=dev)[None, :] >= nk[:, None]
+                    assert (torch.nan_to_num(got[2])[pad] == 0).all()   # NaN: known DOFs
+                KN = fit_rows.known_dofs(knowns, dim, order)
+                assert torch.equal(got[0][:, KN], fi0[:, KN])
+                if max_iter:
+                    assert 1 <= int(got[1].min()) and int(got[1].max()) <= max_iter
+                    within += int(((got[1] - ref[1]).abs() <= 1).sum())
+                    total += got[1].numel()
+                    zero = dict(kw, knowns=0)
+                    fi_z, it_z, _ = fit_rows.fit_rows(xk, fk * 0.0, nk, xi, **zero)
+                    assert (it_z == 1).all() and (fi_z == 0).all()
+    assert within / total >= 0.8
+
+
+@pytest.mark.parametrize("K", [53, 130])
+def test_warp_body_key_and_bits(dev, K):
+    """The warp body with emit_cond: the key against the plain key; fi, sens
+    and the counts the same bits with and without it; two launches equal bit
+    for bit."""
+    g = torch.Generator().manual_seed(100 + K)
+    for dim, order in _warp_configs():
+        NO = wtt.number_of_dofs(dim, order)
+        xk, fk, nk, xi = _cloud(dev, 1024, K, order, 3 * K + order, dim)
+        fi0 = torch.randn((1024, NO), dtype=torch.float64, device=dev)
+        kw = dict(dimension=dim, order=order, weighting=wtt.WEIGHT_CENTER,
+                  knowns=int(torch.randint(0, 1 << NO, (1,), generator=g)))
+        for extra in ({}, dict(do_sens=True), dict(max_iter=3)):
+            a = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw, **extra)
+            b = fit_rows.fit_rows(xk, fk, nk, xi, fi0, emit_cond=True, **kw, **extra)
+            c = fit_rows.fit_rows(xk, fk, nk, xi, fi0, emit_cond=True, **kw, **extra)
+            torch.cuda.synchronize()
+            for x, y, z in zip(a, b, c):
+                assert (x is None) == (y is None) == (z is None)
+                if x is not None:
+                    bits = [_bits(v) if v.dtype.is_floating_point else v for v in (x, y, z)]
+                    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[1], bits[2])
+            assert torch.equal(_bits(b[3]), _bits(c[3]))
+            _key_agrees(b[3], fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, emit_cond=True,
+                                                      **kw)[3])
+
+
 # ---------------------------------------------------------------------------
 # The conditioning key (emit_cond, in both fit kernels)
 # ---------------------------------------------------------------------------
@@ -434,6 +516,37 @@ def test_gather_kernel_is_bit_exact(dev, dtype, F, three_clusters):
     torch.cuda.synchronize()
     assert gather.LAUNCHES == before + 1
     ref = gather.gather_rows_plain(u, idx)
+    assert got.dtype == u.dtype and got.shape == ref.shape
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype,F", [(torch.float64, 1), (torch.float64, 2),
+                                     (torch.float64, 3), (torch.float32, 1),
+                                     (torch.float32, 3), (torch.int32, 1), (torch.int64, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_every_instance_is_bit_exact(dev, dtype, F, offset):
+    """Every instance the vector plan picks, against u[idx] bit for bit: an
+    odd number of output rows (a ragged last group), and u as a view offset
+    by one element, so that it is not 16-byte aligned and the 16-byte loads
+    must not be taken."""
+    n, B, K = 30000, 3207, 7                   # 22,449 rows: odd
+    idx = _gather_idx(dev, n, B, K, seed=F + offset)
+    plan = gather.plan_window_gather(idx, n)
+    numel = (n + 1) * F
+    if dtype.is_floating_point:
+        base = _special(torch.randn(numel, dtype=dtype, device=dev))
+    else:
+        base = torch.randint(-2**31, 2**31 - 1, (numel,), dtype=dtype, device=dev)
+    u = base[offset:offset + n * F]
+    u = u.view(n, F) if F > 1 else u
+    assert (u.data_ptr() % 16 == 0) == (offset == 0)
+    load = gather._vector_plan(u.element_size() * F, u.data_ptr(), 1 << 20)
+    assert load is not None and (load < 16 or not offset)
+    before = gather.LAUNCHES
+    got = gather.gather_rows(u, idx, plan)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    ref = u[idx.long()]
     assert got.dtype == u.dtype and got.shape == ref.shape
     assert torch.equal(_bits(got), _bits(ref))
 

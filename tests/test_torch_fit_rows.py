@@ -211,7 +211,8 @@ def test_auto_batch_splits_between_the_kernels_and_the_engine(monkeypatch):
     assert calls == {"moments": 4, "rows": 12, "engine": 2}
 
 
-def test_iterative_auto_counts_come_from_the_rows_kernel():
+def test_iterative_auto_counts_come_from_the_rows_kernel(monkeypatch):
+    roomy_units(monkeypatch)          # routing by configuration, not by conditioning
     rng = np.random.default_rng(24)
     case = cloud(rng, 256, 30, 2, orders=(3,), weightings=(2,), radius=(0.3, 1.0))
     args = (case["xk"], case["fk"], case["xi"])
@@ -369,3 +370,56 @@ def test_plain_key_of_a_known_dof_is_the_reduced_systems():
     torch.testing.assert_close(all_known, np.sqrt(15.0) * amp, rtol=1e-12, atol=0)
     one = fit_rows.fit_rows(*_t(case), knowns=int(defs.b2_F), **kw)[3]
     assert bool((one < full * 1.0001).all())
+
+
+# ---------------------------------------------------------------------------
+# The kernel's two bodies: the rule that picks one, and the warp body's size
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448     # shared memory one H100 block can have (227 KB)
+
+
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_body_rule_and_shared_memory(dim, order):
+    """A compile-time rule on NO picks the body; the warp body's shared
+    memory does not grow with K and fits a block with sens and the key; the
+    generated header carries both."""
+    NO = defs.number_of_dofs(dim, order)
+    assert fit_rows.warp_body(dim, order) == (NO >= fit_rows.WARP_MIN_NO)
+    if (dim, order) == (3, 4):
+        assert fit_rows.warp_body(dim, order)        # NO = 35 is never a thread body
+    sizes = {(s, c): fit_rows.warp_smem_bytes(dim, order, s, c)
+             for s in (False, True) for c in (False, True)}
+    assert sizes[True, False] == sizes[True, True] >= sizes[False, True] > sizes[False, False]
+    # neighbours come 32 at a time, so the size takes no K: any K fits
+    assert max(sizes.values()) <= SMEM_LIMIT and all(v % 8 == 0 for v in sizes.values())
+    head = "template <> struct RowsTables<%d, %d> {" % (dim, order)
+    text = fit_rows.tables_header()
+    block = text[text.index(head):].split("};")[0]
+    assert ("static constexpr bool kWarp = %s;" % str(fit_rows.warp_body(dim, order)).lower()
+            in block)
+    assert ("kSmemBase = %d, kSmemKey = %d, kSmemSens = %d;"
+            % (sizes[False, False], sizes[False, True], sizes[True, False]) in block)
+
+
+@pytest.mark.parametrize("weighting", [defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER])
+def test_plain_matches_jax_engine_3d_order4_ragged_k53(weighting):
+    """The warp body's configuration at K = 53 (no multiple of 4, above one
+    chunk of 32): fi and sens with and without a knowns mask, padded slots
+    NaN; and ALGO_ITERATIVE's fi."""
+    rng = np.random.default_rng(53 + weighting)
+    case = cloud(rng, 96, 53, 3, orders=(4,), weightings=(weighting,), radius=RADIUS)
+    assert np.isnan(case["xk"]).any()                 # ragged: NaN in padded slots
+    kn = int(rng.integers(0, 1 << 35))
+    for knowns in (0, kn):
+        fi, _, sens = fit_rows.fit_rows_plain(*_t(case), dimension=3, order=4,
+                                              weighting=weighting, knowns=knowns,
+                                              do_sens=True)
+        jfi, jsens, _, _ = _jax_engine(case, 3, 4, knowns, weighting, do_sens=True)
+        assert rel_err(fi.numpy(), jfi) <= PARITY
+        assert rel_err(sens.numpy(), jsens) <= PARITY
+    fi, _, _ = fit_rows.fit_rows_plain(*_t(case), dimension=3, order=4, weighting=weighting,
+                                       knowns=kn, max_iter=3)
+    jfi, _, _, _ = _jax_engine(case, 3, 4, kn, weighting, iterative=True, max_iter=3)
+    assert rel_err(fi.numpy(), jfi) <= PARITY

@@ -191,3 +191,31 @@ def test_validation_errors_match_jax():
         wrong[3, 2] = bad
         with pytest.raises(ValueError, match=r"\[0, 4000\)"):
             gather.plan_window_gather(wrong, n)
+
+
+@pytest.mark.parametrize("row_bytes,u_off,out_off,want", [
+    (8, 0, 0, 8),        # f64 F = 1, int64, f32 pair F = 2: 8-byte pieces
+    (24, 0, 0, 8),       # f64 F = 3
+    (4, 0, 0, 4),        # f32 / int32 F = 1
+    (12, 0, 0, 4),       # f32 F = 3
+    (16, 0, 0, 16),      # f64 F = 2: whole 16-byte rows
+    (16, 8, 0, 8),       # ... u offset by one f64 element: no 16-byte loads
+    (16, 4, 0, 4),       # ... by one f32 element
+    (8, 4, 0, 4),        # f32 F = 2 offset by one element
+    (24, 8, 0, 8),
+    (8, 0, 8, None),     # out not 16-byte aligned: the word copy
+    (20, 0, 0, None),    # five words: the word copy
+    (48, 0, 0, None),    # twelve words (f64 F = 6): the word copy
+    (2, 0, 0, None),     # not whole words
+])
+def test_vector_plan(row_bytes, u_off, out_off, want):
+    """The kernel instance comes from the row width and the pointers'
+    alignment: never from a failed launch."""
+    base = 1 << 20
+    assert gather._vector_plan(row_bytes, base + u_off, base + out_off) == want
+    if want is not None:
+        assert row_bytes % want == 0 and (base + u_off) % want == 0
+
+
+def test_vector_plan_of_a_pair_takes_the_less_aligned_plane():
+    assert gather._vector_plan(16, (1 << 20) | ((1 << 20) + 8), 1 << 20) == 8

@@ -1,5 +1,7 @@
 """Package boundary of the port: it imports without JAX."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -44,3 +46,26 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def _imported_modules(path):
+    """Every module an ``import`` statement of the file names, at any depth."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_and_smoke_run_read_nothing_of_the_jax_side():
+    """chip_smoke.py and every module of the port import neither jax, the
+    JAX package nor its benchmark script (bench.py imports both)."""
+    files = [os.path.join(ROOT, "chip_smoke.py")] + glob.glob(
+        os.path.join(ROOT, "wlsqm_tpu_torch", "**", "*.py"), recursive=True)
+    assert len(files) > 20
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "wlsqm_tpu", "bench"), (path, mod)

@@ -1,4 +1,5 @@
-// Rows-body WLSQM fit, FP64, one thread per case (Hopper, sm_90a).
+// Rows-body WLSQM fit, FP64 (Hopper, sm_90a): a thread body for the small
+// systems and a warp body, one warp per case, on the FP64 tensor cores.
 //
 // Replaces the TPU kernel wlsqm_tpu/ops/pallas_fit.py:901 (_make_kernel,
 // the rows body, launched by fit_pallas at l.1502).  That kernel computes
@@ -7,33 +8,17 @@
 //
 // Per case: offsets d = (xk - xi) * inv_s (inv_s an exact power of two from
 // the wrapper); weights (UNIFORM, or CENTER = a + b (1 - sqrt(d2 / max d2))^2);
-// plain monomial basis rows c_kj from the power ladder d, d^2, d^2 d, d^2 d^2,
-// recomputed from the offsets wherever a K-loop needs them (nothing sized
-// by K is stored); known DOFs eliminated (fkeff = fk - sum_known g_j c_kj,
-// identity rows and columns, zero RHS); A = C^T W C packed; Jacobi scale;
-// Cholesky in place with the pivot guard max(acc, 1e-30); one solve and
-// refine_steps residual sweeps through the rows.  Then, at run time:
-// max_iter > 0 runs ALGO_ITERATIVE corrective refits with the reference's
-// exact l-inf stagnation rule (a known DOF is never updated) and writes the
-// per-case count; a non-null sens gets one solve and refine_steps sweeps per
-// neighbour, from the initial factor.  Neighbours k >= nk are never read
-// (padded slots may hold NaN); their sens rows are 0.  The wrapper applies
-// the f64 de-scale, restores known fi and writes NaN into known sens columns.
-//
-// Bound on this card (data sheet: 3.35 TB/s; 67 TFLOP/s FP64 peak, on the
-// tensor cores), counting each neighbour's basis row once:
-//   sens path, 2D order 4, K = 30 (NO = 15): in 748 B + out 3,720 B per case
-//     (sens alone 3,600 B: 7.5 GB at 2^21 cases), and ~1e5 flops per case
-//     (each of the K sensitivity RHS takes two triangular solve pairs and a
-//     K-long sweep) -- bound by FP64 operations, ~3 ms at 2^21 (bytes 2.8 ms);
-//   dim3 path, 3D order 4, K = 48 (NO = 35): in 1,564 B + out 280 B per
-//     case, ~1e5 flops (assembly 48 x 630 multiply-adds, Cholesky ~7 k,
-//     one sweep) -- bound by FP64 operations, ~3 ms at 2^21.
-// What this simple design does about that: nothing yet.  The packed factor
-// (120 doubles at NO = 15, 630 at NO = 35) lives in local memory, which the
-// hardware interleaves across a warp, so same-index accesses coalesce but
-// spill through L1 to L2; each thread reads its own contiguous xk and writes
-// its own contiguous K x NO sens block, so those accesses do not coalesce.
+// plain monomial basis rows c_kj from the power ladder d, d^2, d^2 d, d^2 d^2;
+// known DOFs eliminated (fkeff = fk - sum_known g_j c_kj, identity rows and
+// columns, zero RHS); A = C^T W C; Jacobi scale; Cholesky in place with the
+// pivot guard max(acc, 1e-30); one solve and refine_steps residual sweeps
+// through the rows.  Then, at run time: max_iter > 0 runs ALGO_ITERATIVE
+// corrective refits with the reference's exact l-inf stagnation rule (a
+// known DOF is never updated) and writes the per-case count; a non-null
+// sens gets, per neighbour, one solve and refine_steps sweeps from the
+// initial factor.  Neighbours k >= nk are never read (padded slots may hold
+// NaN); their sens rows are 0.  The wrapper applies the f64 de-scale,
+// restores known fi and writes NaN into known sens columns.
 //
 // Built with -DWLSQM_EMIT_COND=1 the kernel also writes the per-case
 // conditioning key, replacing _cond_estimate (pallas_fit.py:382) and
@@ -41,25 +26,68 @@
 // est = ||A_jac||_inf * ||A_jac^-1||_F >= cond_2(A_jac) of the scaled matrix
 // with its identity rows for the known DOFs.  The row sums are taken before
 // the Cholesky overwrites the matrix; the inverse's norm comes from the
-// factor, per unit column e_i one forward and one backward substitution
-// started at row i (~NO^3/3 multiply-adds, 8 more bytes written per case).
-// The wrapper folds in the radius amplification max(inv_s, 1)^order.  A
-// collapsed neighbourhood meets the pivot guard, so its key is huge or
-// non-finite and compares False against any edge.  The key is a second
-// library of the same source.  Both are compiled with -fmad=false and every
-// fused multiply-add is written out as fma(): the compiler contracts nothing
-// on its own, so the fit's arithmetic does not depend on what else the
-// kernel computes, and every other output is the same bits with and without
-// the key.
+// factor, one unit column e_i at a time.  The wrapper folds in the radius
+// amplification max(inv_s, 1)^order.  A collapsed neighbourhood meets the
+// pivot guard, so its key is huge or non-finite and compares False against
+// any edge.  The key is a second library of the same source.  Both are
+// compiled with -fmad=false and every fused multiply-add is written out as
+// fma() (the tensor-core products are explicit mma): the compiler contracts
+// nothing on its own, so every other output is the same bits with and
+// without the key, and every reduction runs in a fixed order (shuffle
+// trees and tiles, no atomics), so a launch gives the same bits each time.
 //
-// Layout: 128 threads per block, grid ceil(B / 128), ragged tail masked.
-// One template instance per (DIM, ORDER, WEIGHTING), 30 in all, so NO is a
-// compile-time constant and the basis exponent lookups fold away.  The
-// O(NO^2) and O(NO^3) loops are unrolled only up to NO = 15 (register-sized
-// state, short ptxas times); above that they stay loops over the
-// local-memory factor.  Plain C entry point, loaded with ctypes; launches on
-// the caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError().
+// Bound on this card (data sheet: 3.35 TB/s; 67 TFLOP/s FP64 peak, on the
+// tensor cores), counting each neighbour's basis row once:
+//   sens path, 2D order 4, K = 30 (NO = 15): in 748 B + out 3,720 B per case
+//     (sens alone 3,600 B: 7.5 GB at 2^21 cases), ~1e5 flops per case --
+//     bound by FP64 operations, ~3 ms at 2^21 (bytes 2.8 ms);
+//   dim3 path, 3D order 4, K = 48 (NO = 35): in 1,564 B + out 280 B per
+//     case, ~1e5 flops (assembly 48 x 630 multiply-adds, Cholesky ~7 k,
+//     one sweep) -- bound by FP64 operations, ~3 ms at 2^21.
+// What the design does about it.  One thread per case keeps a packed factor
+// of NO (NO + 1) / 2 doubles; above a few hundred that lives in local memory
+// (at NO = 35 the thread body measured 0.35% of its bound), and each
+// thread's strided xk reads and K x NO sens writes do not coalesce.  So the
+// instances with NO >= RowsTables<>::kWarp's cut (ops/fit_rows.WARP_MIN_NO)
+// run the warp body, one warp (one 32-thread block) per case, its state in
+// shared memory (RowsTables<>::kSmem*, independent of K):
+//   * neighbours in chunks of 32, one per lane: offsets, CENTER's max d^2
+//     (a shuffle max) and the basis rows, weights and fkeff of the chunk in
+//     shared memory, rows k >= nk and the padding written as exact zeros;
+//   * A and b as the lower 8 x 8 tiles of [C fkeff]^T W [C fkeff] with
+//     mma.m8n8k4 FP64 (column NO of the padded rows carries fkeff, so row
+//     NO of the product is b), accumulated over the chunks;
+//   * Jacobi scale, the key's row sums, then the Cholesky by panels of 8
+//     columns: column by column with lanes over rows inside a panel, the
+//     trailing lower tiles updated on the tensor cores.  The FP64 mma adds
+//     its four products in order, each with one rounding, as an fma chain
+//     does: the panels and the tensor-core sweeps below gave the same bits
+//     as column-by-column loops on an H100, in less time (PERF.md);
+//   * single right-hand sides solved with lanes over rows and a shuffle per
+//     pivot; the sweeps' C x and C^T (W C x) on the tensor cores, and
+//     ALGO_ITERATIVE's residuals with lanes over neighbours, from the
+//     chunk's rows in shared memory (rebuilt for chunks that are not
+//     resident); the residual max is a shuffle max;
+//   * the key and the sensitivities with lanes over right-hand-side
+//     columns (the unit columns e_i, each from its own row as in the thread
+//     body; 32 neighbours' (W C)^T s at a time as one multi-RHS solve),
+//     the sweeps' C (s Y) and C^T (W T) on the tensor cores, and each
+//     case's (K, NO) sens block written by consecutive lanes to
+//     consecutive addresses.
+// The thread body stays for the small systems (NO below the cut), whose
+// factor and loops fit in registers, unrolled.  The cut was timed with both
+// bodies at NO = 10, 15 and 20 (chip_smoke.measure_rows_cut; NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md): without sens the thread body is 3.4x / 2.2x
+// faster at NO = 10 (2D / 3D), the warp body 2.2x faster at NO = 15 and
+// 4.1x at NO = 20; with sens the warp body is faster from 3D NO = 10 on.
+// So WARP_MIN_NO = 11.
+//
+// Layout: thread body 128 threads per block, grid ceil(B / 128), ragged
+// tail masked; warp body 32 threads per block, grid B, dynamic shared memory
+// (above 48 KB after cudaFuncSetAttribute).  One template instance per
+// (DIM, ORDER, WEIGHTING), 30 in all, each compiled as one body only.
+// Plain C entry point, loaded with ctypes; launches on the caller's stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,7 +105,6 @@ constexpr int kThreads = 128;
 constexpr int kWeightCenter = 2;  // defs.WEIGHT_CENTER
 constexpr double kAlpha = 1e-4;   // reference: wlsqm/fitter/infra.pyx:45-46
 constexpr double kBeta = 1.0 - 1e-4;
-constexpr int kUnrollNO = 15;     // unroll the O(NO^2), O(NO^3) loops up to here
 
 // packed lower triangle, j <= i
 __host__ __device__ constexpr int lt(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -209,16 +236,17 @@ struct Hood {
 
 template <int DIM, int ORDER, int WEIGHTING>
 __global__ void __launch_bounds__(kThreads)
-fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
-         const int* __restrict__ nk, const double* __restrict__ xi,
-         const double* __restrict__ inv_s, const double* __restrict__ ghat,
-         double* __restrict__ fi, int* __restrict__ iters,
-         double* __restrict__ sens, double* __restrict__ est, int64_t B, int K,
-         int64_t knowns, int refine_steps, int max_iter) {
+fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
+                const int* __restrict__ nk, const double* __restrict__ xi,
+                const double* __restrict__ inv_s, const double* __restrict__ ghat,
+                double* __restrict__ fi, int* __restrict__ iters,
+                double* __restrict__ sens, double* __restrict__ est, int64_t B, int K,
+                int64_t knowns, int refine_steps, int max_iter) {
   using H = Hood<DIM, ORDER, WEIGHTING>;
   constexpr int NO = H::NO;
   constexpr int NT = NO * (NO + 1) / 2;
-  constexpr int U = NO <= kUnrollNO ? NT : 1;  // NT >= every trip count below
+  constexpr int U = NT;  // >= every trip count below: the loops unroll fully
+  static_assert(!RowsTables<DIM, ORDER>::kWarp, "a warp-body instance");
   const int64_t cs = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (cs >= B) return;
 
@@ -435,6 +463,650 @@ fit_rows(const double* __restrict__ xk, const double* __restrict__ fk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp body: one warp (one block of 32 threads) per case
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKC = 32;        // neighbours per chunk: one per lane
+constexpr int kLDX = kKC + 4;  // row stride of the right-hand-side buffers
+
+__device__ __forceinline__ void mma_8x8x4(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a), "d"(b));
+}
+
+__device__ __forceinline__ double warp_max(double v) {  // fmax drops NaN, as the rows loop does
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_max_nan(double v) {  // NaN wins
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const double u = __shfl_xor_sync(kFull, v, o);
+    v = (u > v || u != u) ? u : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {  // the same bits on every lane
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Shared-memory layout of one case, in doubles (RowsTables<>::kSmem* hold
+// the same sums in bytes, generated by ops/fit_rows.warp_smem_bytes).
+template <int NO>
+struct WarpLayout {
+  static constexpr int NP = (NO / 8 + 1) * 8;  // padded DOFs: column NO carries fkeff
+  static constexpr int LDC = NP + 4;           // basis row stride (conflict-free fragments)
+  static constexpr int NT = NO * (NO + 1) / 2;
+  static constexpr int C = 0;                      // basis rows of the chunk (kKC, LDC)
+  static constexpr int KV = C + kKC * LDC;         // w, fkeff, fk, t of the chunk
+  static constexpr int A = KV + 4 * kKC;           // packed lower matrix, then factor
+  static constexpr int V = A + (NT + 1) / 2 * 2;   // 8 vectors of NP
+  static constexpr int BASE = V + 8 * NP;
+  static constexpr int XB = NP * kLDX;             // one right-hand-side buffer
+  static constexpr int KEY = BASE + XB;            // the key: Y
+  static constexpr int SENS = BASE + 3 * XB + kKC * kLDX;  // sens: Y, Bk, R, T
+};
+
+// x <- (L L^T)^-1 x for one vector in shared memory, lanes over rows (row
+// r on lane r % 32), one shuffle per pivot; rd holds the pivots' reciprocals.
+template <int NO>
+__device__ __forceinline__ void chol_solve_warp(const double* L, const double* rd, double* x,
+                                                int lane) {
+  constexpr int RPL = (NO + 31) / 32;
+  double v[RPL];
+#pragma unroll
+  for (int h = 0; h < RPL; ++h) v[h] = lane + 32 * h < NO ? x[lane + 32 * h] : 0.0;
+#pragma unroll 1
+  for (int q = 0; q < NO; ++q) {
+    const double mine = (RPL == 1 || q < 32) ? v[0] : v[RPL - 1];
+    const double xq = __shfl_sync(kFull, mine, q & 31) * rd[q];
+#pragma unroll
+    for (int h = 0; h < RPL; ++h) {
+      const int r = lane + 32 * h;
+      if (r == q) v[h] = xq;
+      else if (r > q && r < NO) v[h] = fma(-L[lt(r, q)], xq, v[h]);
+    }
+  }
+#pragma unroll 1
+  for (int q = NO - 1; q >= 0; --q) {
+    const double mine = (RPL == 1 || q < 32) ? v[0] : v[RPL - 1];
+    const double xq = __shfl_sync(kFull, mine, q & 31) * rd[q];
+#pragma unroll
+    for (int h = 0; h < RPL; ++h) {
+      const int r = lane + 32 * h;
+      if (r == q) v[h] = xq;
+      else if (r < q) v[h] = fma(-L[lt(q, r)], xq, v[h]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < RPL; ++h)
+    if (lane + 32 * h < NO) x[lane + 32 * h] = v[h];
+  __syncwarp();
+}
+
+// X <- (L L^T)^-1 X for the columns col < ncols of X (NO rows, stride kLDX),
+// lanes over columns: every lane reads the same factor entry (a broadcast).
+// Up to kColsInRegisters rows a lane keeps its column in registers, the
+// loops unrolled (the same operations in the same order, so the same bits);
+// above, under the warp body's 168-register cap, such a column spills to
+// local memory, so the solve stays in shared memory (on an H100 the
+// registers made the sens launch faster at 2D order 4 and 3D order 3 and
+// slower at 3D order 4; PERF.md).
+//
+// ||(L L^T)^-1||_F^2 = sum_i ||(L L^T)^-1 e_i||^2 follows after it, lanes
+// over the unit columns as in the thread body's inv_frob2: column i solved
+// from row i down and back up to row i in column lane of Y, its entries
+// below the diagonal counted twice; returns this lane's part.
+constexpr int kColsInRegisters = 20;
+
+template <int NO>
+__device__ __forceinline__ void chol_solve_cols(const double* L, const double* rd, double* X,
+                                                int ncols, int lane) {
+  if (lane < ncols) {
+    if constexpr (NO <= kColsInRegisters) {
+      double x[NO];
+#pragma unroll
+      for (int r = 0; r < NO; ++r) x[r] = X[r * kLDX + lane];
+#pragma unroll
+      for (int q = 0; q < NO; ++q) {
+        x[q] *= rd[q];
+#pragma unroll
+        for (int r = q + 1; r < NO; ++r) x[r] = fma(-L[lt(r, q)], x[q], x[r]);
+      }
+#pragma unroll
+      for (int q = NO - 1; q >= 0; --q) {
+        x[q] *= rd[q];
+#pragma unroll
+        for (int r = 0; r < q; ++r) x[r] = fma(-L[lt(q, r)], x[q], x[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < NO; ++r) X[r * kLDX + lane] = x[r];
+    } else {
+      double* x = X + lane;
+#pragma unroll 1
+      for (int q = 0; q < NO; ++q) {
+        const double xq = x[q * kLDX] * rd[q];
+        x[q * kLDX] = xq;
+#pragma unroll 4
+        for (int r = q + 1; r < NO; ++r) x[r * kLDX] = fma(-L[lt(r, q)], xq, x[r * kLDX]);
+      }
+#pragma unroll 1
+      for (int q = NO - 1; q >= 0; --q) {
+        const double xq = x[q * kLDX] * rd[q];
+        x[q * kLDX] = xq;
+#pragma unroll 4
+        for (int r = 0; r < q; ++r) x[r * kLDX] = fma(-L[lt(q, r)], xq, x[r * kLDX]);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <int NO>
+__device__ __forceinline__ double inv_frob2_cols(const double* L, const double* rd, double* Y,
+                                                 int lane) {
+  double f2 = 0.0;
+  double* x = Y + lane;
+#pragma unroll 1
+  for (int i = lane; i < NO; i += 32) {
+#pragma unroll 1
+    for (int r = i; r < NO; ++r) {
+      double t = r == i ? 1.0 : 0.0;
+#pragma unroll 4
+      for (int q = i; q < r; ++q) t = fma(-L[lt(r, q)], x[q * kLDX], t);
+      x[r * kLDX] = t * rd[r];
+    }
+#pragma unroll 1
+    for (int r = NO - 1; r >= i; --r) {
+      double t = x[r * kLDX];
+#pragma unroll 4
+      for (int q = r + 1; q < NO; ++q) t = fma(-L[lt(q, r)], x[q * kLDX], t);
+      t *= rd[r];
+      x[r * kLDX] = t;
+      f2 = fma(r == i ? t : 2.0 * t, t, f2);
+    }
+  }
+  return f2;
+}
+
+// At most 168 registers a thread, so that eleven cases share an SM: as many
+// as 3D order 4's shared memory allows (without the cap ptxas takes 254 and
+// eight fit).  ptxas then spills a few hundred bytes a thread at 3D order 4
+// (chip_smoke.phase_build prints it; PERF.md).
+template <int DIM, int ORDER, int WEIGHTING>
+__global__ void __launch_bounds__(32, 11)
+fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
+              const int* __restrict__ nk, const double* __restrict__ xi,
+              const double* __restrict__ inv_s, const double* __restrict__ ghat,
+              double* __restrict__ fi, int* __restrict__ iters,
+              double* __restrict__ sens, double* __restrict__ est, int64_t B, int K,
+              int64_t knowns, int refine_steps, int max_iter) {
+  using H = Hood<DIM, ORDER, WEIGHTING>;
+  constexpr int NO = H::NO;
+  using Lay = WarpLayout<NO>;
+  constexpr int NP = Lay::NP, LDC = Lay::LDC, TT = NP / 8;
+  constexpr int RPL = (NO + 31) / 32;  // rows (DOFs) per lane
+  extern __shared__ double smem[];
+  double* const Cs = smem + Lay::C;
+  double* const wsv = smem + Lay::KV;
+  double* const fev = wsv + kKC;
+  double* const frv = fev + kKC;
+  double* const tv = frv + kKC;
+  double* const A = smem + Lay::A;
+  double* const gv = smem + Lay::V;
+  double* const sv = gv + NP;
+  double* const bv = sv + NP;
+  double* const yv = bv + NP;
+  double* const xhv = yv + NP;
+  double* const wv = xhv + NP;
+  double* const rv = wv + NP;
+  double* const rdv = rv + NP;  // reciprocal pivots of the factor
+  double* const Y = smem + Lay::BASE;
+  double* const Bk = Y + Lay::XB;
+  double* const RS = Bk + Lay::XB;
+  double* const Tm = RS + Lay::XB;
+
+  const int64_t cs = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
+
+  const int n = min(max(nk[cs], 0), K);
+  const double* fc = fk + cs * (int64_t)K;
+  H h;
+  h.xc = xk + cs * (int64_t)K * DIM;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) h.x0[a] = xi[cs * DIM + a];
+  h.is = inv_s[cs];
+  h.max_d2 = 1.0;
+  if (WEIGHTING == kWeightCenter) {
+    double m = 0.0;
+#pragma unroll 1
+    for (int k = lane; k < n; k += 32) {
+      double d[DIM];
+      h.offsets(k, d);
+      m = fmax(m, H::sq(d));
+    }
+    m = warp_max(m);
+    h.max_d2 = m > 0.0 ? m : 1.0;
+  }
+
+  const int64_t km = ghat != nullptr ? knowns : 0;
+  auto known = [km](int j) { return ((km >> j) & 1LL) != 0; };
+  for (int j = lane; j < NP; j += 32) gv[j] = j < NO && known(j) ? ghat[cs * NO + j] : 0.0;
+  __syncwarp();
+
+  // basis rows, weights, fkeff and fk of neighbours [k0, k0 + kKC) into
+  // shared memory, one per lane; rows k >= n and the padding are exact zeros
+  int resident = -1;
+  auto load_chunk = [&](int k0) {
+    if (resident == k0) return;
+    __syncwarp();
+    const int k = k0 + lane;
+    double* row = Cs + lane * LDC;
+    if (k < n) {
+      double c[NO];
+      const double w = h.row(k, c);
+      const double f = fc[k];
+      double fe = f;
+      if (km != 0) {
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+          if (known(j)) fe = fma(-gv[j], c[j], fe);
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) row[j] = c[j];
+      wsv[lane] = w, fev[lane] = fe, frv[lane] = f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NO; ++j) row[j] = 0.0;
+      wsv[lane] = 0.0, fev[lane] = 0.0, frv[lane] = 0.0;
+    }
+#pragma unroll
+    for (int j = NO; j < NP; ++j) row[j] = 0.0;
+    resident = k0;
+    __syncwarp();
+  };
+
+  // ---- A = C^T W C and b = C^T W fkeff on the FP64 tensor cores: the
+  //      lower 8 x 8 tiles of [C fkeff]^T W [C fkeff]; row NO holds b ----
+  {
+    double acc[TT * (TT + 1) / 2][2];
+#pragma unroll
+    for (int p = 0; p < TT * (TT + 1) / 2; ++p) acc[p][0] = acc[p][1] = 0.0;
+#pragma unroll 1
+    for (int k0 = 0; k0 < n; k0 += kKC) {
+      load_chunk(k0);
+      const int steps = (min(kKC, n - k0) + 3) / 4;
+#pragma unroll 1
+      for (int st = 0; st < steps; ++st) {
+        const int k = 4 * st + t4;
+        const double wk = wsv[k];
+        double av[TT], aw[TT];
+#pragma unroll
+        for (int ti = 0; ti < TT; ++ti) {
+          const int j = 8 * ti + g;
+          av[ti] = j == NO ? fev[k] : Cs[k * LDC + j];
+          aw[ti] = av[ti] * wk;
+        }
+        int p = 0;
+#pragma unroll
+        for (int ti = 0; ti < TT; ++ti)
+#pragma unroll
+          for (int tj = 0; tj <= ti; ++tj) mma_8x8x4(acc[p++], aw[ti], av[tj]);
+      }
+    }
+    int p = 0;
+#pragma unroll
+    for (int ti = 0; ti < TT; ++ti)
+#pragma unroll
+      for (int tj = 0; tj <= ti; ++tj, ++p)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = 8 * ti + g, col = 8 * tj + 2 * t4 + e;
+          if (row < NO && col <= row) A[lt(row, col)] = acc[p][e];
+          else if (row == NO && col < NO) bv[col] = acc[p][e];
+        }
+    __syncwarp();
+  }
+
+  // known DOFs: identity rows and columns, zero RHS
+  if (km != 0) {
+    for (int i = lane; i < NO; i += 32) {
+      for (int m = 0; m <= i; ++m)
+        if (known(i) || known(m)) A[lt(i, m)] = i == m ? 1.0 : 0.0;
+      if (known(i)) bv[i] = 0.0;
+    }
+    __syncwarp();
+  }
+
+  // ---- Jacobi scale ----
+  for (int j = lane; j < NO; j += 32) {
+    const double djj = A[lt(j, j)];
+    sv[j] = djj > 0.0 ? 1.0 / sqrt(djj) : 1.0;
+  }
+  __syncwarp();
+  for (int i = lane; i < NO; i += 32)
+    for (int m = 0; m <= i; ++m) A[lt(i, m)] *= sv[i] * sv[m];
+  __syncwarp();
+  // the key's first factor: max abs row sum of the full symmetric scaled
+  // matrix (NaN kept), taken before the factor overwrites it
+  double ninf = 0.0;
+  if constexpr (kEmitCond) {
+    for (int j = lane; j < NO; j += 32) {
+      double rs = 0.0;
+      for (int m = 0; m < NO; ++m) rs += fabs(A[m <= j ? lt(j, m) : lt(m, j)]);
+      ninf = (rs > ninf || rs != rs) ? rs : ninf;
+    }
+    ninf = warp_max_nan(ninf);
+  }
+
+  // ---- Cholesky in place by panels of 8 columns: within a panel column by
+  //      column with lanes over rows, then the trailing lower tiles less the
+  //      panel's product on the tensor cores; the guard lets NaN through ----
+#pragma unroll 1
+  for (int p0 = 0; p0 < NO; p0 += 8) {
+    const int p1 = min(p0 + 8, NO);
+#pragma unroll 1
+    for (int j = p0; j < p1; ++j) {
+      double tt[RPL];
+#pragma unroll
+      for (int hh = 0; hh < RPL; ++hh) {
+        const int i = lane + 32 * hh;
+        tt[hh] = i >= j && i < NO ? A[lt(i, j)] : 0.0;
+      }
+#pragma unroll 1
+      for (int q = p0; q < j; ++q) {
+        const double ljq = A[lt(j, q)];
+#pragma unroll
+        for (int hh = 0; hh < RPL; ++hh) {
+          const int i = lane + 32 * hh;
+          if (i >= j && i < NO) tt[hh] = fma(-A[lt(i, q)], ljq, tt[hh]);
+        }
+      }
+      const double acc = __shfl_sync(kFull, (RPL == 1 || j < 32) ? tt[0] : tt[RPL - 1], j & 31);
+      const double dj = sqrt(acc < 1e-30 ? 1e-30 : acc);
+      const double invd = 1.0 / dj;
+#pragma unroll
+      for (int hh = 0; hh < RPL; ++hh) {
+        const int i = lane + 32 * hh;
+        if (i == j) A[lt(j, j)] = dj;
+        else if (i > j && i < NO) A[lt(i, j)] = tt[hh] * invd;
+      }
+      if (lane == 0) rdv[j] = invd;
+      __syncwarp();
+    }
+    if (p1 == NO) break;
+    // A[rows, cols] -= L[rows, panel] L[cols, panel]^T for the tiles past it
+#pragma unroll 1
+    for (int ti = p0 / 8 + 1; ti < TT; ++ti) {
+      const int row = 8 * ti + g;
+      double a[2];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) a[st] = row < NO ? -A[lt(row, p0 + 4 * st + t4)] : 0.0;
+#pragma unroll 1
+      for (int tj = p0 / 8 + 1; tj <= ti; ++tj) {
+        const int brow = 8 * tj + g;
+        double d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * tj + 2 * t4 + e;
+          d[e] = row < NO && col <= row ? A[lt(row, col)] : 0.0;
+        }
+#pragma unroll
+        for (int st = 0; st < 2; ++st)
+          mma_8x8x4(d, a[st], brow < NO ? A[lt(brow, p0 + 4 * st + t4)] : 0.0);
+        __syncwarp();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * tj + 2 * t4 + e;
+          if (row < NO && col <= row) A[lt(row, col)] = d[e];
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // ---- the key: ||(L L^T)^-1||_F^2 column by column, lanes over e_i ----
+  if constexpr (kEmitCond) {
+    const double f2 = warp_sum(inv_frob2_cols<NO>(A, rdv, Y, lane));
+    if (lane == 0) est[cs] = ninf * sqrt(f2);
+  }
+
+  // one sweep through the rows: out = C^T W (C x) for x in shared memory,
+  // both products on the tensor cores (x as the first of 8 columns)
+  auto matvec = [&](const double* x, double* out) {
+    double racc[TT][2];
+#pragma unroll
+    for (int ti = 0; ti < TT; ++ti) racc[ti][0] = racc[ti][1] = 0.0;
+#pragma unroll 1
+    for (int k0 = 0; k0 < n; k0 += kKC) {
+      load_chunk(k0);
+      double tacc[4][2];
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) tacc[ri][0] = tacc[ri][1] = 0.0;
+#pragma unroll
+      for (int st = 0; st < NP / 4; ++st) {
+        const int j = 4 * st + t4;
+        const double b = g == 0 && j < NO ? x[j] : 0.0;
+#pragma unroll
+        for (int ri = 0; ri < 4; ++ri) mma_8x8x4(tacc[ri], Cs[(8 * ri + g) * LDC + j], b);
+      }
+      if (t4 == 0)
+#pragma unroll
+        for (int ri = 0; ri < 4; ++ri) tv[8 * ri + g] = tacc[ri][0] * wsv[8 * ri + g];
+      __syncwarp();
+      const int steps = (min(kKC, n - k0) + 3) / 4;
+#pragma unroll 1
+      for (int st = 0; st < steps; ++st) {
+        const int k = 4 * st + t4;
+        const double b = g == 0 ? tv[k] : 0.0;
+#pragma unroll
+        for (int ti = 0; ti < TT; ++ti) mma_8x8x4(racc[ti], Cs[k * LDC + 8 * ti + g], b);
+      }
+      __syncwarp();
+    }
+    if (t4 == 0)
+#pragma unroll
+      for (int ti = 0; ti < TT; ++ti)
+        if (8 * ti + g < NO) out[8 * ti + g] = racc[ti][0];
+    __syncwarp();
+  };
+
+  // ---- solve in the scaled space, then sweep: y += solve(s b - s A (s y)) ----
+  for (int j = lane; j < NO; j += 32) yv[j] = bv[j] * sv[j];
+  __syncwarp();
+  chol_solve_warp<NO>(A, rdv, yv, lane);
+#pragma unroll 1
+  for (int it = 0; it < refine_steps; ++it) {
+    for (int j = lane; j < NO; j += 32) wv[j] = yv[j] * sv[j];
+    __syncwarp();
+    matvec(wv, rv);
+    for (int j = lane; j < NO; j += 32)
+      rv[j] = known(j) ? 0.0 : fma(-sv[j], rv[j], bv[j] * sv[j]);
+    __syncwarp();
+    chol_solve_warp<NO>(A, rdv, rv, lane);
+    for (int j = lane; j < NO; j += 32) yv[j] += rv[j];
+    __syncwarp();
+  }
+  for (int j = lane; j < NO; j += 32) xhv[j] = known(j) ? gv[j] : yv[j] * sv[j];
+  __syncwarp();
+
+  // ---- ALGO_ITERATIVE: corrective refits until the l-inf residual norm
+  //      repeats exactly (reference: wlsqm/fitter/impl.pyx:986-1083) ----
+  if (max_iter > 0) {
+    bool done = false;
+    double prev = -1.0;
+    int itn = 0;
+#pragma unroll 1
+    for (int it = 0; it < max_iter && !done; ++it) {
+      double bp[RPL];
+#pragma unroll
+      for (int hh = 0; hh < RPL; ++hh) bp[hh] = 0.0;
+      double nrm = 0.0;
+#pragma unroll 1
+      for (int k0 = 0; k0 < n; k0 += kKC) {
+        load_chunk(k0);
+        double r = 0.0;
+        if (k0 + lane < n) {
+          const double* row = Cs + lane * LDC;
+          double m = 0.0;
+#pragma unroll
+          for (int j = 0; j < NO; ++j) m = fma(row[j], xhv[j], m);
+          r = frv[lane] - m;
+          nrm = fmax(nrm, fabs(r));
+        }
+        tv[lane] = r;
+        __syncwarp();
+        const int kc = min(kKC, n - k0);
+#pragma unroll
+        for (int hh = 0; hh < RPL; ++hh) {
+          const int j = lane + 32 * hh;
+          if (j < NO)
+#pragma unroll 4
+            for (int k = 0; k < kc; ++k) bp[hh] = fma(Cs[k * LDC + j] * wsv[k], tv[k], bp[hh]);
+        }
+        __syncwarp();
+      }
+      nrm = warp_max(nrm);
+      done = nrm == prev;
+      if (!done) {
+#pragma unroll
+        for (int hh = 0; hh < RPL; ++hh) {
+          const int j = lane + 32 * hh;
+          if (j < NO) rv[j] = known(j) ? 0.0 : bp[hh] * sv[j];
+        }
+        __syncwarp();
+        chol_solve_warp<NO>(A, rdv, rv, lane);
+        for (int j = lane; j < NO; j += 32)
+          if (!known(j)) xhv[j] = fma(rv[j], sv[j], xhv[j]);
+        __syncwarp();
+        ++itn;
+      }
+      prev = nrm;
+    }
+    if (lane == 0) iters[cs] = itn;
+  }
+
+  for (int j = lane; j < NO; j += 32) fi[cs * NO + j] = xhv[j];
+
+  // ---- sensitivities: the K right-hand sides (W C)^T s, kKC at a time, as
+  //      one multi-RHS solve with lanes over the columns; the sweeps' two
+  //      products C (s Y) and C^T (W T) on the tensor cores ----
+  if (sens == nullptr) return;
+  double* const so = sens + cs * (int64_t)K * NO;
+#pragma unroll 1
+  for (int c0 = 0; c0 < K; c0 += kKC) {
+    const int ncol = min(kKC, K - c0);
+    if (c0 < n) {
+      load_chunk(c0);
+      {  // column lane: neighbour c0 + lane (zero beyond n: its row is zero)
+        const double* row = Cs + lane * LDC;
+        const double w = wsv[lane];
+        for (int j = 0; j < NP; ++j) {
+          const double v = j < NO && !known(j) ? (row[j] * w) * sv[j] : 0.0;
+          Bk[j * kLDX + lane] = v;
+          Y[j * kLDX + lane] = v;
+        }
+      }
+      __syncwarp();
+      chol_solve_cols<NO>(A, rdv, Y, kKC, lane);
+#pragma unroll 1
+      for (int it = 0; it < refine_steps; ++it) {
+        for (int j = 0; j < NP; ++j) RS[j * kLDX + lane] = j < NO ? Y[j * kLDX + lane] * sv[j] : 0.0;
+        __syncwarp();
+        double racc[TT][4][2];
+#pragma unroll
+        for (int ti = 0; ti < TT; ++ti)
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci) racc[ti][ci][0] = racc[ti][ci][1] = 0.0;
+#pragma unroll 1
+        for (int k0 = 0; k0 < n; k0 += kKC) {
+          load_chunk(k0);
+          {  // T = C (s Y) on the chunk's rows, then each row times its weight
+            double tacc[4][4][2];
+#pragma unroll
+            for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+              for (int ci = 0; ci < 4; ++ci) tacc[ri][ci][0] = tacc[ri][ci][1] = 0.0;
+#pragma unroll
+            for (int st = 0; st < NP / 4; ++st) {
+              const int j = 4 * st + t4;
+              double a[4], b[4];
+#pragma unroll
+              for (int ri = 0; ri < 4; ++ri) a[ri] = Cs[(8 * ri + g) * LDC + j];
+#pragma unroll
+              for (int ci = 0; ci < 4; ++ci) b[ci] = RS[j * kLDX + 8 * ci + g];
+#pragma unroll
+              for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+                for (int ci = 0; ci < 4; ++ci) mma_8x8x4(tacc[ri][ci], a[ri], b[ci]);
+            }
+#pragma unroll
+            for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+              for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int row = 8 * ri + g;
+                  Tm[row * kLDX + 8 * ci + 2 * t4 + e] = tacc[ri][ci][e] * wsv[row];
+                }
+          }
+          __syncwarp();
+          // R += C^T T over the chunk's rows
+          const int steps = (min(kKC, n - k0) + 3) / 4;
+#pragma unroll 1
+          for (int st = 0; st < steps; ++st) {
+            const int k = 4 * st + t4;
+            double a[TT], b[4];
+#pragma unroll
+            for (int ti = 0; ti < TT; ++ti) a[ti] = Cs[k * LDC + 8 * ti + g];
+#pragma unroll
+            for (int ci = 0; ci < 4; ++ci) b[ci] = Tm[k * kLDX + 8 * ci + g];
+#pragma unroll
+            for (int ti = 0; ti < TT; ++ti)
+#pragma unroll
+              for (int ci = 0; ci < 4; ++ci) mma_8x8x4(racc[ti][ci], a[ti], b[ci]);
+          }
+          __syncwarp();
+        }
+        // r = bk - s (C^T W C)(s y), known rows 0; then y += solve(r)
+#pragma unroll
+        for (int ti = 0; ti < TT; ++ti)
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * ti + g, col = 8 * ci + 2 * t4 + e;
+              RS[j * kLDX + col] = j < NO && !known(j)
+                                       ? fma(-sv[j], racc[ti][ci][e], Bk[j * kLDX + col])
+                                       : 0.0;
+            }
+        __syncwarp();
+        chol_solve_cols<NO>(A, rdv, RS, kKC, lane);
+        for (int j = 0; j < NO; ++j) Y[j * kLDX + lane] += RS[j * kLDX + lane];
+        __syncwarp();
+      }
+    }
+    // the (ncol, NO) block of neighbours c0.., consecutive lanes on
+    // consecutive addresses; neighbours k >= n get 0
+    double* o = so + (int64_t)c0 * NO;
+    for (int f = lane; f < ncol * NO; f += 32) {
+      const int k = f / NO, j = f - k * NO;
+      o[f] = c0 + k < n ? Y[j * kLDX + k] * sv[j] : 0.0;
+    }
+    __syncwarp();
+  }
+}
+
 struct Args {
   const double *xk, *fk;
   const int* nk;
@@ -450,23 +1122,40 @@ struct Args {
 };
 
 template <int DIM, int ORDER, int WEIGHTING>
-void launch(const Args& a, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((a.B + kThreads - 1) / kThreads);
-  fit_rows<DIM, ORDER, WEIGHTING><<<grid, kThreads, 0, stream>>>(
-      a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi, a.iters, a.sens, a.est, a.B,
-      a.K, a.knowns, a.refine_steps, a.max_iter);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using T = RowsTables<DIM, ORDER>;
+  if constexpr (T::kWarp) {
+    using Lay = WarpLayout<T::NO>;
+    static_assert(Lay::BASE * 8 == T::kSmemBase && Lay::KEY * 8 == T::kSmemKey &&
+                      Lay::SENS * 8 == T::kSmemSens,
+                  "warp layout differs from ops/fit_rows.warp_smem_bytes");
+    const int bytes = a.sens ? T::kSmemSens : (kEmitCond ? T::kSmemKey : T::kSmemBase);
+    auto kern = fit_rows_warp<DIM, ORDER, WEIGHTING>;
+    if (bytes > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+    }
+    if (a.B > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kern<<<(unsigned)a.B, 32, bytes, stream>>>(a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat,
+                                               a.fi, a.iters, a.sens, a.est, a.B, a.K,
+                                               a.knowns, a.refine_steps, a.max_iter);
+  } else {
+    const unsigned grid = (unsigned)((a.B + kThreads - 1) / kThreads);
+    fit_rows_thread<DIM, ORDER, WEIGHTING><<<grid, kThreads, 0, stream>>>(
+        a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi, a.iters, a.sens, a.est, a.B,
+        a.K, a.knowns, a.refine_steps, a.max_iter);
+  }
+  return cudaSuccess;
 }
 
-// the (ORDER, WEIGHTING) instance of one dimension; false: no such order
+// the (ORDER, WEIGHTING) instance of one dimension; cudaErrorInvalidValue:
+// no such order
 template <int DIM>
-bool launch_dim(const Args& a, int order, bool center, cudaStream_t st) {
-#define WLSQM_CASE(ORD)                       \
-  case ORD:                                   \
-    if (center)                               \
-      launch<DIM, ORD, kWeightCenter>(a, st); \
-    else                                      \
-      launch<DIM, ORD, 1>(a, st);             \
-    return true;
+cudaError_t launch_dim(const Args& a, int order, bool center, cudaStream_t st) {
+#define WLSQM_CASE(ORD)                                                        \
+  case ORD:                                                                    \
+    return center ? launch<DIM, ORD, kWeightCenter>(a, st) : launch<DIM, ORD, 1>(a, st);
   switch (order) {
     WLSQM_CASE(0)
     WLSQM_CASE(1)
@@ -474,7 +1163,7 @@ bool launch_dim(const Args& a, int order, bool center, cudaStream_t st) {
     WLSQM_CASE(3)
     WLSQM_CASE(4)
     default:
-      return false;
+      return cudaErrorInvalidValue;
   }
 #undef WLSQM_CASE
 }
@@ -502,10 +1191,10 @@ extern "C" int wlsqm_fit_rows(const void* xk, const void* fk, const void* nk,
                knowns, refine_steps, max_iter};
   cudaStream_t st = (cudaStream_t)stream;
   const bool center = weighting == kWeightCenter;
-  const bool ok = dim == 1   ? launch_dim<1>(a, order, center, st)
-                  : dim == 2 ? launch_dim<2>(a, order, center, st)
-                  : dim == 3 ? launch_dim<3>(a, order, center, st)
-                             : false;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = dim == 1   ? launch_dim<1>(a, order, center, st)
+                        : dim == 2 ? launch_dim<2>(a, order, center, st)
+                        : dim == 3 ? launch_dim<3>(a, order, center, st)
+                                   : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Row gather out[r, :] = u[idx[r], :] in 32-bit words (Hopper, sm_90a).
+// Row gather out[r, :] = u[idx[r], :] (Hopper, sm_90a).
 //
 // Replaces the TPU kernel wlsqm_tpu/ops/gather.py:168 (_gather_kernel,
 // launched by _gather_sel at l.264 for gather_rows l.478 and
@@ -9,31 +9,36 @@
 // directly; the host plan (plan_window_gather) only checks the call.
 //
 // What it computes: for each plane p (one, or two for the f32 (hi, lo)
-// pair) and each output word o = r * W + w, out_p[o] = u_p[idx[r] * W + w],
-// where W = F * itemsize / 4 words make one row.  Words are copied, never
-// converted, so every 4- and 8-byte payload (f64, f32, int32, int64) comes
-// through bit for bit: NaN patterns, -0 and inf included.  Every row comes
-// from this kernel, the plan's overflow blocks included.
+// pair) and each output row r, out_p[r, :] = u_p[idx[r], :], a row being W
+// 32-bit words (W = F * itemsize / 4).  Bits are copied, never converted,
+// so every 4- and 8-byte payload (f64, f32, int32, int64) comes through bit
+// for bit: NaN patterns, -0 and inf included.  Every row comes from this
+// kernel, the plan's overflow blocks included.
 //
 // Bound on this card (bytes): idx read once (4 B per row), out written
 // once (4 W B per row), u read once (4 W B per point).  At n = B = 2^22,
-// K = 28, f64, F = 1: 0.470 + 0.940 + 0.034 GB = 1.44 GB, 0.43 ms at the
+// K = 28, f64: F = 1 1.44 GB, 0.431 ms; F = 3 3.39 GB, 1.012 ms at the
 // data-sheet 3.35 TB/s.  What the design does about it:
-//   * one thread per output word, the word index fastest, so a warp's
-//     stores are 128 contiguous bytes;
-//   * idx and u through the read-only cache (__ldg): a row's W words share
-//     one idx load, and a Morton-ordered cloud's neighbours share cache
-//     lines of u, which fits in the 50 MB L2 at these sizes;
+//   * gather_vec16: one thread per 16-byte vector of the output, written
+//     with one streaming store (st.global.cs), so that a warp stores 512
+//     contiguous bytes and the output does not evict from the 50 MB L2 the
+//     u rows that a Morton-ordered cloud's neighbours share; the vector's
+//     LOAD-byte pieces (the widest that the row width and u's alignment
+//     allow: 8 B for f64 rows) come from their rows through the read-only
+//     path, one index load per piece (neighbouring threads' loads of one
+//     index meet in L1);
+//   * gather_words, the generic instance for what the vector one does not
+//     takes (other row widths, a misaligned out): one thread per
+//     output word, the word index fastest;
 //   * 64-bit offsets (R * W reaches 7e8 at 2^22 cases, K = 28, F = 3, f64);
-//   * indices clamped into [0, n), so a bad index never reads outside u.
-// Staging the plan's two windows in shared memory (TMA or cp.async) is a
-// redesign for later, to be measured against this one.
+//   * indices clamped into [0, n), so a bad index never reads outside u;
+//   * the ragged last vector is copied word by word.
+// The host (ops/gather._vector_plan) picks the instance from the row width
+// and the pointers' alignment and passes it in; this entry checks it.
 //
-// Layout: 256 threads per block, grid (ceil(R * W / 256), planes).  W is a
-// template parameter for the common widths (the division folds to a
-// multiply), a runtime value otherwise.  Plain C entry point, loaded with
-// ctypes; launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// Layout: 256 threads per block, grid (ceil(vectors or words / 256), planes).  Plain
+// C entry point, loaded with ctypes; launches on the caller's stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,53 +47,140 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int WORDS>
+__device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
 __global__ void __launch_bounds__(kThreads)
 gather_words(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
              const int32_t* __restrict__ idx, uint32_t* __restrict__ out0,
-             uint32_t* __restrict__ out1, int64_t n, int64_t total, int runtime_words) {
+             uint32_t* __restrict__ out1, int64_t n, int64_t total, int64_t W) {
   const int64_t o = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (o >= total) return;
-  const int64_t W = WORDS > 0 ? WORDS : runtime_words;
   const uint32_t* __restrict__ u = blockIdx.y ? u1 : u0;
   uint32_t* __restrict__ out = blockIdx.y ? out1 : out0;
   const int64_t r = o / W;
   const int64_t w = o - r * W;
-  int64_t i = __ldg(idx + r);
-  i = i < 0 ? 0 : (i >= n ? n - 1 : i);
+  const int64_t i = clamp_row(__ldg(idx + r), n);
   out[o] = __ldg(u + i * W + w);
 }
 
-template <int WORDS>
-void launch(const uint32_t* u0, const uint32_t* u1, const int32_t* idx, uint32_t* out0,
-            uint32_t* out1, int64_t n, int64_t total, int words, cudaStream_t st) {
-  const dim3 grid((unsigned)((total + kThreads - 1) / kThreads), u1 ? 2 : 1);
-  gather_words<WORDS><<<grid, kThreads, 0, st>>>(u0, u1, idx, out0, out1, n, total, words);
+// One thread per 16-byte vector of the output: its LOAD-byte pieces come
+// from the rows they belong to (a piece never straddles two rows), and the
+// vector is written with one streaming store, so a warp's stores are 512
+// contiguous bytes.
+template <int W, int LOAD>
+__global__ void __launch_bounds__(kThreads)
+gather_vec16(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
+             const int32_t* __restrict__ idx, uint32_t* __restrict__ out0,
+             uint32_t* __restrict__ out1, int64_t n, int64_t rows) {
+  constexpr int P = LOAD / 4;  // words per piece
+  constexpr int PR = W / P;    // pieces per row
+  constexpr int PV = 4 / P;    // pieces per vector
+  const int64_t total = rows * W;
+  const int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (4 * v >= total) return;
+  const uint32_t* __restrict__ u = blockIdx.y ? u1 : u0;
+  uint32_t* __restrict__ out = blockIdx.y ? out1 : out0;
+  if (4 * v + 4 > total) {  // the ragged last vector, word by word
+    for (int64_t o = 4 * v; o < total; ++o) {
+      const int64_t r = o / W;
+      __stcs(out + o, __ldg(u + clamp_row(__ldg(idx + r), n) * W + (o - r * W)));
+    }
+    return;
+  }
+  uint32_t x[4];
+#pragma unroll
+  for (int q = 0; q < PV; ++q) {
+    const int64_t p = v * PV + q;
+    const int64_t r = p / PR;
+    const uint32_t* src = u + clamp_row(__ldg(idx + r), n) * W + (p - r * PR) * P;
+    if constexpr (P == 4) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(src));
+      x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+    } else if constexpr (P == 2) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(src));
+      x[2 * q] = t.x, x[2 * q + 1] = t.y;
+    } else {
+      x[q] = __ldg(src);
+    }
+  }
+  __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
 }
+
+struct Call {
+  const uint32_t *u0, *u1;
+  const int32_t* idx;
+  uint32_t *out0, *out1;
+  int64_t n, rows;
+  int words;
+  cudaStream_t st;
+};
+
+void launch_words(const Call& c) {
+  const int64_t total = c.rows * (int64_t)c.words;
+  const dim3 grid((unsigned)((total + kThreads - 1) / kThreads), c.u1 ? 2 : 1);
+  gather_words<<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0, c.out1, c.n, total,
+                                            c.words);
+}
+
+template <int W, int LOAD>
+void launch_vec(const Call& c) {
+  const int64_t vecs = (c.rows * W + 3) / 4;
+  const dim3 grid((unsigned)((vecs + kThreads - 1) / kThreads), c.u1 ? 2 : 1);
+  gather_vec16<W, LOAD><<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0, c.out1,
+                                                     c.n, c.rows);
+}
+
+// the vector instance of (words, load bytes); false: there is none
+bool launch_vec_instance(const Call& c, int load) {
+#define WLSQM_VEC(W, L)                      \
+  if (c.words == W && load == L) {           \
+    launch_vec<W, L>(c);                     \
+    return true;                             \
+  }
+  WLSQM_VEC(1, 4)
+  WLSQM_VEC(2, 4)
+  WLSQM_VEC(2, 8)
+  WLSQM_VEC(3, 4)
+  WLSQM_VEC(4, 4)
+  WLSQM_VEC(4, 8)
+  WLSQM_VEC(4, 16)
+  WLSQM_VEC(6, 4)
+  WLSQM_VEC(6, 8)
+#undef WLSQM_VEC
+  return false;
+}
+
+bool aligned(const void* p, int bytes) { return ((uintptr_t)p) % bytes == 0; }
 
 }  // namespace
 
 // u0, u1: (n, words) int32 planes (u1 null for one plane); idx: (rows,)
-// int32; out0, out1: (rows, words) int32.  Returns a CUDA error code.
+// int32; out0, out1: (rows, words) int32.  load_bytes 0: the word instance;
+// 4, 8 or 16: the vector instance with loads of that width, which needs
+// words in {1, 2, 3, 4, 6}, out 16-byte aligned and u aligned to the loads
+// (ops/gather._vector_plan).  Returns a CUDA
+// error code; a plan that does not fit the pointers is cudaErrorInvalidValue.
 extern "C" int wlsqm_gather_words(const void* u0, const void* u1, const void* idx,
                                   void* out0, void* out1, int64_t n, int64_t rows,
-                                  int words, void* stream) {
+                                  int words, int load_bytes, void* stream) {
   if (n <= 0 || words <= 0 || (u1 == nullptr) != (out1 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaSuccess;
-  const int64_t total = rows * (int64_t)words;
-  if ((total + kThreads - 1) / kThreads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const uint32_t *a = (const uint32_t*)u0, *b = (const uint32_t*)u1;
-  const int32_t* ix = (const int32_t*)idx;
-  uint32_t *p = (uint32_t*)out0, *q = (uint32_t*)out1;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (words) {
-    case 1: launch<1>(a, b, ix, p, q, n, total, words, st); break;
-    case 2: launch<2>(a, b, ix, p, q, n, total, words, st); break;
-    case 3: launch<3>(a, b, ix, p, q, n, total, words, st); break;
-    case 4: launch<4>(a, b, ix, p, q, n, total, words, st); break;
-    case 6: launch<6>(a, b, ix, p, q, n, total, words, st); break;
-    default: launch<0>(a, b, ix, p, q, n, total, words, st); break;
+  const Call c{(const uint32_t*)u0, (const uint32_t*)u1, (const int32_t*)idx,
+               (uint32_t*)out0, (uint32_t*)out1, n, rows, words, (cudaStream_t)stream};
+  if (load_bytes == 0) {
+    if ((rows * (int64_t)words + kThreads - 1) / kThreads > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    launch_words(c);
+    return (int)cudaGetLastError();
   }
+  const bool fits = aligned(out0, 16) && (!out1 || aligned(out1, 16)) &&
+                    aligned(u0, load_bytes) && (!u1 || aligned(u1, load_bytes)) &&
+                    (4 * words) % load_bytes == 0;
+  if (!fits || (rows * (int64_t)words + 3) / 4 / kThreads >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (!launch_vec_instance(c, load_bytes)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -95,12 +95,13 @@ class DeviceCalibration:
 
 
 #: the H100 sweep: ``calibrate_device()`` (7 radii x 2 weightings x 1,024
-#: cases, 2D order 4, K = 30, both bodies at the kernels' default sweep
-#: count) as ``chip_smoke.py``'s ``phase_calibrate`` ran it on an NVIDIA H100
-#: 80GB HBM3, 700.00 W.  Edges tol / (SAFETY * unit): cond·amp 37,396 (rows)
-#: and 28,118 (moments); key 65,627 (rows) and 37,482 (moments).
-_H100 = dict(f64_unit=5.00e-16, f64_cert_unit=6.69e-16, f64_unit_m=9.47e-16,
-             f64_cert_unit_m=8.89e-16, est_f64_cert_unit=3.81e-16,
+#: cases, 2D order 4, K = 30, both kernels at their default sweep count) as
+#: ``python -m wlsqm_tpu_torch.fitter.calibration`` ran it on an NVIDIA H100
+#: 80GB HBM3, 700.00 W, with the rows kernel's warp body (2D order 4 has
+#: NO = 15).  Edges tol / (SAFETY * unit): cond·amp 28,158 (rows) and 28,118
+#: (moments); key 52,731 (rows) and 37,482 (moments).
+_H100 = dict(f64_unit=8.03e-16, f64_cert_unit=8.88e-16, f64_unit_m=9.47e-16,
+             f64_cert_unit_m=8.89e-16, est_f64_cert_unit=4.74e-16,
              est_f64_cert_unit_m=6.67e-16)
 
 #: shipped records, matched by lower-case substring of the device kind

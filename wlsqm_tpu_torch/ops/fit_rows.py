@@ -22,8 +22,11 @@ both versions here compute in float64:
 
 * :func:`fit_rows_plain` — batched torch, what the CPU runs and what the
   CUDA kernel is checked against;
-* the CUDA kernel ``csrc/fit_rows.cu`` — one thread per case, dims 1-3,
-  orders 0-4 (:func:`supported`), one library of 30 instances.  Its exponent
+* the CUDA kernel ``csrc/fit_rows.cu`` — dims 1-3, orders 0-4
+  (:func:`supported`), one library of 30 instances, each compiled as one of
+  two bodies by a rule on NO (:func:`warp_body`): one thread per case for
+  the small systems, one warp per case with its state in shared memory and
+  the normal equations on the FP64 tensor cores for NO >= WARP_MIN_NO.  Its
   tables come from :func:`tables_header`, generated from the same
   ``tables.EXPONENTS`` rows that :func:`basis_rows` reads.
 
@@ -106,13 +109,49 @@ def known_dofs(knowns: int, dimension: int, order: int) -> list[int]:
             if (int(knowns) >> j) & 1]
 
 
+#: the rows kernel runs its warp body for NO >= WARP_MIN_NO, its thread
+#: body below (the cut measured on the H100: PERF.md, PR 5)
+WARP_MIN_NO = 11
+
+#: neighbours per chunk of the warp body (one per lane) and the row stride
+#: of its right-hand-side buffers (csrc/fit_rows.cu: kKC, kLDX)
+_KC, _LDX = 32, 36
+
+
+def warp_body(dimension: int, order: int) -> bool:
+    """Whether the kernel instance of (dimension, order) is the warp body:
+    a compile-time rule on NO, written into the generated header."""
+    return defs.number_of_dofs(dimension, order) >= WARP_MIN_NO
+
+
+def warp_smem_bytes(dimension: int, order: int, do_sens: bool = False,
+                    emit_cond: bool = False) -> int:
+    """Dynamic shared memory of one warp-body case, in bytes; independent of
+    K (neighbours are taken 32 at a time).  The layout of
+    ``csrc/fit_rows.cu:WarpLayout``, which checks it at compile time:
+    basis rows (32, NP + 4) with NP = NO + 1 (the column of fkeff) rounded
+    up to the 8 x 8 tile, four per-neighbour vectors, the packed matrix,
+    eight DOF vectors, and the right-hand-side buffers (NP, 36): one for the
+    key, three and a (32, 36) product for the sensitivities."""
+    NO = defs.number_of_dofs(dimension, order)
+    NP = (NO // 8 + 1) * 8
+    base = _KC * (NP + 4) + 4 * _KC + (NO * (NO + 1) // 2 + 1) // 2 * 2 + 8 * NP
+    if do_sens:
+        base += 3 * NP * _LDX + _KC * _LDX
+    elif emit_cond:
+        base += NP * _LDX
+    return 8 * base
+
+
 def tables_header() -> str:
-    """C++ header with the kernel's exponent tables, one struct per (dim, order).
+    """C++ header with the kernel's tables, one struct per (dim, order).
 
     ``RowsTables<DIM, ORDER>`` holds NO and ``ex(j, a)``, the exponent of
     axis a in DOF j (``tables.EXPONENTS``), as a constexpr switch: in the
     kernel's unrolled basis loop every argument is a compile-time constant,
-    so each lookup folds away.
+    so each lookup folds away.  ``kWarp`` is :func:`warp_body`, and
+    ``kSmemBase``, ``kSmemKey`` and ``kSmemSens`` are
+    :func:`warp_smem_bytes` without sens or key, with the key, with sens.
     """
     out = ["// Generated by wlsqm_tpu_torch.ops.fit_rows.tables_header() from",
            "// tables.EXPONENTS; the build writes it, do not edit.",
@@ -128,6 +167,10 @@ def tables_header() -> str:
                              for j in range(NO) for a in range(dim) if exp[j, a])
             out += ["template <> struct RowsTables<%d, %d> {" % (dim, order),
                     "  static constexpr int NO = %d;" % NO,
+                    "  static constexpr bool kWarp = %s;" % str(warp_body(dim, order)).lower(),
+                    "  static constexpr int kSmemBase = %d, kSmemKey = %d, kSmemSens = %d;" % (
+                        warp_smem_bytes(dim, order), warp_smem_bytes(dim, order, emit_cond=True),
+                        warp_smem_bytes(dim, order, do_sens=True)),
                     "  __host__ __device__ static constexpr int ex(int j, int a) {",
                     "    switch (j * %d + a) { %s default: return 0; }" % (dim, cases),
                     "  }",
@@ -283,8 +326,9 @@ def supported(dimension: int, order, knowns, weighting) -> bool:
 
     Homogeneous batches only (one order, one knowns mask, one weighting),
     dimensions 1-3, orders 0-4, WEIGHT_UNIFORM or WEIGHT_CENTER, with or
-    without sensitivities and ALGO_ITERATIVE.  The kernel keeps nothing
-    sized by K, so K is not limited.
+    without sensitivities and ALGO_ITERATIVE.  Neither body keeps anything
+    sized by K (the warp body takes neighbours 32 at a time), so K is not
+    limited.
     """
     order = np.asarray(order)
     knowns = np.asarray(knowns)

@@ -11,9 +11,12 @@ windows come from a host plan (:func:`plan_window_gather`) that relies on a
 Morton-ordered cloud (:func:`morton_order`).
 
 A Hopper thread loads any address, so the CUDA kernel ``csrc/gather.cu``
-is a direct gather of 32-bit words, bit-exact for every 4- and 8-byte
-payload.  It serves every row, the plan's overflow blocks included.  The
-plan API stays: it is the JAX package's interface, it checks that ``u``
+is a direct gather that copies bits, exact for every 4- and 8-byte payload.
+One thread writes one 16-byte vector of the output with a streaming store,
+reading its pieces from their rows, where the row width and the pointers'
+alignment allow (:func:`_vector_plan` decides), one 32-bit word otherwise.
+It serves every row, the plan's overflow blocks included.  The plan API
+stays: it is the JAX package's interface, it checks that ``u``
 and ``idx`` belong together, and its ``coverage`` records the locality
 that Morton order buys (the kernel's reads of ``u`` then hit the L2).
 
@@ -172,16 +175,37 @@ def load() -> native.Library:
     """The kernel's shared library, built with nvcc on first use."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     return native.build("gather", [_SRC], {},
-                        {_ENTRY: (i32, [vp, vp, vp, vp, vp, i64, i64, i32, vp])})
+                        {_ENTRY: (i32, [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])})
+
+
+#: row widths in 32-bit words that the vector instance takes
+_VECTOR_WORDS = (1, 2, 3, 4, 6)
+
+
+def _vector_plan(row_bytes: int, u_ptr: int, out_ptr: int):
+    """The kernel instance for rows of ``row_bytes`` bytes: the piece width
+    ``load`` (16, 8 or 4 bytes) of the vector instance, whose threads each
+    write one 16-byte vector of the output from pieces of that width, or
+    None for the word instance.
+
+    The vector instance needs a row of 1, 2, 3, 4 or 6 words and ``out_ptr``
+    16-byte aligned; ``load`` is the widest of 16, 8 and 4 bytes that divides
+    the row and ``u_ptr``.  Pass the OR of both planes' pointers for the pair
+    (the OR's alignment is the smaller one).  Width and alignment decide,
+    never a failure.
+    """
+    if row_bytes % 4 or row_bytes // 4 not in _VECTOR_WORDS or out_ptr % 16:
+        return None
+    return next(b for b in (16, 8, 4) if row_bytes % b == 0 and u_ptr % b == 0)
 
 
 def _launch(words, idx, out) -> None:
     """Launch the kernel on the current stream: ``out[p][r, :] =
     words[p][idx[r], :]`` for each plane p of ``words`` (a list of one or
     two (n, W) int32 tensors) into the matching ``out`` tensor (R, W), with
-    idx (R,) int32.  Checks device, dtype, shape and contiguity, and raises
-    on a refused launch (the C entry returns ``cudaGetLastError()``).  Does
-    not synchronise."""
+    idx (R,) int32.  The instance comes from :func:`_vector_plan`.  Checks
+    device, dtype, shape and contiguity, and raises on a refused launch (the
+    C entry returns ``cudaGetLastError()``).  Does not synchronise."""
     global LAUNCHES
     if not 1 <= len(words) == len(out) <= 2:
         raise ValueError("gather kernel takes one or two planes")
@@ -202,13 +226,16 @@ def _launch(words, idx, out) -> None:
     if R == 0:
         return
     second = len(words) == 2
+    u_ptrs = [w.data_ptr() for w in words]
+    out_ptrs = [o.data_ptr() for o in out]
+    load_bytes = _vector_plan(4 * W, functools.reduce(int.__or__, u_ptrs),
+                              functools.reduce(int.__or__, out_ptrs))
     lib = load().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = getattr(lib, _ENTRY)(
-            words[0].data_ptr(), words[1].data_ptr() if second else None,
-            idx.data_ptr(), out[0].data_ptr(), out[1].data_ptr() if second else None,
-            n, R, W, stream)
+            u_ptrs[0], u_ptrs[1] if second else None, idx.data_ptr(), out_ptrs[0],
+            out_ptrs[1] if second else None, n, R, W, load_bytes or 0, stream)
     if status != 0:
         raise RuntimeError("gather kernel launch failed: CUDA error %d" % status)
     LAUNCHES += 1
@@ -241,7 +268,7 @@ def gather_rows(u: torch.Tensor, idx, plan: GatherPlan) -> torch.Tensor:
     """``u[idx]`` through the gather kernel; u (n,) or (n, F), idx (B, K).
 
     Bit-identical to ``u[idx]`` for every 4- and 8-byte dtype (float64,
-    float32, int32, int64, ...): the kernel copies 32-bit words.  A CPU
+    float32, int32, int64, ...): the kernel copies bits.  A CPU
     tensor runs :func:`gather_rows_plain`; a CUDA tensor launches the kernel
     for every row, or raises.  Returns the shape and dtype of ``u[idx]``.
     """
