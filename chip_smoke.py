@@ -33,9 +33,11 @@ then drives five paths through the port's public routes:
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
 launch or check raises, so the script exits non-zero and prints no result
-line; so does a machine without a CUDA device.  ``measure_rows_cut`` and
-``measure_gather_variants``, run by hand, time the designs that the rows
-kernel's two bodies and the gather kernel were chosen from.
+line; so does a machine without a CUDA device.  ``measure_rows_cut``,
+``measure_gather_variants`` and ``measure_moment_variants``, run by hand,
+time the designs that the kernels were chosen from; ``measure_moment_units``
+ties the moment body's calibration units to its arithmetic, and
+``measure_auto_route`` times the certified route against another checkout.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -47,6 +49,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -79,6 +82,8 @@ RADII_WIDE = (0.03, 1.0)  # the calibration sweep's range: a minority certifies
 K = 30
 K_DIM3 = 48
 K_GRID = {1: 16, 2: 30, 3: 56}
+K_SLAB_EDGE = (151, 152)  # moment kernel: the slabs, 64 (2K + 1 + (K | 1)) doubles, fill
+                         # the H100's 227 KB a block at K = 151 (staged); 152 is not
 K_WIDE = 130            # the warp body's configurations again: five chunks of 32, the
                         # last ragged
 ORDER = 4
@@ -86,7 +91,10 @@ PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), parity_check's b
 REPS = 5                # timed repetitions after one warm-up; the median is reported
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 FP64_FLOP_S = 67e12     # H100 SXM data sheet: FP64 peak (on the tensor cores)
+MOMENT_SPILL_BYTES = 400  # ptxas spill stores or loads a fit_moment_2d instance may show:
+                          # the order-4 instances' level (PERF.md); more fails the run
 COUNT_TV = 0.1          # ALGO_ITERATIVE counts: bar on the histograms' distance
+COUNT_SLACK = 0.01      # ... kernel vs plain, each against the JAX engine's counts
 RADII = (0.03, 0.1, 0.3, 1.0)
 N_IBVP = 1 << 22        # the IBVP cloud (the gather gate row's 20,480 points, grown)
 K_IBVP = 28             # neighbours per case, self included (the gate row's)
@@ -257,7 +265,7 @@ def _moment_flops(order, center, n, refine):
     NM = len(fit_kernel.moment_lattice(2, 2 * order)[0])
     NT = NO * (NO + 1) // 2
     solve = 2 * NO * NO
-    per_k = 4 + (9 if center else 0) + 2 * NM + 2 * NO
+    per_k = 4 + (9 if center else 0) + (5 * order + 1) + 2 * NM + 2 * NO  # powers, sums
     total = (n * 7 if center else 0) + n * per_k
     total = total + 2 * NO + 2 * NT + _chol_flops(NO) + NO + solve
     total = total + refine * (NO + 2 * NO * NO + 2 * NO + solve + NO) + NO
@@ -323,6 +331,33 @@ def phase_build():
                           "path": lib.path, "ptxas": _ptxas_summary(lib.log)}), flush=True)
     print(json.dumps({"build_wall_s": round(wall, 3), "parallel_nvcc": len(jobs)}),
           flush=True)
+    # indirect branches in the moment kernel: a table switch the compiler
+    # left to run time (the key's row sums once cost 4-5x the fit that way)
+    brx = {name: _indirect_branches(libs[name].path) for name in ("fit_moment", "fit_moment_cond")}
+    print(json.dumps({"fit_moment_2d_indirect_branches": brx}), flush=True)
+    if any(n for per in brx.values() for n in per.values()):
+        raise RuntimeError("fit_moment_2d has indirect branches (BRX): %s" % (brx,))
+
+
+def _indirect_branches(path):
+    """BRX instructions per fit_moment_2d instance of a library, from
+    ``cuobjdump -sass`` beside nvcc."""
+    from wlsqm_tpu_torch import native
+
+    tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*fit_moment_2dILi(\d)ELi(\d)E", line)
+        if m:
+            name = "fit_moment_2d<%s,%s>" % m.groups()
+            out[name] = 0
+        elif "Function :" in line:
+            name = None
+        elif name and re.search(r"\bBRX\b", line):
+            out[name] += 1
+    return out
 
 
 def phase_moment_vs_plain(dev, wtt):
@@ -330,12 +365,15 @@ def phase_moment_vs_plain(dev, wtt):
 
     gen = torch.Generator(device=dev).manual_seed(2026)
     worst_rel, worst_abs = 0.0, 0.0
-    checks = [(ORDER, w, B_CHECK) for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER)]
-    checks += [(o, w, B_GRID) for o in range(ORDER) for w in (wtt.WEIGHT_UNIFORM,
-                                                            wtt.WEIGHT_CENTER)]
+    weightings = (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER)
+    checks = [(ORDER, w, B_CHECK, K) for w in weightings]
+    checks += [(o, w, B_GRID, K) for o in range(ORDER) for w in weightings]
+    # the largest K whose slabs one block stages, and the first whose walks
+    # read global memory instead
+    checks += [(ORDER, w, B_GRID, k) for k in K_SLAB_EDGE for w in weightings]
     per = {}
-    for order, w, B in checks:
-        xk, fk, nk, xi = _cloud(B, gen, dev, order=order, ragged=True, offset=True)
+    for order, w, B, k in checks:
+        xk, fk, nk, xi = _cloud(B, gen, dev, K=k, order=order, ragged=True, offset=True)
         got = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=order, weighting=w)
         ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, dimension=2, order=order,
                                            weighting=w)
@@ -344,7 +382,7 @@ def phase_moment_vs_plain(dev, wtt):
             raise RuntimeError("kernel gave non-finite DOFs at order %d weighting %d"
                                % (order, w))
         rel = _rel(got, ref)
-        per["order%d_w%d_B%d" % (order, w, B)] = rel
+        per["order%d_w%d_B%d_K%d" % (order, w, B, k)] = rel
         worst_rel = max(worst_rel, rel)
         worst_abs = max(worst_abs, (got - ref).abs().max().item())
         if rel > PARITY:
@@ -353,6 +391,45 @@ def phase_moment_vs_plain(dev, wtt):
     print(json.dumps({"fit_moment_vs_plain_rel": per, "worst_rel": worst_rel,
                       "worst_abs": worst_abs, "tol": PARITY}), flush=True)
     return worst_abs, worst_rel
+
+
+def phase_moment_scale(dev):
+    """The moment kernel's own scale (wlsqm_moment_scale runs the fit's device
+    functions alone) against _prescale, bit for bit, which fit_rows and
+    condprobe keep using: on the headline cloud at 2^23 and on cases whose
+    h² is an exact power of four or one ulp of the coordinate either side
+    of it (where ceil(0.5 log2) and an exact frexp rule part), with nk = 0
+    and NaN padding."""
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    xk, _, nk, xi = _cloud(B_MAIN, torch.Generator(device=dev).manual_seed(42), dev,
+                           ragged=True)
+    m = 3 * 64
+    h = torch.ldexp(torch.ones(m, dtype=torch.float64, device=dev),
+                    torch.arange(m, device=dev) % 64 - 32)
+    step = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float64, device=dev).repeat_interleave(64)
+    adv_x = torch.rand((m, K, 2), generator=torch.Generator(device=dev).manual_seed(7),
+                       device=dev, dtype=torch.float64) * 2e-3 - 1e-3
+    adv_x = adv_x * h[:, None, None]
+    adv_x[:, 0, 0] = torch.nextafter(h, h + step)
+    adv_x[:, 0, 1] = 0.0
+    adv_n = torch.randint(1, K + 1, (m,), device=dev, dtype=torch.int32)
+    adv_n[:16] = 0
+    adv_x[torch.arange(K, device=dev)[None, :] >= adv_n[:, None]] = torch.nan
+    out = {}
+    for name, args in (("headline_2^23", (xk, nk, xi)),
+                       ("powers_of_four", (adv_x, adv_n, torch.zeros((m, 2), dtype=torch.float64,
+                                                                     device=dev)))):
+        e, inv_s = fit_kernel.moment_scale(*args)
+        _, _, e_ref, inv_ref = fit_kernel._prescale(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(e), _bits(e_ref)) and torch.equal(_bits(inv_s), _bits(inv_ref))
+        out[name] = {"cases": len(e), "bit_equal": same,
+                     "differ": int((_bits(e) != _bits(e_ref)).sum())}
+        if not same:
+            raise RuntimeError("the kernel's scale differs from _prescale: %s" % out)
+        del e, inv_s, e_ref, inv_ref
+    print(json.dumps({"moment_scale_vs_prescale": out}), flush=True)
 
 
 def _warp_configs():
@@ -474,6 +551,59 @@ def phase_rows_vs_plain(dev, wtt):
     return worst_abs, worst_rel
 
 
+def _count_shares(dev):
+    """The rows kernel's and its plain version's ALGO_ITERATIVE counts on the
+    seeded clouds of tests/iterative_counts.py, against the JAX f64 engine's
+    counts stored beside them: (equal, within one, histogram distance) per
+    set (the rows grid, the warp configurations, both), and the worst DOF
+    difference kernel vs plain."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import iterative_counts
+
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    stored = iterative_counts.load()
+    got = {"kernel": {}, "plain": {}}
+    worst = 0.0
+    for key, dim, order, w, B, Kc, seed in iterative_counts.configs():
+        xk, fk, nk, xi, fi0, kn = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+                                   else a for a in iterative_counts.cloud(dim, order, B, Kc, seed))
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
+                  max_iter=iterative_counts.MAX_ITER)
+        fi_k, it_k, _ = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+        fi_p, it_p, _ = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+        worst = max(worst, _rel(fi_k, fi_p))
+        got["kernel"][key] = it_k.cpu().numpy()
+        got["plain"][key] = it_p.cpu().numpy()
+    out = {}
+    for name, sel in (("grid", "grid_"), ("warp", "warp_"), ("all", "")):
+        keys = [k for k in stored if k.startswith(sel)]
+        for body in ("kernel", "plain"):
+            eq, w1, tv = iterative_counts.shares([got[body][k] for k in keys],
+                                                 [stored[k] for k in keys])
+            out["%s_%s_vs_jax" % (body, name)] = {"equal": eq, "within_one": w1,
+                                                   "hist_distance": tv}
+    per = {k: {body: iterative_counts.shares([got[body][k]], [stored[k]])[2]
+               for body in ("kernel", "plain")} for k in stored}
+    return out, per, worst
+
+
+def phase_iterative_counts(dev):
+    """ROADMAP C2: the kernel's counts and the plain version's against the
+    JAX engine's on the same seeded clouds; the kernel is held to be no
+    farther from them than the plain version (pooled histogram distance
+    within COUNT_SLACK, equal share no lower by more than it), and its DOFs
+    to PARITY of the plain version's."""
+    out, per, worst = _count_shares(dev)
+    print(json.dumps({"iterative_counts_vs_jax": out, "hist_distance_per_config": per,
+                      "fi_kernel_vs_plain": worst, "tol": PARITY}), flush=True)
+    k, p = out["kernel_all_vs_jax"], out["plain_all_vs_jax"]
+    if not (worst <= PARITY and k["hist_distance"] <= p["hist_distance"] + COUNT_SLACK
+            and k["equal"] >= p["equal"] - COUNT_SLACK):
+        raise RuntimeError("ALGO_ITERATIVE counts: kernel %s, plain %s against the JAX "
+                           "engine; fi %.3e" % (k, p, worst))
+
+
 def phase_radius_sweep(dev, wtt):
     """3D order 4, K = 48, CENTER: the rows kernel against the port's engine
     and against its plain version at each radius.  Against the engine it is
@@ -550,32 +680,40 @@ def phase_headline(dev, wtt):
         xk, fk, xi, order=ORDER, weighting=wtt.WEIGHT_CENTER, plan=plan))
     kernel_ms, kernel_t = _time_ms(lambda: fit_kernel.fit_kernel(
         xk, fk, nk, xi, dimension=2, order=ORDER, weighting=wtt.WEIGHT_CENTER))
-    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
     out = torch.empty((B_MAIN, 15), dtype=torch.float64, device=dev)
-    launch_args = (xk, fk, nk, xi, inv_s, out)
-    launch_ms, launch_t = _time_ms(lambda: fit_kernel._launch(
-        *launch_args, order=ORDER, weighting=wtt.WEIGHT_CENTER,
-        refine_steps=fit_kernel.DEFAULT_REFINE_STEPS))
+    launch_args = (xk, fk, nk, xi, out)
+    lkw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER,
+               refine_steps=fit_kernel.DEFAULT_REFINE_STEPS)
+    launch_ms, launch_t = _time_ms(lambda: fit_kernel._launch(*launch_args, **lkw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=ORDER,
+                          weighting=wtt.WEIGHT_CENTER)
+    torch.cuda.synchronize()
+    fit_kernel_extra_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     full_bound = _bound(launch_args, _moment_flops(
         ORDER, True, nk.long(), fit_kernel.DEFAULT_REFINE_STEPS))
-    del out, inv_s, launch_args
+    del out, launch_args
     s = slice(0, B_PLAIN)
     small = (xk[s], fk[s], nk[s], xi[s])
     small_ms, small_t = _time_ms(lambda: fit_kernel.fit_kernel(
         *small, dimension=2, order=ORDER, weighting=wtt.WEIGHT_CENTER))
-    _, _, _, inv_s = fit_kernel._prescale(small[0], small[2], small[3])
     out = torch.empty((B_PLAIN, 15), dtype=torch.float64, device=dev)
-    small_launch_ms, small_launch_t = _time_ms(lambda: fit_kernel._launch(
-        *small, inv_s, out, order=ORDER, weighting=wtt.WEIGHT_CENTER,
-        refine_steps=fit_kernel.DEFAULT_REFINE_STEPS))
-    small_bound = _bound((*small, inv_s, out), _moment_flops(
+    small_launch_ms, small_launch_t = _time_ms(lambda: fit_kernel._launch(*small, out, **lkw))
+    small_bound = _bound((*small, out), _moment_flops(
         ORDER, True, small[2].long(), fit_kernel.DEFAULT_REFINE_STEPS))
     plain_ms, plain_t = _time_ms(lambda: fit_kernel.fit_moments_plain(
         *small, dimension=2, order=ORDER, weighting=wtt.WEIGHT_CENTER))
     A, sw, fkm = _weighted_basis(*small, 2, ORDER, wtt.WEIGHT_CENTER)
     rhs = (sw * fkm)[..., None]
     library_ms, library_t = _time_ms(lambda: torch.linalg.lstsq(A, rhs))
-    del A, rhs, sw, fkm, out, inv_s
+    del A, rhs, sw, fkm, out
+    ptxas = {lib: {name: v for name, v in _ptxas_summary(fit_kernel.load(cond).log).items()
+                   if name.startswith("fit_moment_2d")}
+             for lib, cond in (("fit_moment", False), ("fit_moment_cond", True))}
+    spills = sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                 for per in ptxas.values() for v in per.values())
     print(json.dumps({
         "path": "headline",
         "fits_per_s": {"fit_many_plan_2^23": B_MAIN / route_ms * 1e3,
@@ -588,8 +726,20 @@ def phase_headline(dev, wtt):
                "kernel_launch_only_2^18": small_launch_t,
                "fit_moments_plain_2^18": plain_t,
                "library_lstsq_2^18": library_t},
+        "route_minus_launch_ms_2^23": route_ms - launch_ms,
+        "fit_kernel_minus_launch_ms_2^23": kernel_ms - launch_ms,
+        "fit_kernel_extra_memory_gb_2^23": round(fit_kernel_extra_gb, 4),
+        "fit_moment_2d_ptxas": ptxas, "fit_moment_2d_spill_bytes": spills,
         "bound_2^23": full_bound, "bound_2^18": small_bound,
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}), flush=True)
+    if route_ms - launch_ms > 1.0:
+        raise RuntimeError("headline route takes %.3f ms beyond its launch (> 1 ms)"
+                           % (route_ms - launch_ms))
+    worst = max(max(v.get("spill_stores", 0), v.get("spill_loads", 0))
+                for per in ptxas.values() for v in per.values())
+    if worst > MOMENT_SPILL_BYTES:
+        raise RuntimeError("fit_moment_2d spills %d bytes (> %d): %s"
+                           % (worst, MOMENT_SPILL_BYTES, ptxas))
     return {"launches": launches, "ms": small_launch_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **small_bound}
 
@@ -1227,10 +1377,9 @@ def phase_cond_vs_plain(dev, wtt):
     W, RS = wtt.WEIGHT_CENTER, fit_kernel.DEFAULT_REFINE_STEPS
     kw = dict(order=ORDER, weighting=W, refine_steps=RS)
     times = {
-        "moments_launch": _time_ms(lambda: fit_kernel._launch(
-            xk, fk, nk, xi, inv_s, out, **kw)),
+        "moments_launch": _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out, **kw)),
         "moments_launch_key": _time_ms(lambda: fit_kernel._launch(
-            xk, fk, nk, xi, inv_s, out, est, **kw)),
+            xk, fk, nk, xi, out, est, **kw)),
         "rows_launch": _time_ms(lambda: fit_rows._launch(
             xk, fk, nk, xi, inv_s, None, out, None, None, knowns=0, max_iter=0, **kw)),
         "rows_launch_key": _time_ms(lambda: fit_rows._launch(
@@ -1250,6 +1399,8 @@ def phase_cond_vs_plain(dev, wtt):
     for name, e in (("rows_dim3_launch", None), ("rows_dim3_launch_key", est)):
         times[name] = _time_ms(lambda e=e: fit_rows._launch(
             *d3, inv_s3, None, out3, None, None, e, knowns=0, max_iter=0, **kw))
+    times["library_cond_key_dim3"] = _time_ms(lambda: condprobe.cond_key(
+        d3[0], d3[2], d3[3], dimension=3, order=ORDER, weighting=W))
     bound_r3 = _bound((*d3, inv_s3, out3, est),
                       _rows_flops(3, ORDER, True, d3[2].long(), RS, False, 0, 0)
                       + float(B * _cond_flops(35, "rows")))
@@ -1257,7 +1408,7 @@ def phase_cond_vs_plain(dev, wtt):
     med = {k: v[0] for k, v in times.items()}
     n = nk.long()
     key_flops = float(B * _cond_flops(15, "moments"))
-    bound_m = _bound((xk, fk, nk, xi, inv_s, out, est),
+    bound_m = _bound((xk, fk, nk, xi, out, est),
                      _moment_flops(ORDER, True, n, RS) + key_flops)
     bound_r = _bound((xk, fk, nk, xi, inv_s, out, est),
                      _rows_flops(2, ORDER, True, n, RS, False, 0, 0)
@@ -1504,14 +1655,13 @@ def phase_certified(dev, wtt):
         "probe": _time_ms(lambda: condprobe.probe(xk, nk, xi, ORDER, wtt.WEIGHT_CENTER,
                                                   dimension=2)),
     }
-    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
     out = torch.empty((B_CERT, 15), dtype=torch.float64, device=dev)
     est = torch.empty((B_CERT,), dtype=torch.float64, device=dev)
     lkw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER,
                refine_steps=fit_kernel.DEFAULT_REFINE_STEPS)
-    times["launch"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, inv_s, out, **lkw))
-    times["launch_key"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, inv_s, out,
-                                                              est, **lkw))
+    times["launch"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out, **lkw))
+    times["launch_key"] = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out, est,
+                                                              **lkw))
     med = {name: v[0] for name, v in times.items()}
     print(json.dumps({
         "path": "certified", "split_edge": edge, "rows_edge": edge_r,
@@ -1759,6 +1909,258 @@ def measure_gather_variants():
     return out
 
 
+def _moment_variants_lib(emit_cond):
+    """The moment kernel's source with its design variants compiled in
+    (``csrc/fit_moment_variants.cuh``, -DWLSQM_MOMENT_VARIANTS=1)."""
+    import ctypes
+    import os
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    with open(os.path.join(native.CSRC, "fit_moment_variants.cuh")) as f:
+        variants = f.read()
+    return native.build(
+        "fit_moment_variants%s" % ("_cond" if emit_cond else ""), [fit_kernel._SRC],
+        {fit_kernel._HEADER: fit_kernel.tables_header(), "fit_moment_variants.cuh": variants},
+        {"wlsqm_fit_moment_variant": (i32, [i32] + [vp] * 7 + [ctypes.c_int64, i32, i32, vp]),
+         "wlsqm_moment_phase_cycles": (i32, [vp])},
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond, "WLSQM_MOMENT_VARIANTS=1"))
+
+
+def _phase_cycles(lib, names=()):
+    """Per-phase clock64 sums since the last read (thread 0 of each block),
+    as shares of their total."""
+    import ctypes
+
+    buf = (ctypes.c_ulonglong * 8)()
+    torch.cuda.synchronize()
+    status = lib.wlsqm_moment_phase_cycles(buf)
+    if status != 0:
+        raise RuntimeError("phase cycles: CUDA error %d" % status)
+    total = float(sum(buf)) or 1.0
+    return {name: round(buf[i] / total, 4) for i, name in enumerate(names)}
+
+
+MOMENT_VARIANTS = {0: "thread_registers", 1: "thread_registers_own_scale",
+                   2: "thread_smem_factor", 3: "group4_direct", 4: "group4_one_buffer",
+                   5: "group4_two_buffers", 6: "group2_direct", 7: "group2_one_buffer",
+                   8: "group2_two_buffers", 9: "shipped", 10: "own_scale_ladders",
+                   11: "own_scale_ladders_reciprocal"}
+MOMENT_PHASES = ("scale_max_d2", "assembly", "butterfly_stores", "cholesky", "solve_sweep",
+                 "store", "key")
+
+
+def measure_moment_variants():
+    """The designs the moment kernel was chosen from, run by hand, not by
+    main(): at the headline configuration (2D order 4, K = 30, CENTER) on
+    2^18 and 2^23 cases, without and with the key, launch alone, in turns
+    (forward then backward, median of 5 each), each checked against the
+    plain version (2^18) or the shipped kernel (2^23).  Variant 0 is the
+    register body that preceded the shipped one (inv_s from _prescale, de-scaled after it: its route adds those
+    passes, timed beside it); 1 the same body scaling itself; 2 one thread
+    per case with the factor in shared memory ([entry][case]); 3-5 four
+    lanes per case with no staging, one buffer, two buffers; 6-8 two lanes
+    per case; 9 the shipped body; 10 and 11 body 1 with the shipped body's
+    moment sums, then also its reciprocal pivots (measure_moment_units).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_moment_variants()"
+    """
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    dev = torch.device("cuda")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(_moment_variants_lib, (False, True)))
+    for lib in libs:
+        print(json.dumps({"library": os.path.basename(lib.path), "nvcc_s": lib.build_seconds,
+                          "ptxas": _ptxas_summary(lib.log)}), flush=True)
+    W, RS = 2, fit_kernel.DEFAULT_REFINE_STEPS
+    table = {}
+    for B in (B_PLAIN, B_MAIN):
+        xk, fk, nk, xi = _cloud(B, torch.Generator(device=dev).manual_seed(42), dev)
+        _, _, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
+        dscale = fit_kernel._dof_scale(e_s, 2, ORDER)
+        amp = fit_kernel.cond_amp_factor(inv_s, ORDER)
+        ref = (fit_kernel.fit_moments_plain(xk, fk, nk, xi, dimension=2, order=ORDER,
+                                            weighting=W, emit_cond=True)
+               if B <= B_PLAIN else
+               fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=ORDER, weighting=W,
+                                     emit_cond=True))
+        out = torch.empty((B, 15), dtype=torch.float64, device=dev)
+        est = torch.empty((B,), dtype=torch.float64, device=dev)
+        row, phases = {}, {}
+        for cond, lib in zip((False, True), libs):
+            for v in list(MOMENT_VARIANTS) + list(MOMENT_VARIANTS)[::-1]:
+                def go(v=v, lib=lib.lib, cond=cond):
+                    status = lib.wlsqm_fit_moment_variant(
+                        v, xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(),
+                        inv_s.data_ptr(), out.data_ptr(), est.data_ptr() if cond else None,
+                        B, K, RS, torch.cuda.current_stream().cuda_stream)
+                    if status != 0:
+                        raise RuntimeError("moment variant %d failed: CUDA error %d" % (v, status))
+                name = MOMENT_VARIANTS[v] + ("_key" if cond else "")
+                _phase_cycles(lib.lib)
+                row.setdefault(name, []).append(_time_ms(go)[0])
+                if 3 <= v <= 8:
+                    phases.setdefault(name, _phase_cycles(lib.lib, MOMENT_PHASES))
+                go()
+                torch.cuda.synchronize()
+                fi = out * dscale if v == 0 else out
+                err = _rel(fi, ref[0])
+                kerr = 0.0
+                if cond:
+                    key = est * amp if v == 0 else est
+                    fin = torch.isfinite(ref[1])
+                    kerr = ((key[fin] - ref[1][fin]).abs() / ref[1][fin]).max().item()
+                if not (err <= PARITY and kerr <= KEY_TOL):
+                    raise RuntimeError("moment variant %s: fi %.3e, key %.3e" % (name, err, kerr))
+        row["register_body_route_passes"] = [_time_ms(lambda: (fit_kernel._prescale(xk, nk, xi),
+                                                     out * fit_kernel._dof_scale(
+                                                         e_s, 2, ORDER)))[0]]
+        row["shipped_fit_kernel"] = [_time_ms(lambda: fit_kernel.fit_kernel(
+            xk, fk, nk, xi, dimension=2, order=ORDER, weighting=W))[0]]
+        table["B=%d" % B] = row
+        table["phase_shares_B=%d" % B] = phases
+        del xk, fk, nk, xi, e_s, inv_s, dscale, amp, ref, out, est
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"moment_variants_launch_ms_median_of_5_twice": table,
+                      "card": smi.splitlines()[0], "K": K}), flush=True)
+    return table
+
+
+#: one arithmetic change at a time, from the register body scaling itself
+#: to the shipped body (csrc/fit_moment_variants.cuh)
+MOMENT_UNIT_VARIANTS = (1, 10, 11, 9)
+UNIT_SEEDS = (20260817, 1, 2)   # the shipped sweep's seed, and two more
+
+
+def measure_moment_units():
+    """Which change of the moment body's arithmetic moved its calibration
+    units, run by hand, not by main(): the calibration sweep
+    (``calibration.calibrate_device``, not persisted, on UNIT_SEEDS) with
+    the moment kernel replaced by variants 1 -> 10 -> 11 -> 9 in turn (the
+    moment sums as power ladders, then reciprocal pivots in the solves,
+    then the back solve's summation order), and each variant's fi against
+    the one before on 8,192 cases of the sweep's family (share of cases
+    whose bits differ, largest relative difference).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_moment_units()"
+    """
+    from wlsqm_tpu_torch.fitter import calibration, condprobe, defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    lib = _moment_variants_lib(True)
+    print(json.dumps({"library": os.path.basename(lib.path), "nvcc_s": lib.build_seconds}),
+          flush=True)
+    real = fit_kernel.fit_kernel
+
+    def variant_fit(v):
+        def fit(xk, fk, nk, xi, *, dimension, order, weighting, emit_cond=False,
+                refine_steps=fit_kernel.DEFAULT_REFINE_STEPS):
+            if (dimension, order, emit_cond) != (2, ORDER, True):
+                raise ValueError("the variants cover 2D order 4 with the key")
+            B, Kn, _ = xk.shape
+            xk, fk, xi = xk.contiguous(), fk.contiguous(), xi.contiguous()
+            nk = nk.to(torch.int32).contiguous()
+            out = torch.empty((B, 15), dtype=torch.float64, device=xk.device)
+            est = torch.empty((B,), dtype=torch.float64, device=xk.device)
+            status = lib.lib.wlsqm_fit_moment_variant(
+                v + (100 if weighting == defs.WEIGHT_UNIFORM else 0), xk.data_ptr(),
+                fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None, out.data_ptr(),
+                est.data_ptr(), B, Kn, refine_steps, torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError("moment variant %d failed: CUDA error %d" % (v, status))
+            return out, est
+        return fit
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    xk, fk, xi = (torch.as_tensor(a, device=dev) for a in calibration._problem(
+        rng, 8192, K, 0.1, 2))
+    nk = torch.full((8192,), K, dtype=torch.int32, device=dev)
+    table, prev = {}, None
+    try:
+        for v in MOMENT_UNIT_VARIANTS:
+            fit_kernel.fit_kernel = variant_fit(v)
+            row = {}
+            for seed in UNIT_SEEDS:
+                cal = calibration.calibrate_device(persist=False, seed=seed)
+                row[str(seed)] = {
+                    "f64_unit_m": cal.f64_unit_m, "f64_cert_unit_m": cal.f64_cert_unit_m,
+                    "est_f64_cert_unit_m": cal.est_f64_cert_unit_m,
+                    "edge_cond_amp": condprobe.AUTO_TOL / (condprobe.SAFETY
+                                                           * cal.f64_cert_unit_m)}
+            fi, _ = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=ORDER,
+                                          weighting=defs.WEIGHT_CENTER, emit_cond=True)
+            if prev is not None:
+                row["vs_previous"] = {
+                    "cases_bits_differ": (fi.view(torch.int64) != prev.view(torch.int64))
+                    .any(1).double().mean().item(),
+                    "max_rel": _rel(fi, prev)}
+            prev = fi
+            table[MOMENT_VARIANTS[v]] = row
+            print(json.dumps({MOMENT_VARIANTS[v]: row}), flush=True)
+    finally:
+        fit_kernel.fit_kernel = real
+        calibration._reset_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"moment_units_by_variant": table, "card": smi.splitlines()[0]}),
+          flush=True)
+    return table
+
+
+def _auto_route_times():
+    """fit_many(backend="auto") and fit_many(plan=) on phase_certified's
+    cloud (B_CERT cases; the plan from its first B_PLAN), median and the
+    REPS times after one warm-up, through whichever wlsqm_tpu_torch is first
+    on sys.path."""
+    import wlsqm_tpu_torch as wtt
+
+    dev = torch.device("cuda")
+    xk, fk, xi, _ = _certified_cloud(B_CERT, dev)
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw)
+    return {"package": os.path.dirname(os.path.abspath(wtt.__file__)),
+            "route": plan.route.path, "split_edge": plan.route.split_edge,
+            "fit_many_auto_ms": _time_ms(lambda: wtt.fit_many(xk, fk, xi, backend="auto", **kw)),
+            "fit_many_plan_ms": _time_ms(lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw))}
+
+
+def measure_auto_route(other_root):
+    """The certified auto route of this checkout against another one (the
+    parent commit, unpacked by ``git archive`` into a git-ignored
+    directory), run by hand, not by main(): other, this, this, other, each
+    in a process of its own that imports that checkout's wlsqm_tpu_torch
+    (built there, with its own shipped calibration record) and times it
+    with this file's _auto_route_times.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_auto_route('build/parent')"
+    """
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import importlib.util, json, sys; sys.path.insert(0, %r); "
+            "spec = importlib.util.spec_from_file_location('smoke', %r); "
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+            "print(json.dumps(m._auto_route_times()))")
+    runs = []
+    for root in (other_root, here, here, other_root):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", code % (root, os.path.abspath(__file__))],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError("auto route in %s failed:\n%s" % (root, proc.stderr[-4000:]))
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"auto_route_other_this_this_other": runs, "card": smi.splitlines()[0]}),
+          flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
@@ -1777,8 +2179,10 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    phase_moment_scale(dev)
     m_abs, m_rel = phase_moment_vs_plain(dev, wtt)
     r_abs, r_rel = phase_rows_vs_plain(dev, wtt)
+    phase_iterative_counts(dev)
     cond = phase_cond_vs_plain(dev, wtt)
     phase_calibrate()
     phase_radius_sweep(dev, wtt)

@@ -175,6 +175,20 @@ def test_rejections():
         wtt.fit_many(xk, fk, xi, order=4, plan=plan, do_sens=True, device=CPU)
 
 
+def test_mixed_steps_none_is_the_reference_call_and_others_are_refused():
+    """A call written for the reference, ``mixed_steps=None`` in its
+    position after ``refine_steps``, runs through both packages and agrees;
+    any other value names the JAX package's emulated precisions."""
+    xk, fk, xi = _headline(B=256)
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER, refine_steps=None, mixed_steps=None)
+    got = wtt.fit_many(xk, fk, xi, device=CPU, **kw)
+    ref = wt.fit_many(xk, fk, xi, backend="xla", precision="f64", **kw)
+    assert rel_err(got.fi.numpy(), np.asarray(ref.fi)) <= PARITY
+    for bad in (0, 2):
+        with pytest.raises(ValueError, match="emulated precisions.*mixed"):
+            wtt.fit_many(xk, fk, xi, order=4, mixed_steps=bad, device=CPU)
+
+
 def test_per_case_tensor_parameters():
     """Per-case parameters given as tensors: a homogeneous batch may be
     forced onto the kernel, and auto routing groups on the device."""

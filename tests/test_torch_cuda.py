@@ -98,12 +98,78 @@ def test_cuda_call_never_runs_the_plain_version(dev, monkeypatch):
 def test_kernel_rejects_what_it_does_not_cover(dev):
     xk, fk, nk, xi = _cloud(dev, 256, 30, 4, seed=1)
     with pytest.raises(ValueError):
-        fit_kernel._launch(xk, fk, nk, xi, xi[:, 0], torch.empty(
+        fit_kernel._launch(xk, fk, nk, xi, torch.empty(
             (256, 15), dtype=torch.float64, device=dev), order=4, weighting=3,
             refine_steps=1)
     with pytest.raises(ValueError):
         fit_kernel.fit_kernel(xk.float(), fk, nk, xi, dimension=2, order=4,
                               weighting=wtt.WEIGHT_CENTER)
+
+
+def _adversarial_scale_cloud(dev, B, K):
+    """Clouds whose h² is an exact power of four, one ulp either side of it
+    (where ceil(0.5 log2) and an exact frexp rule part), nk = 0, and NaN in
+    the padded slots."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    xk = torch.rand((B, K, 2), generator=g, device=dev, dtype=torch.float64) * 2 - 1
+    xi = torch.rand((B, 2), generator=g, device=dev, dtype=torch.float64) * 0.1
+    nk = torch.randint(1, K + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    xk = xk + xi[:, None, :]
+    m = min(B, 3 * 64)
+    xi[:m] = 0.0                          # offsets exact: xk - xi == xk
+    h = torch.ldexp(torch.ones(m, dtype=torch.float64, device=dev),
+                    torch.arange(m, device=dev) % 64 - 32)
+    step = torch.tensor([-1, 0, 1], device=dev).repeat_interleave(64)[:m]
+    # xk[:, 0] - xi at h along x: h² = 4^e exactly; then one ulp below and above
+    xk[:m, 0, 0] = torch.nextafter(h, h + step.to(torch.float64))
+    xk[:m, 0, 1] = 0.0
+    xk[:m, 1:] = (xk[:m, 1:] - xi[m:2 * m, None, :]) * 1e-3 * h[:, None, None]
+    nk[m:m + 64] = 0
+    pad = torch.arange(K, device=dev)[None, :] >= nk[:, None]
+    xk[pad] = torch.nan
+    return xk, nk, xi
+
+
+def test_kernel_scale_is_prescale_bit_for_bit(dev):
+    """The kernel's own e_s and inv_s (wlsqm_moment_scale runs the fit's
+    device functions alone) equal _prescale's bit for bit on 2^23 cases and
+    on the adversarial ones (powers of four and an ulp either side, nk = 0,
+    NaN padding)."""
+    for B, K, adversarial in ((1 << 23, 30, False), (8192, 30, True), (4096, 53, True)):
+        if adversarial:
+            xk, nk, xi = _adversarial_scale_cloud(dev, B, K)
+        else:
+            xk, _, nk, xi = _cloud(dev, B, K, 4, seed=12)
+        e, inv_s = fit_kernel.moment_scale(xk, nk, xi)
+        _, _, e_ref, inv_ref = fit_kernel._prescale(xk, nk, xi)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(e), _bits(e_ref)), (B, K)
+        assert torch.equal(_bits(inv_s), _bits(inv_ref)), (B, K)
+        del xk, nk, xi, e, inv_s, e_ref, inv_ref
+
+
+@pytest.mark.parametrize("K", [30, 53, 151, 160])
+@pytest.mark.parametrize("weighting", [wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER])
+def test_kernel_scales_and_descales_itself(dev, K, weighting):
+    """fit_kernel on the card at orders 0-4, ragged nk with NaN padding, K =
+    30 and 53 (the slab staging takes any K), 151 (the slabs fill a block's
+    227 KB of shared memory) and 160 (past it: the walks read global
+    memory): within PARITY of the plain version, fi the same bits with and
+    without the key, a replay the same bits, and the input slices of an odd
+    offset (8-byte aligned slabs) too."""
+    for order in range(5):
+        xk, fk, nk, xi = _cloud(dev, 4099, K, order, seed=20 + order + K)
+        kw = dict(dimension=2, order=order, weighting=weighting)
+        fi0 = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+        fi1, _ = fit_kernel.fit_kernel(xk, fk, nk, xi, emit_cond=True, **kw)
+        fi2 = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+        odd = fit_kernel.fit_kernel(xk[1:], fk[1:], nk[1:], xi[1:], **kw)
+        torch.cuda.synchronize()
+        ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, **kw)
+        assert torch.isfinite(fi0).all()
+        assert _rel(fi0, ref) <= PARITY, (order, weighting, K)
+        assert torch.equal(_bits(fi0), _bits(fi1)) and torch.equal(_bits(fi0), _bits(fi2))
+        assert torch.equal(_bits(odd), _bits(fi0[1:]))
 
 
 def test_planned_route_launches_the_kernel(dev):
@@ -311,6 +377,39 @@ def test_warp_body_matches_plain(dev, K):
     assert within / total >= 0.8
 
 
+COUNT_SLACK = 0.01   # kernel vs plain, each against the JAX engine's counts
+
+
+def test_iterative_counts_against_the_jax_engine(dev, capsys):
+    """ROADMAP C2: on the seeded clouds of tests/iterative_counts.py (the
+    rows grid's and the warp configurations' sizes) the kernel's
+    ALGO_ITERATIVE counts are no farther from the JAX f64 engine's stored
+    counts than the plain version's: pooled histogram distance and equal
+    share within COUNT_SLACK of the plain version's; DOFs within PARITY."""
+    import iterative_counts
+
+    stored = iterative_counts.load()
+    got = {"kernel": [], "plain": []}
+    ref = []
+    for key, dim, order, w, B, K, seed in iterative_counts.configs():
+        xk, fk, nk, xi, fi0, kn = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+                                   else a for a in iterative_counts.cloud(dim, order, B, K, seed))
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
+                  max_iter=iterative_counts.MAX_ITER)
+        fi_k, it_k, _ = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+        fi_p, it_p, _ = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+        assert _rel(fi_k, fi_p) <= PARITY, key
+        got["kernel"].append(it_k.cpu().numpy())
+        got["plain"].append(it_p.cpu().numpy())
+        ref.append(stored[key])
+    k = iterative_counts.shares(got["kernel"], ref)
+    p = iterative_counts.shares(got["plain"], ref)
+    with capsys.disabled():
+        print("\ncounts vs JAX (equal, within one, histogram distance): kernel %s, plain %s"
+              % (k, p))
+    assert k[2] <= p[2] + COUNT_SLACK and k[0] >= p[0] - COUNT_SLACK
+
+
 @pytest.mark.parametrize("K", [53, 130])
 def test_warp_body_key_and_bits(dev, K):
     """The warp body with emit_cond: the key against the plain key; fi, sens
@@ -398,6 +497,23 @@ def test_rows_kernel_key_matches_plain(dev, dim):
         assert torch.equal(_bits(keys[0]), _bits(keys[2]))
         _key_agrees(keys[0], fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, emit_cond=True,
                                                      **kw)[3])
+
+
+@pytest.mark.parametrize("dim, K", [(2, 30), (3, 56)])
+def test_rows_blocked_key_matches_plain_at_order4(dev, dim, K):
+    """The warp body's key by 8 x 8 blocks of L^-1 on the tensor cores (2D
+    and 3D order 4, both weightings, ragged nk with NaN padding): within
+    KEY_TOL of the plain key, a replay the same bits, fi the same bits as
+    without the key."""
+    for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+        xk, fk, nk, xi = _cloud(dev, 4096, K, 4, seed=90 + 10 * dim + w, dim=dim)
+        kw = dict(dimension=dim, order=4, weighting=w)
+        fi0 = fit_rows.fit_rows(xk, fk, nk, xi, **kw)[0]
+        fi1, _, _, key = fit_rows.fit_rows(xk, fk, nk, xi, emit_cond=True, **kw)
+        key2 = fit_rows.fit_rows(xk, fk, nk, xi, emit_cond=True, **kw)[3]
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(fi0), _bits(fi1)) and torch.equal(_bits(key), _bits(key2))
+        _key_agrees(key, fit_rows.fit_rows_plain(xk, fk, nk, xi, emit_cond=True, **kw)[3])
 
 
 def test_key_bounds_cond2_and_degenerate_cases_never_certify(dev):

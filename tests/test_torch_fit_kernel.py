@@ -16,7 +16,7 @@ import torch
 from torch_port_cases import cloud, rel_err
 from wlsqm_tpu.fitter import engine as jengine
 from wlsqm_tpu.ops.pallas_fit import fit_pallas
-from wlsqm_tpu_torch.fitter import defs
+from wlsqm_tpu_torch.fitter import calibration, condprobe, defs
 from wlsqm_tpu_torch.ops import fit_kernel
 
 torch.set_num_threads(1)
@@ -201,3 +201,105 @@ def test_plain_key_matches_interpreted_tpu_kernel_key():
                                           weighting=defs.WEIGHT_CENTER, emit_cond=True)
     rel = np.abs(key.numpy() - np.asarray(ref)) / key.numpy()
     assert rel.max() <= 5e-2 and np.median(rel) <= 2e-3
+
+
+def _c3_sweep(radii=(0.03, 0.1, 0.3, 1.0), B=512):
+    """3D order 4 through the plain moment chains against the JAX f64
+    engine, K = 48, CENTER, one radius per batch: per-case error (relative
+    to max(|ref|, 1)) and the engine's cond·amp (its scaled condition number
+    times the radius amplification max(inv_s, 1)^4).  Returns (errors,
+    cond·amp) over all radii.  By hand:
+
+        python -c "import sys; sys.path.insert(0, 'tests'); import test_torch_fit_kernel as t; print(t._c3_summary())"
+    """
+    NO = defs.number_of_dofs(3, 4)
+    errs, cas = [], []
+    for r in radii:
+        case = cloud(np.random.default_rng(int(r * 1000)), B, 48, 3, radius=(r, r))
+        t = _t(case)
+        got = fit_kernel.fit_moments_plain(*t, dimension=3, order=4,
+                                           weighting=defs.WEIGHT_CENTER).numpy()
+        ref, _, _, cond = jengine.fit_batch(
+            *(jnp.asarray(case[k]) for k in ("xk", "fk", "nk", "xi")),
+            jnp.zeros((B, NO)), jnp.full((B,), 4, jnp.int32), jnp.zeros((B,), jnp.int64),
+            jnp.full((B,), defs.WEIGHT_CENTER, jnp.int32), dimension=3, NO=NO, debug=True)
+        ref = np.asarray(ref)
+        assert np.isfinite(got).all()
+        inv_s = fit_kernel._prescale(t[0], t[2], t[3])[3].numpy()
+        errs.append(np.abs(got - ref).max(1) / np.maximum(np.abs(ref).max(1), 1.0))
+        cas.append(np.asarray(cond) * np.maximum(inv_s, 1.0) ** 4)
+    return np.concatenate(errs), np.concatenate(cas)
+
+
+def _moment_edge():
+    """The moment body's cond·amp edge of the shipped H100 record."""
+    return condprobe.AUTO_TOL / (condprobe.SAFETY * calibration._H100["f64_cert_unit_m"])
+
+
+def _c3_summary(radii=(0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0), B=1024):
+    err, ca = _c3_sweep(radii, B)
+    under = ca < _moment_edge()
+    over = err > PARITY
+    return {"cases": len(err), "under_edge": int(under.sum()),
+            "worst_under_edge": float(err[under].max()), "worst": float(err.max()),
+            "max_cond_amp": float(ca.max()),
+            "first_break_cond_amp": float(ca[over].min()) if over.any() else None}
+
+
+def test_3d_order4_moment_chains_hold_parity_in_f64():
+    """3D order 4 (NO = 35, moments to degree 8) through the plain moment
+    chains against the JAX f64 engine over a radius sweep like
+    chip_smoke.phase_radius_sweep: held to PARITY on every case whose
+    engine cond·amp is under the moment body's cond·amp edge of the shipped
+    H100 record.  In the JAX package's f32 pairs these chains broke its
+    certification envelope (docs/kernel.md:261-273); in f64 the sweep found
+    no break, under the edge or far past it (ROADMAP B7)."""
+    err, ca = _c3_sweep()
+    under = ca < _moment_edge()
+    assert under.sum() >= 200
+    assert err[under].max() <= PARITY
+
+
+def _adversarial_h2(B=3 * 64, K=30, seed=4):
+    """Neighbourhoods whose h² is an exact power of four, one ulp of the
+    coordinate either side of it (where ceil(0.5 log2) and an exact frexp
+    rule part), plus nk = 0 and NaN padding."""
+    rng = np.random.default_rng(seed)
+    h = np.ldexp(1.0, np.arange(B) % 64 - 32)
+    step = np.repeat([-1.0, 0.0, 1.0], 64)[:B]
+    xk = rng.uniform(-1e-3, 1e-3, (B, K, 2)) * h[:, None, None]
+    xk[:, 0, 0] = np.nextafter(h, h + step)
+    xk[:, 0, 1] = 0.0
+    nk = rng.integers(1, K + 1, B).astype(np.int32)
+    nk[:16] = 0
+    xk[np.arange(K)[None, :] >= nk[:, None]] = np.nan
+    return torch.as_tensor(xk), torch.as_tensor(nk), torch.zeros((B, 2), dtype=torch.float64)
+
+
+def test_case_exponent_is_prescale_bit_for_bit():
+    """The plain twin of the kernel's own scale gives _prescale's e_s bit for
+    bit on the adversarial cases and on a ragged cloud."""
+    xk, nk, xi = _adversarial_h2()
+    case = cloud(np.random.default_rng(5), 512, 30, 2, radius=(1e-3, 1e3))
+    for x, n, o in ((xk, nk, xi), (_t(case)[0], _t(case)[2], _t(case)[3])):
+        e_ref = fit_kernel._prescale(x, n, o)[2]
+        e = fit_kernel._case_exponent(x, n, o)
+        assert torch.equal(e.view(torch.int64), e_ref.view(torch.int64))
+    # some cases one ulp above a power of four keep the exponent, s² < h²
+    # (an exact frexp rule would round them up): the kernel follows _prescale
+    delta, _, e_adv, _ = fit_kernel._prescale(xk, nk, xi)
+    h2 = (delta * delta).sum(-1).amax(-1)
+    assert bool((torch.ldexp(torch.ones_like(e_adv), (2 * e_adv).long()) < h2).any())
+
+
+def test_store_descale_is_the_wrapper_descale_bit_for_bit():
+    """(y s) * ldexp(fact, -e deg), the kernel's de-scale in its stores,
+    equals out * _dof_scale(e) bit for bit: every factor is exact."""
+    rng = np.random.default_rng(6)
+    for order in range(defs.MAX_ORDER + 1):
+        NO = defs.number_of_dofs(2, order)
+        e = torch.as_tensor(rng.integers(-60, 60, 1024).astype(np.float64))
+        ys = torch.as_tensor(rng.standard_normal((1024, NO)) * 10.0 ** rng.integers(-8, 8, (1024, 1)))
+        a = ys * fit_kernel._store_scale(e, 2, order)
+        b = ys * fit_kernel._dof_scale(e, 2, order)
+        assert torch.equal(a.view(torch.int64), b.view(torch.int64))

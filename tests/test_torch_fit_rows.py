@@ -423,3 +423,18 @@ def test_plain_matches_jax_engine_3d_order4_ragged_k53(weighting):
                                        knowns=kn, max_iter=3)
     jfi, _, _, _ = _jax_engine(case, 3, 4, kn, weighting, iterative=True, max_iter=3)
     assert rel_err(fi.numpy(), jfi) <= PARITY
+
+
+@pytest.mark.parametrize("key", ["grid_d1_o2_w2", "grid_d2_o4_w1", "warp_K53_d3_o4_w2"])
+def test_stored_jax_iteration_counts_are_current(key):
+    """tests/iterative_counts_jax.npz, the JAX f64 engine's ALGO_ITERATIVE
+    counts that the card holds the rows kernel's counts against, is what the
+    generator gives today on a slice of its configurations (a 1D, a 2D and
+    a 3D warp-body one), case for case."""
+    import iterative_counts
+
+    stored = iterative_counts.load()
+    assert set(stored) == {c[0] for c in iterative_counts.configs()}
+    got = iterative_counts.generate({key})[key]
+    assert got.dtype == np.int8 and got.min() >= 1 and got.max() <= iterative_counts.MAX_ITER
+    np.testing.assert_array_equal(got, stored[key])

@@ -345,6 +345,16 @@ def _kernel_shape_ok(K: int, dim: int, order: int) -> bool:
     return K >= (3 * defs.number_of_dofs(dim, order)) // 2
 
 
+def _check_mixed_steps(mixed_steps) -> None:
+    """``mixed_steps`` tunes the sweeps of the JAX package's emulated
+    precisions ("mixed", "fast", "ds"); this package solves in f64, so only
+    None is accepted."""
+    if mixed_steps is not None:
+        raise ValueError("mixed_steps belongs to the JAX package's emulated "
+                         "precisions (\"mixed\", \"fast\", \"ds\"); this package "
+                         "solves in f64: pass None")
+
+
 def fit_many(
     xk,
     fk,
@@ -366,6 +376,7 @@ def fit_many(
     solver: str = solve_ops.SOLVER_CHOLESKY,
     backend: str = "auto",
     refine_steps: int | None = None,
+    mixed_steps: int | None = None,
     plan: FitPlan | None = None,
     device=None,
 ) -> FitResult:
@@ -388,6 +399,8 @@ def fit_many(
         are accepted for the last two.
     refine_steps: residual sweeps of the kernel (default 1); given, the
         auto route does not split.
+    mixed_steps: the sweep dial of the JAX package's emulated precisions;
+        must be None (every route here solves in f64).
     plan: a :class:`FitPlan` from :func:`plan_fit_many`; replays its route,
         kernel body included, with no inspection of the data.
     device: where to compute; defaults to ``xk``'s device when it is a
@@ -402,6 +415,7 @@ def fit_many(
                          % (sorted(_BACKENDS), backend))
     backend = _BACKENDS[backend]
     _check_precision(precision)
+    _check_mixed_steps(mixed_steps)
 
     device = config.resolve_device(device, xk)
     xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
@@ -734,9 +748,7 @@ def solve(
     geometry-only array, expanded).  ``mixed_steps`` is the sweep dial of
     the JAX package's emulated precisions and must be None.
     """
-    if mixed_steps is not None:
-        raise ValueError("mixed_steps belongs to the JAX package's emulated "
-                         "precisions; this package solves in f64: pass None")
+    _check_mixed_steps(mixed_steps)
     device = prep.c.device
     fk = config.as_tensor(fk, device)
     B, K, NO = prep.c.shape

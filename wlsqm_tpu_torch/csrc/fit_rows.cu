@@ -26,7 +26,8 @@
 // est = ||A_jac||_inf * ||A_jac^-1||_F >= cond_2(A_jac) of the scaled matrix
 // with its identity rows for the known DOFs.  The row sums are taken before
 // the Cholesky overwrites the matrix; the inverse's norm comes from the
-// factor, one unit column e_i at a time.  The wrapper folds in the radius
+// factor (the thread body: one unit column e_i at a time; the warp body:
+// L^-1 by 8 x 8 blocks on the tensor cores).  The wrapper folds in the radius
 // amplification max(inv_s, 1)^order.  A collapsed neighbourhood meets the
 // pivot guard, so its key is huge or non-finite and compares False against
 // any edge.  The key is a second library of the same source.  Both are
@@ -68,9 +69,10 @@
 //     ALGO_ITERATIVE's residuals with lanes over neighbours, from the
 //     chunk's rows in shared memory (rebuilt for chunks that are not
 //     resident); the residual max is a shuffle max;
-//   * the key and the sensitivities with lanes over right-hand-side
-//     columns (the unit columns e_i, each from its own row as in the thread
-//     body; 32 neighbours' (W C)^T s at a time as one multi-RHS solve),
+//   * the key as ||Z^T Z||_F with Z = L^-1 in 8 x 8 blocks: the diagonal
+//     blocks by lane, the rest and Z^T Z as mma products;
+//   * the sensitivities with lanes over right-hand-side columns (32
+//     neighbours' (W C)^T s at a time as one multi-RHS solve),
 //     the sweeps' C (s Y) and C^T (W T) on the tensor cores, and each
 //     case's (K, NO) sens block written by consecutive lanes to
 //     consecutive addresses.
@@ -561,11 +563,6 @@ __device__ __forceinline__ void chol_solve_warp(const double* L, const double* r
 // local memory, so the solve stays in shared memory (on an H100 the
 // registers made the sens launch faster at 2D order 4 and 3D order 3 and
 // slower at 3D order 4; PERF.md).
-//
-// ||(L L^T)^-1||_F^2 = sum_i ||(L L^T)^-1 e_i||^2 follows after it, lanes
-// over the unit columns as in the thread body's inv_frob2: column i solved
-// from row i down and back up to row i in column lane of Y, its entries
-// below the diagonal counted twice; returns this lane's part.
 constexpr int kColsInRegisters = 20;
 
 template <int NO>
@@ -611,28 +608,115 @@ __device__ __forceinline__ void chol_solve_cols(const double* L, const double* r
   __syncwarp();
 }
 
+// ||(L L^T)^-1||_F^2 = ||Z^T Z||_F^2 with Z = L^-1, by 8 x 8 blocks (TK =
+// ceil(NO / 8) block rows, padding exact zeros), in Y (block (I, J) at
+// (I (I + 1) / 2 + J) * 64, row-major, then TK - 1 product buffers):
+// the diagonal blocks inverted lane-parallel (lane per block column, at most
+// 8 dependent rows), then Z[I, J] = -Z[I, I] sum_{J <= K < I} L[I, K] Z[K, J]
+// block row by block row, and W[J1, J2] = sum_{I >= J1} Z[I, J1]^T Z[I, J2],
+// each product on the FP64 tensor cores (mma m8n8k4, two k-steps per
+// block), the squares of W summed from the fragments (off-diagonal blocks
+// twice).  No lane runs a chain over all NO rows.  Returns this lane's part.
 template <int NO>
-__device__ __forceinline__ double inv_frob2_cols(const double* L, const double* rd, double* Y,
-                                                 int lane) {
-  double f2 = 0.0;
-  double* x = Y + lane;
+__device__ __forceinline__ double inv_frob2_blocked(const double* L, const double* rd,
+                                                    double* Y, int lane) {
+  constexpr int TK = (NO + 7) / 8;
+  static_assert((TK * (TK + 1) / 2 + TK - 1) * 64 <= WarpLayout<NO>::XB,
+                "the key's blocks and products fit in Y");
+  const int g = lane >> 2, t4 = lane & 3;
+  auto blk = [](int I, int J) { return (I * (I + 1) / 2 + J) * 64; };
+  double* const P = Y + TK * (TK + 1) / 2 * 64;
 #pragma unroll 1
-  for (int i = lane; i < NO; i += 32) {
-#pragma unroll 1
-    for (int r = i; r < NO; ++r) {
-      double t = r == i ? 1.0 : 0.0;
-#pragma unroll 4
-      for (int q = i; q < r; ++q) t = fma(-L[lt(r, q)], x[q * kLDX], t);
-      x[r * kLDX] = t * rd[r];
+  for (int p = lane; p < 8 * TK; p += 32) {
+    const int I = p >> 3, c = p & 7, gc = 8 * I + c;
+    double* const Zd = Y + blk(I, I);
+    double x[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int gr = 8 * I + r;
+      double v = 0.0;
+      if (r >= c && gr < NO && gc < NO) {
+        if (r == c) {
+          v = rd[gr];
+        } else {
+          double t = 0.0;
+#pragma unroll
+          for (int q = 0; q < r; ++q)
+            if (q >= c) t = fma(-L[lt(gr, 8 * I + q)], x[q], t);
+          v = t * rd[gr];
+        }
+      }
+      x[r] = v;
+      Zd[r * 8 + c] = v;
     }
+  }
+  __syncwarp();
+  // block row I: P_J = sum_{J <= K < I} L[I, K] Z[K, J] for every J < I at
+  // once (the fragment of L[I, K] read once, the J chains independent),
+  // then Z[I, J] = -Z[I, I] P_J
 #pragma unroll 1
-    for (int r = NO - 1; r >= i; --r) {
-      double t = x[r * kLDX];
-#pragma unroll 4
-      for (int q = r + 1; q < NO; ++q) t = fma(-L[lt(q, r)], x[q * kLDX], t);
-      t *= rd[r];
-      x[r * kLDX] = t;
-      f2 = fma(r == i ? t : 2.0 * t, t, f2);
+  for (int I = 1; I < TK; ++I) {
+    const int row = 8 * I + g;
+    double d[TK > 1 ? TK - 1 : 1][2];
+#pragma unroll
+    for (int J = 0; J < TK - 1; ++J) d[J][0] = d[J][1] = 0.0;
+#pragma unroll
+    for (int Kb = 0; Kb < TK - 1; ++Kb) {
+      if (Kb < I) {
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          const int k = 4 * st + t4;
+          const double a = row < NO ? L[lt(row, 8 * Kb + k)] : 0.0;
+#pragma unroll
+          for (int J = 0; J <= Kb; ++J) mma_8x8x4(d[J], a, Y[blk(Kb, J) + k * 8 + g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int J = 0; J < TK - 1; ++J)
+      if (J < I)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) P[J * 64 + g * 8 + 2 * t4 + e] = d[J][e];
+    __syncwarp();
+    const double* Zii = Y + blk(I, I);
+#pragma unroll
+    for (int J = 0; J < TK - 1; ++J) {
+      if (J < I) {
+        double z[2] = {0.0, 0.0};
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          const int k = 4 * st + t4;
+          mma_8x8x4(z, -Zii[g * 8 + k], P[J * 64 + k * 8 + g]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) Y[blk(I, J) + g * 8 + 2 * t4 + e] = z[e];
+      }
+    }
+    __syncwarp();
+  }
+  // W[J1, J2] = sum_{I >= J1} Z[I, J1]^T Z[I, J2], for every J2 <= J1 at
+  // once (independent chains), the squares summed from the fragments
+  double f2 = 0.0;
+#pragma unroll
+  for (int J1 = 0; J1 < TK; ++J1) {
+    double w[TK][2];
+#pragma unroll
+    for (int J2 = 0; J2 < TK; ++J2) w[J2][0] = w[J2][1] = 0.0;
+#pragma unroll
+    for (int I = J1; I < TK; ++I) {
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const int k = 4 * st + t4;
+        const double a = Y[blk(I, J1) + k * 8 + g];
+#pragma unroll
+        for (int J2 = 0; J2 <= J1; ++J2) mma_8x8x4(w[J2], a, Y[blk(I, J2) + k * 8 + g]);
+      }
+    }
+#pragma unroll
+    for (int J2 = 0; J2 <= J1; ++J2) {
+      const double m = J1 == J2 ? 1.0 : 2.0;
+      f2 = fma(m * w[J2][0], w[J2][0], f2);
+      f2 = fma(m * w[J2][1], w[J2][1], f2);
     }
   }
   return f2;
@@ -875,9 +959,9 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
     __syncwarp();
   }
 
-  // ---- the key: ||(L L^T)^-1||_F^2 column by column, lanes over e_i ----
+  // ---- the key: ||(L L^T)^-1||_F^2 by 8 x 8 blocks of L^-1 ----
   if constexpr (kEmitCond) {
-    const double f2 = warp_sum(inv_frob2_cols<NO>(A, rdv, Y, lane));
+    const double f2 = warp_sum(inv_frob2_blocked<NO>(A, rdv, Y, lane));
     if (lane == 0) est[cs] = ninf * sqrt(f2);
   }
 

@@ -96,13 +96,15 @@ class DeviceCalibration:
 
 #: the H100 sweep: ``calibrate_device()`` (7 radii x 2 weightings x 1,024
 #: cases, 2D order 4, K = 30, both kernels at their default sweep count) as
-#: ``python -m wlsqm_tpu_torch.fitter.calibration`` ran it on an NVIDIA H100
-#: 80GB HBM3, 700.00 W, with the rows kernel's warp body (2D order 4 has
-#: NO = 15).  Edges tol / (SAFETY * unit): cond·amp 28,158 (rows) and 28,118
-#: (moments); key 52,731 (rows) and 37,482 (moments).
-_H100 = dict(f64_unit=8.03e-16, f64_cert_unit=8.88e-16, f64_unit_m=9.47e-16,
-             f64_cert_unit_m=8.89e-16, est_f64_cert_unit=4.74e-16,
-             est_f64_cert_unit_m=6.67e-16)
+#: ``chip_smoke.phase_calibrate`` ran it on an NVIDIA H100 80GB HBM3,
+#: 700.00 W, with the rows kernel's warp body (2D order 4 has NO = 15) and
+#: the moment kernel's thread body with its factor partly in shared memory
+#: (its units re-measured when that body replaced the register one).  Edges
+#: tol / (SAFETY * unit): cond·amp 28,158 (rows) and 21,105 (moments); key
+#: 52,731 (rows) and 35,192 (moments).
+_H100 = dict(f64_unit=8.03e-16, f64_cert_unit=8.88e-16, f64_unit_m=6.18e-16,
+             f64_cert_unit_m=1.18e-15, est_f64_cert_unit=4.74e-16,
+             est_f64_cert_unit_m=7.10e-16)
 
 #: shipped records, matched by lower-case substring of the device kind
 _SHIPPED: tuple[tuple[str, dict], ...] = (

@@ -17,9 +17,11 @@ f64 engine.  Two versions of the same math:
 
 * :func:`fit_moments_plain` — batched torch, any dimension and order; what
   the CPU runs, and what the CUDA kernel is checked against;
-* the CUDA kernel ``csrc/fit_moment.cu`` — one thread per case, dim 2,
-  orders 0-4, UNIFORM/CENTER, basic algorithm, no knowns
-  (:func:`supported`).  Its loop tables are generated from
+* the CUDA kernel ``csrc/fit_moment.cu`` — one thread per case, its
+  moments, scale and last factor rows in shared memory, dim 2, orders 0-4,
+  UNIFORM/CENTER, basic algorithm, no knowns (:func:`supported`); it
+  computes each case's radius scale and de-scales fi in its stores, so its
+  wrapper makes no pass over the inputs.  Its loop tables are generated from
   :func:`moment_lattice` and :func:`dof_chain` (:func:`tables_header`), so
   the two versions cannot drift.
 
@@ -70,6 +72,7 @@ KERNEL_DIMENSION = 2
 _SRC = os.path.join(native.CSRC, "fit_moment.cu")
 _HEADER = "fit_moment_tables.cuh"
 _ENTRY = "wlsqm_fit_moment_2d"
+_SCALE_ENTRY = "wlsqm_moment_scale"
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +149,11 @@ def tables_header(dimension: int = KERNEL_DIMENSION) -> str:
     """C++ header with the kernel's loop tables, one struct per order.
 
     ``MomentTables<ORDER>`` holds NO and NM, the moment chain (``mpar``,
-    ``maxis``), the RHS chain over the DOFs (``bpar``, ``baxis``) and the
-    moment index of each A[j, m] (``slot``), all as constexpr switch
+    ``maxis``), the RHS chain over the DOFs (``bpar``, ``baxis``), the
+    moment index of each A[j, m] (``slot``), each moment's exponents
+    (``mex``, ``mey``: first and last axis), and per DOF its degree
+    (``deg``), first exponent (``ex``) and factorial product (``fact``,
+    for the de-scale), all as constexpr switch
     functions: inside the kernel's unrolled loops every argument is a
     compile-time constant, so each lookup folds away and the per-case
     arrays stay in registers.
@@ -170,6 +176,14 @@ def tables_header(dimension: int = KERNEL_DIMENSION) -> str:
         out += _switch("maxis", "i", [a if a is not None else 0 for _, a in parents])
         out += _switch("bpar", "j", [p if p is not None else 0 for p, _ in chain])
         out += _switch("baxis", "j", [a if a is not None else 0 for _, a in chain])
+        mexp, _, _ = moment_lattice(dimension, 2 * order)
+        out += _switch("mex", "i", [int(e[0]) for e in mexp])
+        out += _switch("mey", "i", [int(e[-1]) for e in mexp])
+        exp = tables.EXPONENTS[dimension][:NO]
+        out += _switch("deg", "j", [int(row.sum()) for row in exp])
+        out += _switch("ex", "j", [int(row[0]) for row in exp])
+        out += _switch("fact", "j", [int(np.prod([factorial(int(v)) for v in row]))
+                                     for row in exp])
         out += ["  __host__ __device__ static constexpr int slot(int j, int m) {",
                 "    switch (j * NO + m) { %s default: return 0; }" % " ".join(
                     "case %d: return %d;" % (i, v)
@@ -210,6 +224,35 @@ def _dof_scale(e_s, dimension: int, order: int):
     deg = torch.as_tensor(tables.DEGREE[dimension][:NO], dtype=e_s.dtype,
                           device=e_s.device)
     return fact[None, :] * torch.exp2(-e_s[:, None] * deg[None, :])
+
+
+def _case_exponent(xk, nk, xi):
+    """Plain twin of the kernel's own scale (``case_h2`` and
+    ``scale_exponent`` in csrc/fit_moment.cu): e per case from h² = max over
+    k < nk of the unfused sum of the squared unscaled offsets, NaN kept, as
+    :func:`_prescale` computes it (the kernel must give its e_s bit for bit,
+    since fit_rows and condprobe keep using :func:`_prescale`)."""
+    K = xk.shape[1]
+    d = xk - xi[:, None, :]
+    d2 = d[..., 0] * d[..., 0]
+    for a in range(1, xk.shape[-1]):
+        d2 = d2 + d[..., a] * d[..., a]
+    valid = torch.arange(K, device=xk.device)[None, :] < nk[:, None]
+    h2 = torch.where(valid, d2, 0.0).amax(dim=-1)
+    return torch.ceil(0.5 * torch.log2(torch.where(h2 > 0, h2, 1.0)))
+
+
+def _store_scale(e_s, dimension: int, order: int):
+    """Plain twin of the kernel's de-scale in its stores:
+    ldexp(fact, -e_s * deg) per DOF, exact for finite e_s, so
+    ``(y * s) * _store_scale(...)`` is the bits of ``out * _dof_scale(...)``."""
+    NO = defs.number_of_dofs(dimension, order)
+    exp = tables.EXPONENTS[dimension][:NO]
+    fact = torch.as_tensor([float(np.prod([factorial(int(v)) for v in row]))
+                            for row in exp], dtype=e_s.dtype, device=e_s.device)
+    deg = torch.as_tensor(tables.DEGREE[dimension][:NO], device=e_s.device)
+    return torch.ldexp(fact[None, :].expand(len(e_s), NO),
+                       (-e_s[:, None] * deg[None, :]).to(torch.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -344,20 +387,32 @@ def supported(dimension: int, order, knowns, weighting, *, do_sens: bool = False
 def load(emit_cond: bool = False) -> native.Library:
     """The kernel's shared library, built with nvcc on first use; with
     ``emit_cond`` the library whose instances also write the key."""
-    vp = ctypes.c_void_p
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     return native.build(
         "fit_moment_cond" if emit_cond else "fit_moment", [_SRC],
         {_HEADER: tables_header()},
-        {_ENTRY: (ctypes.c_int, [vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, vp])},
+        {_ENTRY: (i32, [vp] * 6 + [ctypes.c_int64, i32, i32, i32, i32, vp]),
+         _SCALE_ENTRY: (i32, [vp] * 5 + [ctypes.c_int64, i32, vp])},
         defines=("WLSQM_EMIT_COND=%d" % emit_cond,))
 
 
-def _launch(xk, fk, nk, xi, inv_s, out, est=None, *, order: int, weighting: int,
+def _check(tensors, name: str) -> None:
+    """Each (tensor, shape, dtype) contiguous on the first one's CUDA device."""
+    dev = tensors[0][0].device
+    for t, shape, dtype in tensors:
+        if (t.device != dev or t.device.type != "cuda" or tuple(t.shape) != shape
+                or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(
+                "%s kernel wants contiguous %s %s on one CUDA device; got "
+                "%s %s on %s (xk on %s)"
+                % (name, dtype, shape, t.dtype, tuple(t.shape), t.device, dev))
+
+
+def _launch(xk, fk, nk, xi, out, est=None, *, order: int, weighting: int,
             refine_steps: int) -> None:
-    """Launch the kernel on the current stream: out = scaled solution, and
-    est (B,) = the key before the radius amplification when it is given.
+    """Launch the kernel on the current stream: out = fi (the scale and the
+    de-scale happen in the kernel), and est (B,) = the key with its radius
+    amplification when it is given.
 
     Checks device, dtype, shape and contiguity, and raises on a refused
     launch (the C entry returns ``cudaGetLastError()``).  Does not
@@ -368,35 +423,46 @@ def _launch(xk, fk, nk, xi, inv_s, out, est=None, *, order: int, weighting: int,
     NO = defs.number_of_dofs(dim, order)
     expect = [(xk, (B, K, dim), torch.float64), (fk, (B, K), torch.float64),
               (nk, (B,), torch.int32), (xi, (B, dim), torch.float64),
-              (inv_s, (B,), torch.float64), (out, (B, NO), torch.float64)]
+              (out, (B, NO), torch.float64)]
     if est is not None:
         expect.append((est, (B,), torch.float64))
-    for t, shape, dtype in expect:
-        if (t.device != xk.device or t.device.type != "cuda"
-                or tuple(t.shape) != shape or t.dtype != dtype
-                or not t.is_contiguous()):
-            raise ValueError(
-                "fit_moment kernel wants contiguous %s %s on one CUDA device; got "
-                "%s %s on %s (xk on %s)"
-                % (dtype, shape, t.dtype, tuple(t.shape), t.device, xk.device))
-    if not supported(dim, order, 0, weighting) or refine_steps < 0:
+    _check(expect, "fit_moment")
+    if not supported(dim, order, 0, weighting) or refine_steps < 0 or K < 1:
         raise ValueError("fit_moment kernel does not cover dim=%d order=%d "
-                         "weighting=%d refine_steps=%d"
-                         % (dim, order, weighting, refine_steps))
+                         "weighting=%d refine_steps=%d K=%d"
+                         % (dim, order, weighting, refine_steps, K))
     if B == 0:
         return
     lib = load(est is not None).lib
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream(xk.device).cuda_stream
         status = getattr(lib, _ENTRY)(
-            xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(),
-            inv_s.data_ptr(), out.data_ptr(),
+            xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), out.data_ptr(),
             None if est is None else est.data_ptr(), B, K, order, weighting,
             refine_steps, stream)
     if status != 0:
         raise RuntimeError("fit_moment kernel launch failed: CUDA error %d" % status)
     LAUNCHES += 1
     COND_LAUNCHES += est is not None
+
+
+def moment_scale(xk, nk, xi):
+    """The kernel's own scale alone, on the card: (e_s, inv_s) per case from
+    the same device functions the fit runs (``wlsqm_moment_scale``), for
+    holding them to :func:`_prescale` bit for bit.  xk (B, K, 2) f64 |
+    nk (B,) i32 | xi (B, 2) f64, contiguous on one CUDA device."""
+    B, K, dim = xk.shape
+    e_s = torch.empty((B,), dtype=torch.float64, device=xk.device)
+    inv_s = torch.empty_like(e_s)
+    _check([(xk, (B, K, KERNEL_DIMENSION), torch.float64), (nk, (B,), torch.int32),
+            (xi, (B, KERNEL_DIMENSION), torch.float64)], "moment_scale")
+    with torch.cuda.device(xk.device):
+        status = getattr(load().lib, _SCALE_ENTRY)(
+            xk.data_ptr(), nk.data_ptr(), xi.data_ptr(), e_s.data_ptr(),
+            inv_s.data_ptr(), B, K, torch.cuda.current_stream(xk.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError("moment_scale launch failed: CUDA error %d" % status)
+    return e_s, inv_s
 
 
 def fit_kernel(xk, fk, nk, xi, *, dimension: int, order: int, weighting: int,
@@ -407,7 +473,10 @@ def fit_kernel(xk, fk, nk, xi, *, dimension: int, order: int, weighting: int,
     on one device.  Returns fi (B, NO) f64, and with ``emit_cond`` the
     conditioning key (B,) f64 after it (fi is the same bits either way).  A
     CPU tensor runs :func:`fit_moments_plain`; a CUDA tensor launches the
-    kernel (see :func:`supported` for what it covers) or raises.
+    kernel (see :func:`supported` for what it covers) or raises.  On the
+    card the kernel scales and de-scales each case itself, so this is
+    argument checks and one launch: nothing of size (B, K) is allocated and
+    no pass is made over xk or fk.
     """
     if xk.device.type == "cpu":
         return fit_moments_plain(xk, fk, nk, xi, dimension=dimension, order=order,
@@ -415,15 +484,11 @@ def fit_kernel(xk, fk, nk, xi, *, dimension: int, order: int, weighting: int,
                                  emit_cond=emit_cond)
     if xk.shape[-1] != dimension:
         raise ValueError("xk has dimension %d, not %d" % (xk.shape[-1], dimension))
-    nk = nk.to(torch.int32).contiguous()
-    _, _, e_s, inv_s = _prescale(xk, nk, xi)
-    out = torch.empty((xk.shape[0], defs.number_of_dofs(dimension, order)),
-                      dtype=torch.float64, device=xk.device)
-    est = (torch.empty((xk.shape[0],), dtype=torch.float64, device=xk.device)
-           if emit_cond else None)
-    _launch(xk.contiguous(), fk.contiguous(), nk, xi.contiguous(), inv_s, out, est,
-            order=order, weighting=weighting, refine_steps=refine_steps)
-    fi = out * _dof_scale(e_s, dimension, order)
-    if emit_cond:
-        return fi, est * cond_amp_factor(inv_s, order)
-    return fi
+    B = xk.shape[0]
+    out = torch.empty((B, defs.number_of_dofs(dimension, order)), dtype=torch.float64,
+                      device=xk.device)
+    est = torch.empty((B,), dtype=torch.float64, device=xk.device) if emit_cond else None
+    _launch(xk.contiguous(), fk.contiguous(), nk.to(torch.int32).contiguous(),
+            xi.contiguous(), out, est, order=order, weighting=weighting,
+            refine_steps=refine_steps)
+    return (out, est) if emit_cond else out
