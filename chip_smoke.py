@@ -4,7 +4,7 @@ Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (five libraries from
 three sources — each fit kernel without and with its conditioning key —
 one nvcc run each, started together), checks each against its plain torch
 version (both bodies of the rows kernel, every instance of the gather),
-then drives five paths through the port's public routes:
+then drives six paths through the port's public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
@@ -18,6 +18,16 @@ then drives five paths through the port's public routes:
   Morton-ordered cloud, K = 28: ``prepare`` once, then per step
   ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
   three; then the heat example ``wlsqm_tpu_torch.examples.ibvp_heat``;
+* the compat surface — ``ExpertSolver`` on the gate row's expert cloud
+  (benchmarks/run_regression_gate.py l.202-225) at 2^20 cases: prepare, 8
+  NumPy solves on the prepared factor (no kernel launch), its device time
+  against the two kernel routes on the same geometry, the data-gated route
+  held to the long-double oracle on every case it keeps on the kernel,
+  ``solve_device``, ``solve_stream``, the estimated conditions, and the gate
+  row's rate at 8,192 cases; then ``fit_2D_many`` (the moment kernel under
+  the data gate), ``fit_3D_many`` with sens and a known DOF (the rows
+  kernel), ``fit_1D_iterative_many`` with and without count fidelity, and
+  ``fit_2D``;
 * the certified auto route — 2D, order 4, K = 30, WEIGHT_CENTER on 2^22
   cases whose radius is log-uniform in [0.1, 1] with 5% near-collinear
   neighbourhoods (over [0.03, 1], the calibration sweep's range, fewer than
@@ -72,6 +82,11 @@ B_CERT = 1 << 22        # the certified auto route
 B_CERT_ROWS = 1 << 20   # ... its rows-kernel part (a known DOF)
 B_PLAN = 32768          # cases a plan is made from
 B_ORACLE = 8192         # sample held against the long-double-refined oracle
+B_EXPERT = 1 << 20      # ExpertSolver: the Prepared is ~6 GB (c 3.8, factor 1.9)
+B_GATE_EXPERT = 8192    # ... the gate row's own size (its solves/s)
+B_CONDS = 65536         # ... conds(estimate=True) against the SVD conditions
+B_COMPAT_2D = 1 << 20   # fit_2D_many
+B_COMPAT = 65536        # fit_3D_many with sens, fit_1D_iterative_many
 B_COND2 = 4096          # keys held against cond_2 by SVD
 KEY_TOL = 1e-6          # kernel key vs plain key, relative (its own sensitivity
                         # is ~cond * 2^-53)
@@ -1248,6 +1263,363 @@ def phase_heat_example(dev):
         raise RuntimeError("the heat example did not run its gathers on the card")
 
 
+# -- the compat surface: ExpertSolver and the fit_* entries ------------------------
+
+def _expert_cloud(B, K=K):
+    """The regression gate's expert row (benchmarks/run_regression_gate.py
+    l.202-225), seed 5: xk = xi + U(-0.5, 0.5), 2D, order 4, CENTER, and 8
+    fields sin((1 + 0.1 i) x) cos y, all NumPy on the host."""
+    rng = np.random.default_rng(5)
+    xi = rng.uniform(-1, 1, (B, 2))
+    xk = xi[:, None, :] + rng.uniform(-0.5, 0.5, (B, K, 2))
+    fks = [np.sin((1 + 0.1 * i) * xk[..., 0]) * np.cos(xk[..., 1]) for i in range(8)]
+    return xi, xk, fks
+
+
+def _rel_rows(a, b):
+    """Per-case L∞ error of a against b relative to max(|b|, 1), NumPy."""
+    return np.abs(a - b).max(1) / np.maximum(np.abs(b).max(1), 1.0)
+
+
+def _solve_split(dev, wtt, s, fk):
+    """The parts of one ``ExpertSolver.solve``, CUDA events each: the fk
+    upload from pageable NumPy, the prepared path's solve on the card
+    (``api.solve`` on the solver's Prepared), the fi download, and the host
+    write-back into the caller's array."""
+    B = fk.shape[0]
+    fk_d = torch.as_tensor(fk, device=dev)
+    fi_d = torch.empty((B, 15), dtype=torch.float64, device=dev)
+    fi_h, fi = fi_d.cpu().numpy(), np.zeros((B, 15))
+    out = {"upload": _time_ms(lambda: torch.as_tensor(fk, device=dev))[0],
+           "solve_prepared": _time_ms(lambda: wtt.solve(s.prepared, fk_d))[0],
+           "download": _time_ms(lambda: fi_d.cpu())[0]}
+    t0 = time.perf_counter()
+    fi[:, :15] = fi_h
+    out["write_back_host"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _expert_paths(dev, wtt, s, xk, xi, fk):
+    """One field's solve on the card, device time only, three ways on the
+    same geometry: the prepared path ``ExpertSolver.solve`` runs (``api.solve``
+    on its Prepared) against the kernel routes it could take instead, the
+    data-gated auto route of the fit_* entries (``fit_many(gate="data")``)
+    and the geometry-gated plan (``plan_fit_many``, replayed); with the
+    data gate's launches and the share of cases it keeps on the kernel.
+    Returns (times, the data-gated fi, the per-case data-gate mask)."""
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    B = fk.shape[0]
+    xk_d, xi_d, fk_d = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                        for a in (xk, xi, fk))
+    nk_d = torch.full((B,), K, dtype=torch.int32, device=dev)
+    com = dict(nk=nk_d, order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk_d, xi_d, **com)
+    _zero_launches()
+    fi_gated = wtt.fit_many(xk_d, fk_d, xi_d, gate="data", **com).fi
+    launches = _kernel_launches()
+    fi_k, key = fit_kernel.fit_kernel(xk_d, fk_d, nk_d, xi_d, dimension=2, order=ORDER,
+                                      weighting=wtt.WEIGHT_CENTER, emit_cond=True)
+    sure = key * calibration.data_ratio(fi_k, fk_d, nk_d) <= condprobe.data_edges()["moments"]
+    times = {"B": B, "prepared_ms": _time_ms(lambda: wtt.solve(s.prepared, fk_d))[0],
+             "kernel_data_gate_ms": _time_ms(
+                 lambda: wtt.fit_many(xk_d, fk_d, xi_d, gate="data", **com))[0],
+             "kernel_plan_ms": _time_ms(
+                 lambda: wtt.fit_many(xk_d, fk_d, xi_d, plan=plan, **com))[0],
+             "plan_route": plan.route.path, "data_gate_share": float(sure.double().mean()),
+             "data_gate_launches": launches}
+    return times, fi_gated.cpu().numpy(), sure.cpu().numpy()
+
+
+def _expert(wtt, B, **extra):
+    return wtt.ExpertSolver(2, np.full(B, K, np.int32), np.full(B, ORDER, np.int32),
+                            np.zeros(B, np.int64), np.full(B, wtt.WEIGHT_CENTER, np.int32),
+                            **extra)
+
+
+def _kernel_launches():
+    """The fit kernels' launch counts, and of those the launches with the key."""
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    return {"fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
+            "cond_estimate@fit_moment_2d": fit_kernel.COND_LAUNCHES,
+            "cond_estimate@fit_rows": fit_rows.COND_LAUNCHES}
+
+
+def _launches(moment=0, rows=0, key_moment=0, key_rows=0):
+    return {"fit_moment_2d": moment, "fit_rows": rows,
+            "cond_estimate@fit_moment_2d": key_moment, "cond_estimate@fit_rows": key_rows}
+
+
+def _zero_launches():
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = 0
+    fit_kernel.COND_LAUNCHES = fit_rows.COND_LAUNCHES = 0
+
+
+def phase_expert(dev, wtt, smi):
+    """``ExpertSolver`` at B = 2^20 on the gate row's expert cloud: prepare,
+    8 NumPy solves on the prepared path (no kernel launch), parity against
+    scipy and the precision="f64" twin (the same path, bit for bit); the
+    solve's device time against the two kernel routes on the same geometry
+    at 2^20 and 8192, and the data-gated route held to 1e-10 against the
+    prepared solve and the long-double oracle on every case it keeps on the
+    kernel (ROADMAP C4); the gate row's rate at 8192, ``solve_device`` on the
+    (8, B, K) stack, ``solve_stream`` against sequential ``solve_device``,
+    ``conds(estimate=True)`` against the SVD conditions, memory."""
+    from wlsqm_tpu_torch.fitter import calibration
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xi, xk, fks = _expert_cloud(B_EXPERT)
+    host_s = time.perf_counter() - t0
+    s = _expert(wtt, B_EXPERT)
+    t0 = time.perf_counter()
+    s.prepare(xi, xk)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    fi = np.zeros((B_EXPERT, 15))
+    _zero_launches()
+    per_solve, solve_s = [], []
+    for fk in fks:
+        before = sum(_kernel_launches().values())
+        t0 = time.perf_counter()
+        s.solve(fk, fi)
+        solve_s.append(time.perf_counter() - t0)
+        per_solve.append(sum(_kernel_launches().values()) - before)
+    launches = _kernel_launches()
+    if per_solve != [0] * len(fks):
+        raise RuntimeError("ExpertSolver.solve launched %s kernels, not the prepared path"
+                           % (per_solve,))
+    scipy_err = parity_check(xk[:B_SCIPY] - xi[:B_SCIPY, None, :], fks[-1][:B_SCIPY],
+                             fi[:B_SCIPY])
+
+    # the lowest-frequency field, sin x cos y: the twin, and the kernel routes
+    s.solve(fks[0], fi)
+    twin = _expert(wtt, B_EXPERT, precision="f64")
+    twin.prepare(xi, xk)
+    fi2 = np.zeros((B_EXPERT, 15))
+    twin.solve(fks[0], fi2)
+    del twin
+    torch.cuda.empty_cache()
+    twin_equal = bool(np.array_equal(fi, fi2))
+    del fi2
+    paths_big, fi_g, sure = _expert_paths(dev, wtt, s, xk, xi, fks[0])
+    diff = _rel_rows(fi_g, fi)
+    sel = np.union1d(np.arange(B_ORACLE),
+                     np.flatnonzero(sure)[np.argsort(-diff[sure])[:256]])
+    orc = calibration._strong_oracle(xk[sel], xi[sel], fks[0][sel], wtt.WEIGHT_CENTER, 2)
+    g_orc, p_orc = _rel_rows(fi_g[sel], orc), _rel_rows(fi[sel], orc)
+    acc = {"field": "sin(x) cos(y)", "data_gate_share": float(sure.mean()),
+           "data_gate_certified_vs_prepared": float(diff[sure].max()),
+           "data_gate_certified_vs_oracle": float(g_orc[sure[sel]].max()),
+           "data_gate_rest_vs_prepared": float(diff[~sure].max(initial=0.0)),
+           "prepared_vs_oracle": float(p_orc.max()),
+           "prepared_vs_oracle_on_certified": float(p_orc[sure[sel]].max()),
+           "oracle_cases": int(len(sel))}
+    mem_used = s.memory_used()[0]
+    del fi_g, orc
+    torch.cuda.empty_cache()
+
+    split_big = _solve_split(dev, wtt, s, fks[0])
+
+    # solve_device on the (8, B, K) stack, and solve_stream against it
+    stack = torch.stack([torch.as_tensor(fk, device=dev) for fk in fks])
+    dev_ms, dev_t = _time_ms(lambda: s.solve_device(stack))
+    del stack
+    streamed = list(s.solve_stream(fks))
+    stream_same = all(np.array_equal(a, s.solve_device(fk)[0].cpu().numpy())
+                      and it == 0 for fk, (a, it) in zip(fks, streamed))
+    del streamed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rate_big = B_EXPERT * len(fks) / sum(solve_s) / 1e3
+
+    # the gate row's own size and loop: 24 solves, median of REPS
+    small = _expert(wtt, B_GATE_EXPERT)
+    small.prepare(xi[:B_GATE_EXPERT], xk[:B_GATE_EXPERT])
+    fi_s = np.zeros((B_GATE_EXPERT, 15))
+    small.solve(fks[0][:B_GATE_EXPERT], fi_s)
+    rates = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        for i in range(24):
+            small.solve(fks[i % 8][:B_GATE_EXPERT], fi_s)
+        rates.append(B_GATE_EXPERT * 24 / (time.perf_counter() - t0) / 1e3)
+    split_small = _solve_split(dev, wtt, small, fks[0][:B_GATE_EXPERT])
+    paths_small = _expert_paths(dev, wtt, small, xk[:B_GATE_EXPERT], xi[:B_GATE_EXPERT],
+                                fks[0][:B_GATE_EXPERT])[0]
+    del small, s
+
+    # the estimates against the SVD conditions
+    dbg = _expert(wtt, B_CONDS, debug=True)
+    dbg.prepare(xi[:B_CONDS], xk[:B_CONDS])
+    ratio = dbg.conds(estimate=True) / dbg.conds()
+    del dbg
+    torch.cuda.empty_cache()
+    line = {"path": "expert", "B": B_EXPERT, "device": smi, "launches": launches,
+            "launches_per_solve": per_solve, "host_setup_s": round(host_s, 3),
+            "prepare_s": prepare_s, "solve_s": solve_s,
+            "k_solves_per_s_2^20": rate_big,
+            "k_solves_per_s_8192": rates, "k_solves_per_s_8192_median":
+                statistics.median(rates),
+            "split_ms_2^20": split_big, "split_ms_8192": split_small,
+            "paths_2^20": paths_big, "paths_8192": paths_small,
+            "solve_device_F8_ms": dev_t, "solve_device_F8_median_ms": dev_ms,
+            "solve_stream_equal": stream_same, "memory_used_gb": mem_used / 1e9,
+            "peak_mem_gb": round(peak_gb, 3), "parity_vs_scipy": scipy_err,
+            "f64_twin_equal": twin_equal, "accuracy": acc, "tol": PARITY,
+            "cond_estimate_over_svd": [float(ratio.min()), float(ratio.max())]}
+    print(json.dumps(line), flush=True)
+    held = (scipy_err, acc["data_gate_certified_vs_prepared"],
+            acc["data_gate_certified_vs_oracle"])
+    if not (max(held) <= PARITY and acc["data_gate_share"] > 0):
+        raise RuntimeError("expert parity: scipy %.3e; data gate's certified cases vs the "
+                           "prepared solve %.3e, vs the oracle %.3e > %.0e" % (*held, PARITY))
+    if not twin_equal:
+        raise RuntimeError("the default ExpertSolver differs from its precision='f64' twin")
+    if paths_big["data_gate_launches"] != _launches(moment=1, key_moment=1):
+        raise RuntimeError("the data-gated route did not launch the moment kernel once: %s"
+                           % (paths_big["data_gate_launches"],))
+    if not stream_same:
+        raise RuntimeError("solve_stream differs from sequential solve_device")
+    if not (ratio.min() >= 0.5 and ratio.max() <= 1.01):
+        raise RuntimeError("cond estimates outside [0.5, 1.01] of the SVD's: %s"
+                           % (line["cond_estimate_over_svd"],))
+    return launches
+
+
+def _bench_np(B, K, dim, seed):
+    """The bench workload as NumPy (xi = 0; fk = sin 3x cos 2y + noise)."""
+    rng = np.random.default_rng(seed)
+    xk = rng.uniform(-1.0, 1.0, (B, K, dim))
+    fk = np.sin(3.0 * xk[..., 0]) * np.cos(2.0 * xk[..., -1])
+    return xk, fk + 0.01 * rng.standard_normal((B, K))
+
+
+def _compat_call(wtt, name, path, args, engine_args):
+    """One fit_* call: its kernel launches (counted from 0), wall time and
+    count; then the same call on the port's f64 engine (under
+    ``set_compat_precision("f64")``), which must launch nothing."""
+    from wlsqm_tpu_torch import config
+
+    fn = getattr(wtt, name)
+    _zero_launches()
+    t0 = time.perf_counter()
+    it = fn(*args)
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches()
+    saved = config.compat_precision()
+    config.set_compat_precision("f64")
+    try:
+        it_e = fn(*engine_args)
+    finally:
+        config.set_compat_precision(saved)
+    if _kernel_launches() != launches:
+        raise RuntimeError("%s on the engine launched a kernel" % name)
+    return {"path": path, "call": name, "launches": launches, "wall_s": wall,
+            "iterations": it, "engine_iterations": it_e}
+
+
+def phase_compat(dev, wtt, smi):
+    """The fit_* entries on the card: fit_2D_many at 2^20 (the moment kernel,
+    one launch), fit_3D_many with sens and a known DOF at 65,536 (the rows
+    kernel's warp body), fit_1D_iterative_many at 65,536 under count fidelity
+    (the engine) and without (the rows kernel), and fit_2D on one case; each
+    held to the port's engine at 1e-10, the 2D calls also to scipy."""
+    from wlsqm_tpu_torch import config
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+
+    def held(rec, fi, fi_e, extra=()):
+        rec["vs_engine"] = _rel_nan(torch.as_tensor(fi).reshape(len(fi), -1),
+                                    torch.as_tensor(fi_e).reshape(len(fi), -1))
+        for a, b in extra:
+            rec["vs_engine"] = max(rec["vs_engine"], _rel_nan(
+                torch.as_tensor(a).reshape(len(a), -1), torch.as_tensor(b).reshape(len(a), -1)))
+        out.append(rec)
+
+    # fit_2D_many at 2^20
+    B = B_COMPAT_2D
+    xk, fk = _bench_np(B, K, 2, 61)
+    cfg = (np.full(B, ORDER, np.int32), np.zeros(B, np.int64),
+           np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    nk, xi = np.full(B, K, np.int32), np.zeros((B, 2))
+    fi = np.zeros((B, 15))
+    fi_e = np.zeros((B_ENGINE, 15))
+    rec = _compat_call(
+        wtt, "fit_2D_many", "fit_2D_many", (xk, fk, nk, xi, fi, None, False, *cfg),
+        (xk[:B_ENGINE], fk[:B_ENGINE], nk[:B_ENGINE], xi[:B_ENGINE], fi_e, None, False,
+         *(c[:B_ENGINE] for c in cfg)))
+    rec["parity_vs_scipy"] = parity_check(xk[:B_SCIPY], fk[:B_SCIPY], fi[:B_SCIPY])
+    held(rec, fi[:B_ENGINE], fi_e)
+    if rec["launches"] != _launches(moment=1, key_moment=1):
+        raise RuntimeError("fit_2D_many did not launch the moment kernel once: %s"
+                           % (rec["launches"],))
+
+    # fit_3D_many, do_sens and a known DOF, at 65,536: the rows kernel
+    B, K3 = B_COMPAT, K_GRID[3]
+    xk, fk = _bench_np(B, K3, 3, 62)
+    NO3 = wtt.number_of_dofs(3, ORDER)
+    cfg = (np.full(B, ORDER, np.int32), np.full(B, wtt.b3_F, np.int64),
+           np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    fi0 = np.zeros((B, NO3))
+    fi0[:, 0] = fk[:, 0]
+    fi, sens = fi0.copy(), np.zeros((B, K3, NO3))
+    fi_e, sens_e = fi0.copy(), np.zeros((B, K3, NO3))
+    args3 = (xk, fk, np.full(B, K3, np.int32), np.zeros((B, 3)))
+    rec = _compat_call(wtt, "fit_3D_many", "fit_3D_many_sens",
+                       (*args3, fi, sens, True, *cfg), (*args3, fi_e, sens_e, True, *cfg))
+    held(rec, fi, fi_e, [(sens, sens_e)])
+    if rec["launches"] != _launches(rows=1, key_rows=1):
+        raise RuntimeError("fit_3D_many with sens did not launch the rows kernel once: %s"
+                           % (rec["launches"],))
+    del sens, sens_e
+
+    # fit_1D_iterative_many at 65,536: under count fidelity, then without
+    xk, fk = _bench_np(B, K_GRID[1], 1, 63)
+    args1 = (xk[..., 0], fk, np.full(B, K_GRID[1], np.int32), np.zeros(B))
+    cfg = (np.full(B, ORDER, np.int32), np.zeros(B, np.int64),
+           np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    saved = config._ITER_COUNT_FIDELITY
+    try:
+        for fidelity, want in ((None, 0), (False, 1)):
+            config.set_iter_count_fidelity(fidelity)
+            fi, fi_e = np.zeros((B, 5)), np.zeros((B, 5))
+            rec = _compat_call(
+                wtt, "fit_1D_iterative_many",
+                "fit_1D_iterative_many_" + ("fidelity" if fidelity is None else "kernel"),
+                (*args1, fi, None, False, *cfg, 3), (*args1, fi_e, None, False, *cfg, 3))
+            held(rec, fi, fi_e)
+            if rec["launches"] != _launches(rows=want, key_rows=want):
+                raise RuntimeError("fit_1D_iterative_many (fidelity %s) launched %s"
+                                   % (fidelity, rec["launches"]))
+    finally:
+        config._ITER_COUNT_FIDELITY = saved
+
+    # fit_2D on one case
+    xk, fk = _bench_np(1, K, 2, 64)
+    fi, fi_e = np.zeros(15), np.zeros(15)
+    one = (xk[0], fk[0], np.zeros(2))
+    rec = _compat_call(wtt, "fit_2D", "fit_2D_single",
+                       (*one, fi, None, False, ORDER, 0, wtt.WEIGHT_CENTER),
+                       (*one, fi_e, None, False, ORDER, 0, wtt.WEIGHT_CENTER))
+    rec["parity_vs_scipy"] = parity_check(xk, fk, fi[None])
+    held(rec, fi[None], fi_e[None])
+
+    line = {"path": "compat", "device": smi, "calls": out, "tol": PARITY,
+            "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+    print(json.dumps(line), flush=True)
+    worst = max(max(r["vs_engine"], r.get("parity_vs_scipy", 0.0)) for r in out)
+    if worst > PARITY:
+        raise RuntimeError("compat parity %.3e > %.0e: %s" % (worst, PARITY, out))
+    return {r["path"]: r["launches"] for r in out}
+
+
 # -- the certified auto route ------------------------------------------------------
 
 def _key_check(name, key, ref, worst):
@@ -2200,6 +2572,11 @@ def main() -> int:
     ibvp = phase_ibvp(dev, wtt, pts, idx_np, plan, setup)
     torch.cuda.empty_cache()
     phase_heat_example(dev)
+    torch.cuda.empty_cache()
+    expert = phase_expert(dev, wtt, smi.splitlines()[0])
+    torch.cuda.empty_cache()
+    compat = phase_compat(dev, wtt, smi.splitlines()[0])
+    by_path = {"expert": expert, **compat}
 
     def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2211,10 +2588,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fit_moment_2d", "wlsqm_tpu_torch/csrc/fit_moment.cu",
               "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel, moment,
-              "headline: 2D order 4 K=30 CENTER"),
+              "headline: 2D order 4 K=30 CENTER",
+              launches_by_path={p: n["fit_moment_2d"] for p, n in by_path.items()}),
         entry("fit_rows", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
-              "sens: 2D order 4 K=30 CENTER do_sens (warp body)"),
+              "sens: 2D order 4 K=30 CENTER do_sens (warp body)",
+              launches_by_path={p: n["fit_rows"] for p, n in by_path.items()}),
         entry("fit_rows@dim3", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, dim3,
               "dim3: 3D order 4 K=48 CENTER (warp body); library torch.linalg.lstsq"),
@@ -2228,7 +2607,9 @@ def main() -> int:
                 "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],
                 dict(t, launches=cert_launches["cond_estimate@" + kernel]),
                 "the launch with the key: 2D order 4 K=30 CENTER basic; launches on "
-                "the certified route; library condprobe.cond_key")
+                "the certified route; library condprobe.cond_key",
+                launches_by_path={p: n["cond_estimate@" + kernel]
+                                  for p, n in by_path.items()})
           for kernel, src, t in (("fit_moment_2d", "fit_moment", cond["moments"]),
                                  ("fit_rows", "fit_rows", cond["rows"]))),
     ], "total_s": round(time.perf_counter() - t_start, 1)}),

@@ -64,8 +64,13 @@ def test_shipped_record_on_cpu():
     assert cal.units_for("rows") == (cal.f64_unit, cal.f64_cert_unit)
     assert cal.units_for("moments") == (cal.f64_unit_m, cal.f64_cert_unit_m)
     for f in dataclasses.fields(cal):
-        if f.name.endswith(("unit", "unit_m")):
+        if f.name.endswith(("unit", "unit_m")) and not f.name.startswith("data_"):
             assert 1e-16 <= getattr(cal, f.name) <= 1e-14, f.name    # the 53-bit class
+    # the data units carry the calibration field's DOF-to-value ratio (~50-90)
+    # on top of that class, and gate each body more tightly than its key
+    for unit, key_unit in ((cal.data_unit, cal.est_f64_cert_unit),
+                           (cal.data_unit_m, cal.est_f64_cert_unit_m)):
+        assert 1e-14 <= unit <= 1e-12 and unit > 10 * key_unit
 
 
 def test_shipped_record_matches_the_card_by_name(monkeypatch):

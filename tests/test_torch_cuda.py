@@ -734,3 +734,118 @@ def test_heat_example_on_the_card(dev):
     assert res["device"].startswith("cuda")
     assert res["gather_launches"] == 1000 and gather.LAUNCHES == before + 1000
     assert res["max_error"] < ibvp_heat.TOL and max(res["field_max_errors"]) < ibvp_heat.TOL
+
+
+# ---------------------------------------------------------------------------
+# The compat surface on the card: ExpertSolver and the fit_* entries
+# ---------------------------------------------------------------------------
+
+def _expert_cloud(B, K=30, seed=5):
+    """The regression gate's expert row (benchmarks/run_regression_gate.py
+    l.202-225): xk = xi + U(-0.5, 0.5), 8 fields sin((1 + 0.1 i) x) cos y."""
+    rng = np.random.default_rng(seed)
+    xi = rng.uniform(-1, 1, (B, 2))
+    xk = xi[:, None, :] + rng.uniform(-0.5, 0.5, (B, K, 2))
+    fks = [np.sin((1 + 0.1 * i) * xk[..., 0]) * np.cos(xk[..., 1]) for i in range(8)]
+    return xi, xk, fks
+
+
+def test_expert_solver_solves_on_the_prepared_path(dev):
+    """ExpertSolver at B = 8192 (order 4, CENTER) on the card: its state
+    lives there, every solve back-substitutes the prepared factor (no kernel
+    launch) and equals the precision="f64" twin bit for bit."""
+    B, K = 8192, 30
+    xi, xk, fks = _expert_cloud(B, K)
+    kw = dict(dimension=2, nk=np.full(B, K, np.int32), order=np.full(B, 4, np.int32),
+              knowns=np.zeros(B, np.int64),
+              weighting_method=np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    s = wtt.ExpertSolver(**kw)
+    s.prepare(xi, xk)
+    twin = wtt.ExpertSolver(**kw, precision="f64")
+    twin.prepare(xi, xk)
+    assert s.prepared.c.device.type == "cuda"
+    before = (fit_kernel.LAUNCHES, fit_rows.LAUNCHES)
+    for fk in fks[:3]:
+        fi, fi2 = np.zeros((B, 15)), np.zeros((B, 15))
+        s.solve(fk, fi)
+        twin.solve(fk, fi2)
+        np.testing.assert_array_equal(fi, fi2)
+    assert (fit_kernel.LAUNCHES, fit_rows.LAUNCHES) == before
+
+
+def test_fit_2d_many_data_gate_on_a_low_frequency_field(dev):
+    """ROADMAP C4 on the card: fit_2D_many on the expert cloud's field
+    sin x cos y at B = 8192 is one moment launch with the key; every case the
+    data gate keeps on the kernel holds 1e-10 of the long-double oracle and
+    of the prepared f64 solve, every other case is the f64 engine's."""
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+
+    B, K = 8192, 30
+    xi, xk, fks = _expert_cloud(B, K)
+    fk = fks[0]
+    cfg = (np.full(B, 4, np.int32), np.zeros(B, np.int64),
+           np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    fi = np.zeros((B, 15))
+    before = fit_kernel.LAUNCHES
+    wtt.fit_2D_many(xk, fk, np.full(B, K, np.int32), xi, fi, None, False, *cfg)
+    assert fit_kernel.LAUNCHES == before + 1
+    xk_d, fk_d, xi_d = (torch.as_tensor(a, device=dev) for a in (xk, fk, xi))
+    nk_d = torch.full((B,), K, dtype=torch.int32, device=dev)
+    fi_k, key = fit_kernel.fit_kernel(xk_d, fk_d, nk_d, xi_d, dimension=2, order=4,
+                                      weighting=wtt.WEIGHT_CENTER, emit_cond=True)
+    sure = (key * calibration.data_ratio(fi_k, fk_d, nk_d)
+            <= condprobe.data_edges()["moments"]).cpu().numpy()
+    assert 0.05 < sure.mean() < 0.95
+    np.testing.assert_array_equal(fi[sure], fi_k.cpu().numpy()[sure])
+    orc = calibration._strong_oracle(xk[sure], xi[sure], fk[sure], wtt.WEIGHT_CENTER, 2)
+    assert _rel(torch.as_tensor(fi[sure]), torch.as_tensor(orc)) <= PARITY
+    s = wtt.ExpertSolver(2, np.full(B, K, np.int32), *cfg)
+    s.prepare(xi, xk)
+    fi2 = np.zeros((B, 15))
+    s.solve(fk, fi2)
+    assert _rel(torch.as_tensor(fi[sure]), torch.as_tensor(fi2[sure])) <= PARITY
+    eng = wtt.fit_many(xk, fk, xi, order=4, weighting=wtt.WEIGHT_CENTER, backend="engine")
+    assert _rel(torch.as_tensor(fi[~sure]), eng.fi[~sure].cpu()) <= 1e-13
+
+
+def test_fit_3d_many_with_sens_launches_the_rows_kernel(dev):
+    rng = np.random.default_rng(12)
+    B, K = 4096, 48
+    xi = rng.uniform(-1, 1, (B, 3))
+    xk = xi[:, None, :] + rng.uniform(-0.5, 0.5, (B, K, 3))
+    fk = np.sin(xk[..., 0]) * np.cos(xk[..., 2])
+    NO = wtt.number_of_dofs(3, 2)
+    args = (xk, fk, np.full(B, K, np.int32), xi)
+    cfg = (True, np.full(B, 2, np.int32), np.full(B, wtt.b3_F, np.int64),
+           np.full(B, wtt.WEIGHT_CENTER, np.int32))
+    fi0 = np.zeros((B, NO))
+    fi0[:, 0] = fk[:, 0]
+    fi, sens = fi0.copy(), np.zeros((B, K, NO))
+    before = fit_rows.LAUNCHES
+    wtt.fit_3D_many(*args, fi, sens, *cfg)
+    assert fit_rows.LAUNCHES == before + 1
+    fi_e, sens_e = fi0.copy(), np.zeros((B, K, NO))
+    wtt.fit_3D_many(*args, fi_e, sens_e, *cfg, debug=1)
+    assert fit_rows.LAUNCHES == before + 1
+    assert _rel_nan(torch.as_tensor(fi), torch.as_tensor(fi_e)) <= PARITY
+    assert _rel_nan(torch.as_tensor(sens.reshape(B, -1)),
+                    torch.as_tensor(sens_e.reshape(B, -1))) <= PARITY
+
+
+def test_compat_entry_points_without_a_card_raise(monkeypatch):
+    """A CPU test: without ``device=`` the compat surface computes on the
+    card, and where there is none it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(1)
+    xk = rng.uniform(-1, 1, (20, 2))
+    s = wtt.ExpertSolver(dimension=2, nk=np.full(1, 20, np.int32),
+                         order=np.full(1, 2, np.int32), knowns=np.zeros(1, np.int64),
+                         weighting_method=np.full(1, wtt.WEIGHT_UNIFORM, np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        s.prepare(np.zeros((1, 2)), xk[None])
+    assert not s.ready
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wtt.fit_2D(xk, xk[:, 0], np.zeros(2), np.zeros(6))
+    fi = np.zeros(6)
+    wtt.fit_2D(xk, xk[:, 0], np.zeros(2), fi, device="cpu")
+    np.testing.assert_allclose(fi[:3], [0.0, 1.0, 0.0], atol=1e-12)

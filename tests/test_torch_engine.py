@@ -98,3 +98,83 @@ def test_debug_condition_numbers():
     case = cloud(rng, 32, 30, 2, orders=(2,), ragged=False)
     (_, _, _, jcond), (_, _, _, tcond) = _both(case, 2, debug=True)
     np.testing.assert_allclose(tcond, jcond, rtol=1e-8)
+
+
+def _carry(jprep):
+    """A JAX ``Prepared`` as the port's, through NumPy (utils/interop)."""
+    import dataclasses
+
+    from wlsqm_tpu_torch.utils.interop import prepared_from_numpy
+
+    fields = {}
+    for f in dataclasses.fields(jprep):
+        v = getattr(jprep, f.name)
+        if f.name in ("dimension", "solver", "precision"):
+            continue
+        fields[f.name] = (tuple(np.asarray(a) for a in v) if f.name == "fac"
+                          else None if v is None else np.asarray(v))
+    return prepared_from_numpy(fields, dimension=jprep.dimension, solver=jprep.solver,
+                               precision=jprep.precision, device="cpu")
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_cond_estimate_on_a_carried_prepared_matches_jax(dim):
+    """The same prepared state, the same start vector and the same rounds:
+    power and inverse iteration agree with the JAX package's to 1e-9."""
+    rng = np.random.default_rng(300 + dim)
+    case = cloud(rng, 128, K_BY_DIM[dim], dim, orders=(0, 1, 2, 3, 4),
+                 weightings=(1, 2), knowns=True, radius=RADIUS)
+    keys = ("xk", "nk", "xi", "order", "knowns", "weighting")
+    jprep = jengine.prepare(*(jnp.asarray(case[k]) for k in keys), dimension=dim,
+                            NO=case["NO"])
+    prep = _carry(jprep)
+    assert prep.nk_max == jprep.nk_max == K_BY_DIM[dim]
+    est = engine.cond_estimate(prep).numpy()
+    jest = np.asarray(jengine.cond_estimate(jprep))
+    assert np.isfinite(est).all() and (est >= 1.0 - 1e-12).all()
+    np.testing.assert_allclose(est, jest, rtol=1e-9)
+    np.testing.assert_allclose(engine.cond_estimate(prep, iters=3).numpy(),
+                               np.asarray(jengine.cond_estimate(jprep, iters=3)), rtol=1e-9)
+
+
+def test_lu_solver_matches_cholesky_and_jax():
+    """The reference-parity LU mode (tests/test_precision_modes.py:85's bar:
+    1e-11 of the Cholesky path, sens included) and against the JAX LU."""
+    rng = np.random.default_rng(85)
+    case = cloud(rng, 64, 30, 2, orders=(4,), weightings=(2,), ragged=False)
+    (_, _, _, _), (tfi_c, ts_c, _, _) = _both(case, 2, solver="chol", do_sens=True)
+    (jfi_l, js_l, _, _), (tfi_l, ts_l, _, _) = _both(case, 2, solver="lu", do_sens=True)
+    rel = np.abs(tfi_l - tfi_c).max() / np.abs(tfi_c).max()
+    srel = np.abs(ts_l - ts_c).max() / np.abs(ts_c).max()
+    assert rel < 1e-11 and srel < 1e-11
+    assert rel_err(tfi_l, jfi_l) <= TOL_UNREFINED
+    assert rel_err(ts_l, js_l) <= TOL
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_chol_unrolled_is_the_cholesky(dim):
+    rng = np.random.default_rng(400 + dim)
+    case = cloud(rng, 64, K_BY_DIM[dim], dim, orders=(1, 2, 3, 4), weightings=(1, 2),
+                 knowns=True, radius=RADIUS)
+    # the JAX side runs "chol": its unrolled factor is a trace-time graph of
+    # ~NO^3/6 scalar steps, minutes of XLA:CPU compile at NO = 35
+    (jfi, *_), (tfi_c, ts_c, _, _) = _both(case, dim, do_sens=True)
+    keys = ("xk", "fk", "nk", "xi", "fi0", "order", "knowns", "weighting")
+    tfi_u, ts_u, _, _ = engine.fit_batch(*(torch.as_tensor(case[k]) for k in keys),
+                                         dimension=dim, NO=case["NO"], do_sens=True,
+                                         solver="chol_unrolled")
+    np.testing.assert_array_equal(tfi_u.numpy(), tfi_c)
+    np.testing.assert_array_equal(ts_u.numpy(), ts_c)
+    assert rel_err(tfi_u.numpy(), jfi) <= TOL_UNREFINED
+
+
+def test_singular_lu_factor_is_nan():
+    A = torch.zeros((2, 3, 3), dtype=torch.float64)
+    A[0] = torch.eye(3)
+    lu, piv = engine.solve_ops.factor(A, "lu")
+    assert torch.isfinite(lu[0]).all() and torch.isnan(lu[1]).all()
+    x = engine.solve_ops.solve_factored((lu, piv), torch.ones((2, 3, 1), dtype=torch.float64),
+                                        "lu")
+    assert torch.isnan(x[1]).all() and torch.equal(x[0], torch.ones((3, 1), dtype=torch.float64))
+    with pytest.raises(ValueError, match="unknown solver"):
+        engine.solve_ops.factor(A, "qr")

@@ -175,10 +175,22 @@ def test_heat_example_on_the_cpu():
 
 
 def test_prepare_and_solve_reject_what_is_not_ported():
+    """Every solver of the JAX package is accepted ("lu" and "chol_unrolled"
+    solve as "chol" does, to roundoff and bit for bit); unknown names and
+    precisions are refused."""
     case = _case(2, 80, B=16, orders=(2,), knowns=False)
-    for kw in (dict(solver="lu"), dict(solver="chol_unrolled")):
-        with pytest.raises(ValueError, match="A2"):
-            wtt.prepare(case["xk"], case["xi"], device="cpu", **kw)
+    ref = wtt.solve(wtt.prepare(case["xk"], case["xi"], nk=case["nk"], device="cpu"),
+                    case["fk"])[0]
+    for solver in ("lu", "chol_unrolled"):
+        prep = wtt.prepare(case["xk"], case["xi"], nk=case["nk"], solver=solver,
+                           device="cpu")
+        assert prep.solver == solver
+        fi = wtt.solve(prep, case["fk"])[0]
+        if solver == "chol_unrolled":
+            assert torch.equal(fi, ref)
+        assert rel_err(fi.numpy(), ref.numpy()) <= 1e-11
+    with pytest.raises(ValueError, match="unknown solver"):
+        wtt.prepare(case["xk"], case["xi"], solver="qr", device="cpu")
     with pytest.raises(ValueError, match="f64"):
         wtt.prepare(case["xk"], case["xi"], precision="bogus", device="cpu")
     wtt.prepare(case["xk"], case["xi"], precision="ds", device="cpu")   # a JAX name: f64

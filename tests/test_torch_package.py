@@ -15,7 +15,10 @@ def test_import_leaves_jax_out():
             "wlsqm_tpu_torch.utils.interop, wlsqm_tpu_torch.utils.neighbors, "
             "wlsqm_tpu_torch.fitter.interp, wlsqm_tpu_torch.fitter.polyeval, "
             "wlsqm_tpu_torch.fitter.condprobe, wlsqm_tpu_torch.fitter.calibration, "
-            "wlsqm_tpu_torch.fitter.ladder, "
+            "wlsqm_tpu_torch.fitter.ladder, wlsqm_tpu_torch.fitter.expert, "
+            "wlsqm_tpu_torch.fitter.simple, wlsqm_tpu_torch.fitter.impl, "
+            "wlsqm_tpu_torch.fitter.infra, wlsqm_tpu_torch.utils.lapackdrivers, "
+            "wlsqm_tpu_torch.utils.ptrwrap, "
             "wlsqm_tpu_torch.examples.ibvp_heat, wlsqm_tpu_torch.native; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wlsqm_tpu' not in sys.modules; print('ok')")
@@ -31,8 +34,16 @@ def test_public_names():
 
     for name in ("fit", "fit_many", "plan_fit_many", "FitPlan", "FitResult",
                  "Prepared", "prepare", "solve", "interpolate", "WEIGHT_CENTER",
-                 "number_of_dofs", "i2_X4", "b3_XYZ2"):
+                 "number_of_dofs", "i2_X4", "b3_XYZ2", "ExpertSolver",
+                 "set_compat_precision", "compat_precision", "interpolate_fit",
+                 "lambdify_fit",
+                 "interpolate_continuous"):
         assert hasattr(wtt, name), name
+    from wlsqm_tpu_torch.fitter import simple
+
+    assert len(simple.__all__) == 18
+    for name in simple.__all__:
+        assert getattr(wtt, name) is getattr(simple, name), name
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -65,6 +76,9 @@ def test_port_and_smoke_run_read_nothing_of_the_jax_side():
     files = [os.path.join(ROOT, "chip_smoke.py")] + glob.glob(
         os.path.join(ROOT, "wlsqm_tpu_torch", "**", "*.py"), recursive=True)
     assert len(files) > 20
+    for mod in ("fitter/expert.py", "fitter/simple.py", "fitter/impl.py",
+                "fitter/infra.py", "utils/lapackdrivers.py", "utils/ptrwrap.py"):
+        assert os.path.join(ROOT, "wlsqm_tpu_torch", mod) in files, mod
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

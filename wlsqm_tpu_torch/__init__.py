@@ -9,6 +9,15 @@ float64, which the H100 runs natively.
 
 This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
 
+* the compatibility layer (this namespace) — the reference's
+  ``fit_{1D,2D,3D}[_iterative][_many][_many_parallel]``
+  (:mod:`~wlsqm_tpu_torch.fitter.simple`), ``ExpertSolver``
+  (:mod:`~wlsqm_tpu_torch.fitter.expert`), ``interpolate_fit`` /
+  ``lambdify_fit``, the DOF and knowns constants, and the routing knob
+  ``set_compat_precision`` (``config.set_iter_count_fidelity`` beside it);
+  NumPy in, outputs written in place; ``fitter.impl``, ``fitter.infra``,
+  ``utils.lapackdrivers`` and ``utils.ptrwrap`` keep the reference's module
+  names;
 * :mod:`~wlsqm_tpu_torch.api` — ``fit``, ``fit_many``, ``plan_fit_many``,
   the expert-mode ``prepare`` / ``solve`` and ``interpolate``;
 * :mod:`~wlsqm_tpu_torch.fitter.engine` — the batched f64 engine and
@@ -33,7 +42,18 @@ computes on the CPU.
 """
 
 from wlsqm_tpu_torch import config  # noqa: F401  (TF32 off)
+from wlsqm_tpu_torch.config import (  # noqa: F401
+    set_compat_precision,
+    compat_precision,
+)
 from wlsqm_tpu_torch.fitter.defs import *  # noqa: F401,F403  constants + number_of_dofs
+from wlsqm_tpu_torch.fitter.simple import *  # noqa: F401,F403  fit_* family
+from wlsqm_tpu_torch.fitter.interp import (  # noqa: F401
+    interpolate_fit,
+    lambdify_fit,
+    interpolate_continuous,
+)
+from wlsqm_tpu_torch.fitter.expert import ExpertSolver  # noqa: F401
 from wlsqm_tpu_torch.api import (  # noqa: F401
     fit,
     fit_many,

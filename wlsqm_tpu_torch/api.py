@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from wlsqm_tpu_torch import config
-from wlsqm_tpu_torch.fitter import condprobe, defs, engine, interp, ladder
+from wlsqm_tpu_torch.fitter import calibration, condprobe, defs, engine, interp, ladder
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
 
@@ -213,6 +213,42 @@ def _eager_split_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting
     return fi, iters, None
 
 
+def _data_gated_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
+                      assembly, refine_steps, do_sens, iterative, max_iter, edge):
+    """Run one homogeneous group under the data gate (``gate="data"``).
+
+    The ``assembly`` kernel fits every case and emits its key; a case keeps
+    the kernel's result when key * max|fk| / max(|fi|, 1)
+    (:func:`wlsqm_tpu_torch.fitter.calibration.data_ratio`) is at most
+    ``edge`` (:func:`wlsqm_tpu_torch.fitter.condprobe.data_edges`), and every
+    other case (NaN keys included) is solved again by the f64 engine, with
+    its sensitivities and iteration count.  Reads the failing cases back to
+    the host once.  Returns (fi (B, no_g), iters (B,), sens | None).
+    """
+    fi, iters, sens, est = _run_kernel_group(
+        xk, fk, nk, xi, fi_init, dim=dim, order=order, knowns=knowns,
+        weighting=weighting, assembly=assembly, refine_steps=refine_steps,
+        do_sens=do_sens, iterative=iterative, max_iter=max_iter, emit_cond=True)
+    sel = (~(est * calibration.data_ratio(fi, fk, nk) <= edge)).nonzero().squeeze(1)
+    if sel.numel():
+        n, no_g = sel.numel(), fi.shape[1]
+
+        def full(v, dtype):
+            return torch.full((n,), v, dtype=dtype, device=xk.device)
+
+        fi0 = (xk.new_zeros((n, no_g)) if fi_init is None
+               else fi_init[sel, :no_g])
+        fi_t, sens_t, it_t, _ = engine.fit_batch(
+            xk[sel], fk[sel], nk[sel], xi[sel], fi0, full(order, torch.int32),
+            full(knowns, torch.int64), full(weighting, torch.int32), dimension=dim,
+            NO=no_g, do_sens=do_sens, iterative=iterative, max_iter=max_iter)
+        fi[sel] = fi_t
+        iters[sel] = it_t.to(iters.dtype)
+        if do_sens:
+            sens[sel] = sens_t
+    return fi, iters, sens
+
+
 def _maybe_split_route(route, xk, nk, xi, *, dim, o, kn, wm, assembly,
                        certified: bool, basic: bool):
     """Re-route an uncertified batch-level route on the FULL key distribution.
@@ -378,6 +414,7 @@ def fit_many(
     refine_steps: int | None = None,
     mixed_steps: int | None = None,
     plan: FitPlan | None = None,
+    gate: str = "geometry",
     device=None,
 ) -> FitResult:
     """Fit a batch of local surrogate models.
@@ -403,6 +440,17 @@ def fit_many(
         must be None (every route here solves in f64).
     plan: a :class:`FitPlan` from :func:`plan_fit_many`; replays its route,
         kernel body included, with no inspection of the data.
+    gate: how ``backend="auto"`` certifies a kernel's result.  "geometry"
+        (default): the sampled probe and the key against the calibration
+        record's edges, which hold the 1e-10 bar for fields whose DOFs are
+        large beside their values, and can miss it by ~10x on fields whose
+        DOFs are of the size of their values (ROADMAP C4).  "data": every
+        group a kernel covers runs it with its key, and each case keeps the
+        kernel's result only when key * max|fk| / max(|fi|, 1) is under the
+        record's data edge (:func:`wlsqm_tpu_torch.fitter.condprobe.data_edges`,
+        fitted over several field families); every other case is solved
+        again by the f64 engine.  No probe runs, and the failing cases are
+        read back once.  The compat surface (``fit_*``) uses "data".
     device: where to compute; defaults to ``xk``'s device when it is a
         CUDA tensor, else the card: NumPy input and CPU tensors are moved
         there, and with no card the call raises.  ``device="cpu"`` computes
@@ -413,9 +461,12 @@ def fit_many(
     if backend not in _BACKENDS:
         raise ValueError("backend must be one of %s; got %r"
                          % (sorted(_BACKENDS), backend))
+    if gate not in ("geometry", "data"):
+        raise ValueError("gate must be 'geometry' or 'data'; got %r" % (gate,))
     backend = _BACKENDS[backend]
     _check_precision(precision)
     _check_mixed_steps(mixed_steps)
+    solve_ops.check_solver(solver)
 
     device = config.resolve_device(device, xk)
     xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
@@ -487,7 +538,7 @@ def fit_many(
             groups=None if None in scalars else [scalars],
             do_sens=do_sens, iterative=iterative, max_iter=max_iter,
             refine_steps=refine_steps, ruiz_max_iter=ruiz_max_iter,
-            scaling=scaling, solver=solver)
+            scaling=scaling, solver=solver, gate=gate)
 
     fi0 = xk.new_zeros((B, NO)) if fi_init is None else fi_init[:, :NO]
     fi, sens, iters, cond = engine.fit_batch(
@@ -501,7 +552,8 @@ def fit_many(
 
 def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
                    knowns_a, weighting_a, groups, do_sens, iterative, max_iter,
-                   refine_steps, ruiz_max_iter, scaling, solver) -> FitResult:
+                   refine_steps, ruiz_max_iter, scaling, solver,
+                   gate="geometry") -> FitResult:
     """Certified routing of a concrete batch (see fitter/ladder.py).
 
     Groups the batch by (order, knowns, weighting) — ``groups`` holds the
@@ -514,7 +566,9 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
     with a single engine rung there is nothing to choose for the leftover,
     so it is not probed.  The JAX package also keeps groups under a quarter
     tile on the engine; that rule guards its tile padding, which a CUDA grid
-    does not have.
+    does not have.  Under ``gate="data"`` a covered group is not probed: it
+    runs :func:`_data_gated_group` when the record has a data edge for its
+    body, else joins the engine call.
     """
     if groups is None:
         keys = torch.stack([order_a.long(), knowns_a, weighting_a.long()], dim=1)
@@ -525,9 +579,10 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
     iters_out = torch.zeros(B, dtype=torch.int32, device=xk.device)
     sens_out = None
     leftover = torch.ones(B, dtype=torch.bool, device=xk.device)
+    count_fidelity = iterative and config.iter_count_fidelity()
     for o, kn, wm in groups:
         assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
-                    if _kernel_shape_ok(K, dim, o) else None)
+                    if _kernel_shape_ok(K, dim, o) and not count_fidelity else None)
         if assembly is None:
             continue
         if whole:
@@ -537,32 +592,40 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
             sel = mask.nonzero().squeeze(1)
             data = (xk[sel], fk[sel], nk[sel], xi[sel],
                     None if fi_init is None else fi_init[sel])
-        cond_amp = condprobe.probe(data[0], data[2], data[3], o, wm, dimension=dim,
-                                   knowns=kn)
-        route = ladder.choose(cond_amp, moments_ok=assembly == "moments")
         kw = dict(dim=dim, order=o, knowns=kn, weighting=wm)
-        edge = None
-        if (cond_amp is not None and refine_steps is None
-                and not (do_sens or iterative)
-                and not (route.path == "kernel" and condprobe.accuracy_ok_from(
-                    cond_amp, assembly=route.assembly))):
-            choice = condprobe.split_partition_choice(assembly=assembly)
-            # perf heuristic on the sampled probe (soundness comes from the
-            # per-case runtime key): engage when the median-slack-scaled
-            # sample mostly certifies
-            if choice is not None and float(
-                    (cond_amp[0] * cond_amp[1] * ladder.EST_OVER_COND_MED
-                     <= choice[1]).mean()) >= ladder.SPLIT_MIN_FRAC:
-                edge = choice[1]
-        if edge is not None:
-            fi_g, it_g, sens_g = _eager_split_group(*data, assembly=assembly,
-                                                    edge=edge, **kw)
-        elif route.path == "kernel":
-            fi_g, it_g, sens_g = _run_kernel_group(
-                *data, assembly=route.assembly, refine_steps=refine_steps,
-                do_sens=do_sens, iterative=iterative, max_iter=max_iter, **kw)
+        if gate == "data":
+            edge = condprobe.data_edges().get(assembly)
+            if not edge:
+                continue
+            fi_g, it_g, sens_g = _data_gated_group(
+                *data, assembly=assembly, refine_steps=refine_steps, do_sens=do_sens,
+                iterative=iterative, max_iter=max_iter, edge=edge, **kw)
         else:
-            continue   # the engine takes it in the merged leftover call
+            cond_amp = condprobe.probe(data[0], data[2], data[3], o, wm,
+                                       dimension=dim, knowns=kn)
+            route = ladder.choose(cond_amp, moments_ok=assembly == "moments")
+            edge = None
+            if (cond_amp is not None and refine_steps is None
+                    and not (do_sens or iterative)
+                    and not (route.path == "kernel" and condprobe.accuracy_ok_from(
+                        cond_amp, assembly=route.assembly))):
+                choice = condprobe.split_partition_choice(assembly=assembly)
+                # perf heuristic on the sampled probe (soundness comes from
+                # the per-case runtime key): engage when the
+                # median-slack-scaled sample mostly certifies
+                if choice is not None and float(
+                        (cond_amp[0] * cond_amp[1] * ladder.EST_OVER_COND_MED
+                         <= choice[1]).mean()) >= ladder.SPLIT_MIN_FRAC:
+                    edge = choice[1]
+            if edge is not None:
+                fi_g, it_g, sens_g = _eager_split_group(*data, assembly=assembly,
+                                                        edge=edge, **kw)
+            elif route.path == "kernel":
+                fi_g, it_g, sens_g = _run_kernel_group(
+                    *data, assembly=route.assembly, refine_steps=refine_steps,
+                    do_sens=do_sens, iterative=iterative, max_iter=max_iter, **kw)
+            else:
+                continue   # the engine takes it in the merged leftover call
         if whole:
             return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
         fi_out[sel, :fi_g.shape[1]] = fi_g
@@ -618,9 +681,11 @@ def plan_fit_many(
     basic algorithm, when the sample does not certify the batch,
     :func:`_maybe_split_route` may upgrade to a kernel certified on the
     batch's exact key maximum, or to ``path="kernel-split"``; else
-    ``Route(path="xla", precision="f64")`` (the engine).  ``refine_steps``
-    pins the kernel's sweeps and disables the split.  On CPU tensors a
-    kernel route runs the kernel's plain torch version.
+    ``Route(path="xla", precision="f64")`` (the engine), which is also the
+    route of ``iterative`` under :func:`config.iter_count_fidelity` (off by
+    default here; ``fit_many``'s auto route honours it too).
+    ``refine_steps`` pins the kernel's sweeps and disables the split.  On
+    CPU tensors a kernel route runs the kernel's plain torch version.
     """
     scalars = tuple(_scalar(v) for v in (order, knowns, weighting))
     for name, s in zip(("order", "knowns", "weighting"), scalars):
@@ -634,8 +699,9 @@ def plan_fit_many(
     nk = (torch.full((B,), K, dtype=torch.int32, device=device) if nk is None
           else config.as_tensor(nk, device, torch.int32))
     o, kn, wm = scalars
+    count_fidelity = iterative and config.iter_count_fidelity()
     assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
-                if _kernel_shape_ok(K, dim, o) else None)
+                if _kernel_shape_ok(K, dim, o) and not count_fidelity else None)
     if assembly is None:
         return FitPlan(route=ladder.Route(path="xla", precision=engine.PRECISION_F64))
     cond_amp = condprobe.probe(xk, nk, xi, o, wm, dimension=dim, knowns=kn)
@@ -698,13 +764,12 @@ def prepare(
     returns a :class:`~wlsqm_tpu_torch.fitter.engine.Prepared` to pass to
     :func:`solve`.  Sharing it between fields is the reference's "guest
     mode" (reference: wlsqm/fitter/expert.pyx:110-124).  Same arguments as
-    the JAX package's ``prepare``; ``solver`` is ``"chol"``; every
-    ``precision`` name of the JAX package computes in f64.  ``device`` as for :func:`fit_many`.
+    the JAX package's ``prepare``: ``solver`` is ``"chol"``, ``"lu"`` or
+    ``"chol_unrolled"`` (computed as ``"chol"``, :mod:`~wlsqm_tpu_torch.ops.solve`);
+    every ``precision`` name of the JAX package computes in f64.  ``device``
+    as for :func:`fit_many`.
     """
-    if solver != solve_ops.SOLVER_CHOLESKY:
-        raise ValueError(
-            "solver %r is not ported: this package has 'chol' (the f64 Cholesky); "
-            "'lu' and 'chol_unrolled' wait on ROADMAP item A2" % (solver,))
+    solve_ops.check_solver(solver)
     _check_precision(precision)
     device = config.resolve_device(device, xk)
     xk, xi, B, K, dim = _canon_geometry(xk, xi, device)

@@ -47,8 +47,8 @@ __all__ = ["DeviceCalibration", "active", "calibrate_device", "device_kind"]
 #: older harness must not be trusted.  The certification units are
 #: EDGE-ANCHORED (unit = tol / (SAFETY * edge) with the edge placed where the
 #: measured worst-err envelope still has CERT_HEADROOM to the bar), as in
-#: the JAX package's version 3.
-VERSION = 3
+#: the JAX package's version 3; version 4 adds the data-scale key units.
+VERSION = 4
 
 #: predicted floor above which 1e-10 parity is unattainable for any f64
 #: normal-equation solve, and the one beyond which the geometry counts as
@@ -71,6 +71,16 @@ class DeviceCalibration:
     err <= unit * key, the split route's gate; None disables the split on
     that body.  The ladder certifies each body against ITS units.
 
+    Those units are fitted on one field family (:func:`_problem`), whose
+    order-4 DOFs are ~50x its values, with the error relative to max |fi|;
+    an f64 fit's error follows the DATA, so on a field whose DOFs are of the
+    size of its values the same key means up to ~90x the relative error.
+    ``data_unit`` / ``data_unit_m`` are the data-scale envelopes of the two
+    bodies: err / max(|fi|, 1) <= unit * key * max|fk| / max(|fi|, 1), fitted
+    over every field of :data:`DATA_FIELDS`; the data gate
+    (:func:`wlsqm_tpu_torch.fitter.condprobe.data_edges`) reads them.  None
+    disables that gate on that body.
+
     ``certified`` distinguishes a record backed by a hardware sweep (shipped
     or measured) from the fallback defaults: only certified records allow
     the certification gates to pass.
@@ -82,6 +92,8 @@ class DeviceCalibration:
     f64_cert_unit_m: float
     est_f64_cert_unit: float | None = None
     est_f64_cert_unit_m: float | None = None
+    data_unit: float | None = None
+    data_unit_m: float | None = None
     beyond_parity_floor: float = BEYOND_PARITY_FLOOR
     kernel_max_floor: float = KERNEL_MAX_FLOOR
     certified: bool = True
@@ -101,10 +113,12 @@ class DeviceCalibration:
 #: the moment kernel's thread body with its factor partly in shared memory
 #: (its units re-measured when that body replaced the register one).  Edges
 #: tol / (SAFETY * unit): cond·amp 28,158 (rows) and 21,105 (moments); key
-#: 52,731 (rows) and 35,192 (moments).
+#: 52,731 (rows) and 35,192 (moments).  The data units come from the same
+#: sweep over the three fields of :data:`DATA_FIELDS`: data edge 312 on
+#: key * max|fk| / max(|fi|, 1) for both bodies.
 _H100 = dict(f64_unit=8.03e-16, f64_cert_unit=8.88e-16, f64_unit_m=6.18e-16,
              f64_cert_unit_m=1.18e-15, est_f64_cert_unit=4.74e-16,
-             est_f64_cert_unit_m=7.10e-16)
+             est_f64_cert_unit_m=7.10e-16, data_unit=8.01e-14, data_unit_m=8.01e-14)
 
 #: shipped records, matched by lower-case substring of the device kind
 _SHIPPED: tuple[tuple[str, dict], ...] = (
@@ -147,6 +161,8 @@ def _from_record(rec: dict, source: str) -> DeviceCalibration | None:
             f64_cert_unit_m=float(rec.get("f64_cert_unit_m", rec["f64_cert_unit"])),
             est_f64_cert_unit=opt("est_f64_cert_unit"),
             est_f64_cert_unit_m=opt("est_f64_cert_unit_m"),
+            data_unit=opt("data_unit"),
+            data_unit_m=opt("data_unit_m"),
             beyond_parity_floor=float(rec.get("beyond_parity_floor",
                                               BEYOND_PARITY_FLOOR)),
             kernel_max_floor=float(rec.get("kernel_max_floor", KERNEL_MAX_FLOOR)),
@@ -231,12 +247,34 @@ def _reset_cache() -> None:
 
 # ---------------------------------------------------------------- harness
 
-def _problem(rng, B, K, radius, dimension):
+def _calibration_field(x):
+    """The sweep's field family (the JAX package's): sin 3x cos 2y + 0.3 x y."""
+    return np.sin(3 * x[..., 0]) * np.cos(2 * x[..., -1]) + 0.3 * x[..., 0] * x[..., -1]
+
+
+#: the fields of the data-scale sweep: the calibration family, a
+#: low-frequency one (the regression gate's expert field, DOFs of the size of
+#: the values) and a near-linear one (high-order DOFs zero); the data units
+#: are the worst over all three
+DATA_FIELDS = (
+    _calibration_field,
+    lambda x: np.sin(x[..., 0]) * np.cos(x[..., -1]),
+    lambda x: 1.0 + 0.1 * x[..., 0],
+)
+
+
+def _problem(rng, B, K, radius, dimension, field=_calibration_field):
     xi = rng.uniform(-1, 1, (B, dimension))
     xk = xi[:, None, :] + rng.uniform(-radius, radius, (B, K, dimension))
-    fk = (np.sin(3 * xk[..., 0]) * np.cos(2 * xk[..., -1])
-          + 0.3 * xk[..., 0] * xk[..., -1])
-    return xk, fk, xi
+    return xk, field(xk), xi
+
+
+def data_ratio(fi, fk, nk):
+    """Per-case data scale of the data gate: max |fk| over each case's
+    ``nk`` neighbours over max(|fi|, 1).  Tensors (B, NO), (B, K), (B,)."""
+    valid = torch.arange(fk.shape[1], device=fk.device)[None, :] < nk[:, None]
+    fk_max = torch.where(valid, fk.abs(), 0.0).amax(1)
+    return fk_max / fi.abs().amax(1).clamp_min(1.0)
 
 
 def _strong_oracle(xk, xi, fk, weighting, dimension, order=4):
@@ -296,58 +334,74 @@ def calibrate_device(*, batch: int = 1024, seed: int = 20260817,
     weightings, compares every case against the long-double-refined oracle,
     and fits each body's certification units with the edge-anchored rule
     (see ``cert`` below) plus the central batch-max units that drive the
-    regime splits.  Persists the record in the build directory and installs
-    it for the process either way.  ``device``: the card by default;
-    ``refine_steps``: the kernels' default.
+    regime splits.  The geometry units come from the first of
+    :data:`DATA_FIELDS` (its draws are those of the JAX package's harness);
+    the data-scale units from the same sweep over every one of them, each
+    after the first on geometry drawn from its own seed.  Persists the record in the
+    build directory and installs it for the process either way.
+    ``device``: the card by default; ``refine_steps``: the kernels' default.
     """
     from wlsqm_tpu_torch.fitter import condprobe
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
     device = config.resolve_device(device)
-    rng = np.random.default_rng(seed)
     K = 30
     cas = []
     ests = {"rows": [], "mom": []}
     errs = {"rows": [], "mom": []}
+    # the data gate's quantities, over every field: err / max(|ref|, 1)
+    # against key * max|fk| / max(|fi|, 1), both from the kernel's own fi
+    data_errs = {"rows": [], "mom": []}
+    data_keys = {"rows": [], "mom": []}
     rs = {} if refine_steps is None else dict(refine_steps=refine_steps)
-    for weighting in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
-        for radius in radii:
-            xk, fk, xi = _problem(rng, batch, K, radius, 2)
-            ref = _strong_oracle(xk, xi, fk, weighting, 2)
-            scale = np.abs(ref).max(-1)
-            xk_t, fk_t, xi_t = (config.as_tensor(a, device) for a in (xk, fk, xi))
-            nk = torch.full((batch,), K, dtype=torch.int32, device=device)
-            com = dict(dimension=2, order=4, weighting=weighting, emit_cond=True,
-                       **rs)
-            fi_r, _, _, est_r = fit_rows.fit_rows(xk_t, fk_t, nk, xi_t, **com)
-            fi_m, est_m = fit_kernel.fit_kernel(xk_t, fk_t, nk, xi_t, **com)
-            # the split-route envelopes calibrate against the KERNEL-emitted
-            # key — the exact value the runtime gate will compare against
-            for key, fi, est in (("rows", fi_r, est_r), ("mom", fi_m, est_m)):
-                fi = np.asarray(fi.cpu())
-                errs[key].append(np.abs(fi - ref).max(-1) / scale)
-                ests[key].append(np.asarray(est.cpu()))
-            cond, amp = condprobe.probe(xk_t, nk, xi_t, 4, weighting,
-                                        dimension=2, sample=batch)
-            cas.append(cond * amp)
+    for f_i, field in enumerate(DATA_FIELDS):
+        rng = np.random.default_rng(seed + f_i)
+        for weighting in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
+            for radius in radii:
+                xk, fk, xi = _problem(rng, batch, K, radius, 2, field)
+                ref = _strong_oracle(xk, xi, fk, weighting, 2)
+                scale = np.abs(ref).max(-1)
+                xk_t, fk_t, xi_t = (config.as_tensor(a, device) for a in (xk, fk, xi))
+                nk = torch.full((batch,), K, dtype=torch.int32, device=device)
+                com = dict(dimension=2, order=4, weighting=weighting, emit_cond=True,
+                           **rs)
+                fi_r, _, _, est_r = fit_rows.fit_rows(xk_t, fk_t, nk, xi_t, **com)
+                fi_m, est_m = fit_kernel.fit_kernel(xk_t, fk_t, nk, xi_t, **com)
+                for key, fi, est in (("rows", fi_r, est_r), ("mom", fi_m, est_m)):
+                    gate = np.asarray((est * data_ratio(fi, fk_t, nk)).cpu())
+                    fi = np.asarray(fi.cpu())
+                    err = np.abs(fi - ref).max(-1)
+                    data_errs[key].append(err / np.maximum(scale, 1.0))
+                    data_keys[key].append(gate)
+                    if f_i == 0:
+                        # the split-route envelopes calibrate against the
+                        # KERNEL-emitted key — the exact value the runtime
+                        # gate will compare against
+                        errs[key].append(err / scale)
+                        ests[key].append(np.asarray(est.cpu()))
+                if f_i == 0:
+                    cond, amp = condprobe.probe(xk_t, nk, xi_t, 4, weighting,
+                                                dimension=2, sample=batch)
+                    cas.append(cond * amp)
     ca = np.concatenate(cas)
     nbatch = len(cas)
     AUTO_TOL, SAFETY = condprobe.AUTO_TOL, condprobe.SAFETY
 
-    def cert(key, x=ca):
-        """Edge-anchored certification unit against ``x`` (cond·amp, or the
-        per-case key).
+    def cert(key, x=ca, errs=errs):
+        """Edge-anchored certification unit against ``x`` (cond·amp, the
+        per-case key, or the data gate's key times the data scale).
 
         Find the largest swept x below which every measured error keeps
         :data:`CERT_HEADROOM` to the parity bar, then return the unit that
         places the gate ``unit * x * SAFETY <= tol`` exactly at that edge.
         Sound on the sweep by construction: every case the gate would
-        certify has measured err <= tol / CERT_HEADROOM.
+        certify has measured err <= tol / CERT_HEADROOM.  A NaN x (a
+        degenerate case) sorts last and certifies nothing.
         """
         e = np.concatenate(errs[key])
         order_i = np.argsort(x)
         run = np.maximum.accumulate(e[order_i])
-        ok = run <= AUTO_TOL / CERT_HEADROOM
+        ok = (run <= AUTO_TOL / CERT_HEADROOM) & np.isfinite(x[order_i])
         if not ok.any():
             return AUTO_TOL / SAFETY  # edge 1: certifies nothing real
         edge = float(x[order_i][ok][-1])
@@ -367,6 +421,8 @@ def calibrate_device(*, batch: int = 1024, seed: int = 20260817,
         f64_unit_m=central("mom"), f64_cert_unit_m=cert("mom"),
         est_f64_cert_unit=cert("rows", np.concatenate(ests["rows"])),
         est_f64_cert_unit_m=cert("mom", np.concatenate(ests["mom"])),
+        data_unit=cert("rows", np.concatenate(data_keys["rows"]), data_errs),
+        data_unit_m=cert("mom", np.concatenate(data_keys["mom"]), data_errs),
         certified=True, source="measured")
     kind = device_kind()
     _ACTIVE[kind] = cal

@@ -376,6 +376,25 @@ def est_certified_edges(tol: float = AUTO_TOL) -> dict:
                                ("rows", u.est_f64_cert_unit))}
 
 
+def data_edges(tol: float = AUTO_TOL) -> dict:
+    """Per-case edges of the data gate, ``{"moments": edge, "rows": edge}``.
+
+    A case certifies when its kernel-emitted key times its data scale
+    (:func:`wlsqm_tpu_torch.fitter.calibration.data_ratio`: max|fk| over
+    max(|fi|, 1)) is at most the body's edge: the record's data-scale unit
+    bounds err / max(|fi|, 1) by ``unit * key * max|fk| / max(|fi|, 1)`` over
+    every field of its sweep, where the key alone (:func:`est_certified_edges`)
+    holds only for fields whose DOFs are large beside their values.
+    ``None`` entries for a body without a data unit, ``{}`` when the device
+    record is uncertified.
+    """
+    u = _units()
+    if not u.certified:
+        return {}
+    return {name: (tol / (SAFETY * unit) if unit else None)
+            for name, unit in (("moments", u.data_unit_m), ("rows", u.data_unit))}
+
+
 def split_partition_choice(tol: float = AUTO_TOL, assembly: str = "moments"):
     """The certified partition of the per-case split, or None.
 
