@@ -2,9 +2,10 @@
 
 Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (five libraries from
 three sources — each fit kernel without and with its conditioning key —
-one nvcc run each, started together), checks each against its plain torch
+one nvcc run each, started together with the g++ build of the native k-d
+tree), checks each against its plain torch
 version (both bodies of the rows kernel, every instance of the gather),
-then drives six paths through the port's public routes:
+then drives the port's paths through its public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
@@ -47,7 +48,9 @@ line; so does a machine without a CUDA device.  ``measure_rows_cut``,
 ``measure_gather_variants`` and ``measure_moment_variants``, run by hand,
 time the designs that the kernels were chosen from; ``measure_moment_units``
 ties the moment body's calibration units to its arithmetic, and
-``measure_auto_route`` times the certified route against another checkout.
+``measure_auto_route`` times the certified route against another checkout;
+``measure_engine_batch_invariance`` finds where the f64 engine's bits depend
+on the batch they are computed in.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -86,6 +89,12 @@ B_EXPERT = 1 << 20      # ExpertSolver: the Prepared is ~6 GB (c 3.8, factor 1.9
 B_GATE_EXPERT = 8192    # ... the gate row's own size (its solves/s)
 B_CONDS = 65536         # ... conds(estimate=True) against the SVD conditions
 B_COMPAT_2D = 1 << 20   # fit_2D_many
+B_GRAD = 1 << 18        # gradients through the route, headline and sens
+B_STREAM = 1 << 24      # fit_stream's host cloud: ~12 GB of NumPy
+CHUNK_STREAM = 1 << 21  # ... its chunk
+B_SHARD = 1 << 22       # sharded_fit_pallas, headline
+B_SHARD_ENGINE = 1 << 20  # sharded_fit_many (the engine: at 2^22 its temporaries pass 80 GB)
+B_SERIAL = 1 << 16      # a Prepared through npz and back
 B_COMPAT = 65536        # fit_3D_many with sens, fit_1D_iterative_many
 B_COND2 = 4096          # keys held against cond_2 by SVD
 KEY_TOL = 1e-6          # kernel key vs plain key, relative (its own sensitivity
@@ -327,24 +336,19 @@ def _weighted_basis(xk, fk, nk, xi, dim, order, weighting):
 # -- phases ---------------------------------------------------------------------
 
 def phase_build():
-    """Build the five libraries, one nvcc run each, started together; print
-    each ptxas report."""
-    from functools import partial
+    """Build the five libraries and the host k-d tree, one compiler run each,
+    started together (``warmup.build_all``); print each ptxas report."""
+    from wlsqm_tpu_torch.warmup import build_all
 
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
-
-    jobs = {"fit_moment": fit_kernel.load, "fit_moment_cond": partial(fit_kernel.load, True),
-            "fit_rows": fit_rows.load, "fit_rows_cond": partial(fit_rows.load, True),
-            "gather": gather.load}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {name: pool.submit(fn) for name, fn in jobs.items()}
-        libs = {name: f.result() for name, f in futures.items()}
+    libs = build_all()
     wall = time.perf_counter() - t0
+    if libs["kdtree"] is None:
+        raise RuntimeError("the native k-d tree is not available here (no g++)")
     for name, lib in libs.items():
-        print(json.dumps({"library": name, "nvcc_s": round(lib.build_seconds, 3),
+        print(json.dumps({"library": name, "build_s": round(lib.build_seconds, 3),
                           "path": lib.path, "ptxas": _ptxas_summary(lib.log)}), flush=True)
-    print(json.dumps({"build_wall_s": round(wall, 3), "parallel_nvcc": len(jobs)}),
+    print(json.dumps({"build_wall_s": round(wall, 3), "parallel_builds": len(libs)}),
           flush=True)
     # indirect branches in the moment kernel: a table switch the compiler
     # left to run time (the key's row sums once cost 4-5x the fit that way)
@@ -756,7 +760,7 @@ def phase_headline(dev, wtt):
         raise RuntimeError("fit_moment_2d spills %d bytes (> %d): %s"
                            % (worst, MOMENT_SPILL_BYTES, ptxas))
     return {"launches": launches, "ms": small_launch_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **small_bound}
+            "library_ms": library_ms, "route_ms_2^23": route_ms, **small_bound}
 
 
 def phase_sens(dev, wtt):
@@ -1339,23 +1343,23 @@ def _expert(wtt, B, **extra):
 
 
 def _kernel_launches():
-    """The fit kernels' launch counts, and of those the launches with the key."""
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+    """The kernels' launch counts, and of the fit kernels' the launches with
+    the key (the package's own counter, :func:`wlsqm_tpu_torch.warmup.launch_counts`)."""
+    from wlsqm_tpu_torch.warmup import launch_counts
 
-    return {"fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
-            "cond_estimate@fit_moment_2d": fit_kernel.COND_LAUNCHES,
-            "cond_estimate@fit_rows": fit_rows.COND_LAUNCHES}
+    return launch_counts()
 
 
-def _launches(moment=0, rows=0, key_moment=0, key_rows=0):
+def _launches(moment=0, rows=0, key_moment=0, key_rows=0, gather=0):
     return {"fit_moment_2d": moment, "fit_rows": rows,
-            "cond_estimate@fit_moment_2d": key_moment, "cond_estimate@fit_rows": key_rows}
+            "cond_estimate@fit_moment_2d": key_moment, "cond_estimate@fit_rows": key_rows,
+            "gather_rows": gather}
 
 
 def _zero_launches():
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
-    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = 0
+    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = gather.LAUNCHES = 0
     fit_kernel.COND_LAUNCHES = fit_rows.COND_LAUNCHES = 0
 
 
@@ -2533,6 +2537,538 @@ def measure_auto_route(other_root):
     return runs
 
 
+def measure_engine_batch_invariance():
+    """Where the f64 engine's results depend on the batch they are computed
+    in: each of 4 equal slices of a 2^20-case headline batch through the
+    engine alone, against the same rows of the one 2^20-case call, stage by
+    stage (the prepared state, the RHS contraction, the solve); then the RHS
+    contraction ``einsum("bkj,bk->bj")`` (cuBLAS's batched gemv) on random
+    (B, 30, 15) inputs, B = 2^20, as slices of 65,535 / 65,536 / 2^18 cases
+    at the start and at the end of the batch: the rows of each slice call
+    that differ from the one call.  Run by hand (~1 min)."""
+    import dataclasses
+
+    from wlsqm_tpu_torch.fitter import engine
+
+    dev = torch.device("cuda")
+    B = 1 << 20
+    xk, fk, nk, xi = _cloud(B, torch.Generator(device=dev).manual_seed(91), dev)
+    case = (torch.full((B,), ORDER, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int64, device=dev),
+            torch.full((B,), 2, dtype=torch.int32, device=dev))
+    kw = dict(dimension=2, NO=15)
+    one = engine.prepare(xk, nk, xi, *case, **kw)
+    b1 = engine._rhs(one, torch.where(one.w > 0, fk, 0.0))
+    x1 = engine._solve(one, b1)
+    shards = {}
+    for j, s in enumerate(torch.arange(B, device=dev).tensor_split(4)):
+        s = slice(int(s[0]), int(s[-1]) + 1)
+        prep = engine.prepare(xk[s], nk[s], xi[s], *(c[s] for c in case), **kw)
+        b2 = engine._rhs(prep, torch.where(prep.w > 0, fk[s], 0.0))
+        differ = [f.name for f in dataclasses.fields(prep)
+                  if isinstance(getattr(prep, f.name), torch.Tensor) and not torch.equal(
+                      getattr(one, f.name)[s].nan_to_num(), getattr(prep, f.name).nan_to_num())]
+        differ += [] if torch.equal(one.fac[0][s], prep.fac[0]) else ["fac"]
+        shards["shard%d" % j] = {"prepared_fields_differing": differ,
+                                 "rhs_equal": torch.equal(b1[s], b2),
+                                 "solve_equal": torch.equal(x1[s], engine._solve(prep, b2)),
+                                 "solve_rel": _rel(engine._solve(prep, b2), x1[s])}
+    g = torch.Generator(device=dev).manual_seed(5)
+    cw = torch.randn((B, 30, 15), generator=g, device=dev, dtype=torch.float64)
+    r = torch.randn((B, 30), generator=g, device=dev, dtype=torch.float64)
+    full = torch.einsum("bkj,bk->bj", cw, r)
+    gemv = {}
+    for n in (65535, 65536, 1 << 18):
+        for start in (0, B - n):
+            part = torch.einsum("bkj,bk->bj", cw[start:start + n], r[start:start + n])
+            bad = (part != full[start:start + n]).any(1).nonzero().squeeze(1) + start
+            gemv["%d_at_%d" % (n, start)] = {"rows_differing": int(bad.numel()),
+                                             "first": int(bad[0]) if bad.numel() else None,
+                                             "last": int(bad[-1]) if bad.numel() else None}
+    print(json.dumps({"engine_batch_invariance": shards, "gemv_slices": gemv,
+                      "rows_in_full_pieces_of_65535": 16 * 65535}), flush=True)
+
+
+# -- gradients, the stream, the sharded layer, serialization, warmup, the tree --
+
+def _events_ms(fn):
+    """One call of ``fn`` timed with CUDA events (ms), and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _grad_rel(a, b) -> float:
+    """max |a - b| over max |b|: a gradient against the engine's."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+
+
+def phase_grad(dev, wtt):
+    """Gradients through the public route on the card, headline and sens
+    configurations at 2^18: ``fit_many`` with xk and fk requiring grad warns,
+    launches no kernel and gives the engine's gradient; ``backend="kernel"``
+    and a kernel plan raise; ``fit_rows_diffable`` (one rows launch with
+    sens) gives the engine's fk gradient to 1e-10; ``fixed_trip`` is the
+    loop form bit for bit.  The backward passes are timed.  Returns the
+    launches of the path."""
+    import warnings
+
+    from wlsqm_tpu_torch.fitter import engine
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B = B_GRAD
+    gen = torch.Generator(device=dev).manual_seed(71)
+    xk, fk, nk, xi = _cloud(B, gen, dev)
+    cfg = (torch.full((B,), ORDER, dtype=torch.int32, device=dev),
+           torch.zeros(B, dtype=torch.int64, device=dev),
+           torch.full((B,), wtt.WEIGHT_CENTER, dtype=torch.int32, device=dev))
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw)
+    out = {"path": "grad", "B": B}
+    with warnings.catch_warnings():    # one small pass first: the backward's own set-up
+        warnings.simplefilter("ignore")
+        for do_sens in (False, True):
+            x, f = xk[:4096].clone().requires_grad_(True), fk[:4096].clone().requires_grad_(True)
+            r = wtt.fit_many(x, f, xi[:4096], do_sens=do_sens, **kw)
+            torch.autograd.grad(r.fi.sum() + (r.sens.nan_to_num().sum() if do_sens else 0),
+                                (x, f))
+    _zero_launches()
+    g_fk = None
+    for do_sens in (False, True):
+        name = "sens" if do_sens else "headline"
+        xg, fg = xk.clone().requires_grad_(True), fk.clone().requires_grad_(True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = wtt.fit_many(xg, fg, xi, do_sens=do_sens, **kw)
+        if not any("autograd" in str(w.message) for w in caught):
+            raise RuntimeError("fit_many under autograd did not warn (%s)" % name)
+        wfi = torch.randn(res.fi.shape, generator=gen, device=dev, dtype=torch.float64)
+        ws = (torch.randn(res.sens.shape, generator=gen, device=dev, dtype=torch.float64)
+              if do_sens else None)
+
+        def loss(fi, sens):
+            total = (fi * wfi).sum()
+            return total + (sens.nan_to_num() * ws).sum() if do_sens else total
+
+        bwd_ms, (gx, gf) = _events_ms(lambda: torch.autograd.grad(
+            loss(res.fi, res.sens), (xg, fg)))
+        xe, fe = xk.clone().requires_grad_(True), fk.clone().requires_grad_(True)
+        fwd_ms, ref = _events_ms(lambda: engine.fit_batch(
+            xe, fe, nk, xi, xk.new_zeros((B, 15)), *cfg, dimension=2, NO=15,
+            do_sens=do_sens))
+        ebwd_ms, (ex, ef) = _events_ms(lambda: torch.autograd.grad(
+            loss(ref[0], ref[1] if do_sens else None), (xe, fe)))
+        out[name] = {"vs_engine_fk": _grad_rel(gf, ef), "vs_engine_xk": _grad_rel(gx, ex),
+                     "fit_many_backward_ms": bwd_ms, "engine_forward_ms": fwd_ms,
+                     "engine_backward_ms": ebwd_ms}
+        if not do_sens:
+            g_fk, wfi_h = ef, wfi
+        for bad in (dict(backend="kernel"), dict(plan=plan)):
+            try:
+                wtt.fit_many(xg, fg, xi, do_sens=do_sens, **kw, **bad)
+            except ValueError:
+                continue
+            raise RuntimeError("a kernel route under autograd did not raise: %s" % (bad,))
+        del res, gx, gf, ref, ex, ef, xg, fg, xe, fe
+    torch.cuda.synchronize()
+    engine_launches = _kernel_launches()
+    if any(engine_launches.values()):
+        raise RuntimeError("fit_many under autograd launched a kernel: %s" % engine_launches)
+
+    # fit_rows_diffable: one rows launch with sens, backward one contraction
+    fd = fk.clone().requires_grad_(True)
+    fwd_ms, fi = _events_ms(lambda: fit_rows.fit_rows_diffable(
+        xk, fd, nk, xi, dimension=2, order=ORDER, weighting=wtt.WEIGHT_CENTER))
+    bwd_ms, (gd,) = _events_ms(lambda: torch.autograd.grad((fi * wfi_h).sum(), (fd,)))
+    launches = _kernel_launches()
+    out["fit_rows_diffable"] = {"vs_engine_fk": _grad_rel(gd, g_fk), "forward_ms": fwd_ms,
+                                "backward_ms": bwd_ms, "launches": launches}
+    del fi, gd, fd
+
+    # fixed_trip: max_iter masked trips, no host read; the loop form's bits
+    fkn = fk + 1e-3 * torch.randn(fk.shape, generator=gen, device=dev, dtype=torch.float64)
+    args = (xk, fkn, nk, xi, xk.new_zeros((B, 15)), *cfg)
+    ikw = dict(dimension=2, NO=15, iterative=True, max_iter=5)
+    loop_ms, loop = _events_ms(lambda: engine.fit_batch(*args, **ikw))
+    fixed_ms, fixed = _events_ms(lambda: engine.fit_batch(*args, fixed_trip=True, **ikw))
+    same = torch.equal(loop[0], fixed[0]) and torch.equal(loop[2], fixed[2])
+    out["fixed_trip"] = {"bit_equal": same, "loop_ms": loop_ms, "fixed_trip_ms": fixed_ms,
+                         "max_count": int(loop[2].max())}
+    out["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    out["tol"] = PARITY
+    print(json.dumps(out), flush=True)
+    worst = max(max(out[n]["vs_engine_fk"], out[n]["vs_engine_xk"])
+                for n in ("headline", "sens"))
+    worst = max(worst, out["fit_rows_diffable"]["vs_engine_fk"])
+    if worst > PARITY:
+        raise RuntimeError("gradient against the engine's: %.3e > %.0e" % (worst, PARITY))
+    if not same:
+        raise RuntimeError("fixed_trip differs from the loop form")
+    if launches != _launches(rows=1):
+        raise RuntimeError("fit_rows_diffable did not launch the rows kernel once: %s"
+                           % (launches,))
+    return launches
+
+
+def stream_cloud(dev):
+    """The headline configuration on a host cloud of B_STREAM cases (xk
+    uniform in [-1, 1]^2, fk = sin 3x cos 2y + 0.01 noise; xi = 0): made on
+    the card from a seed, a chunk at a time, and copied into NumPy arrays;
+    with each case's moment key (K3 in the moment body, launched here, on no
+    counted path), as a NumPy array."""
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    xk = np.empty((B_STREAM, K, 2))
+    fk = np.empty((B_STREAM, K))
+    keys = np.empty(B_STREAM)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    step = CHUNK_STREAM
+    for lo in range(0, B_STREAM, step):
+        x, f, nk, xi = _cloud(step, gen, dev)
+        torch.from_numpy(xk[lo:lo + step]).copy_(x)
+        torch.from_numpy(fk[lo:lo + step]).copy_(f)
+        torch.from_numpy(keys[lo:lo + step]).copy_(fit_kernel.fit_kernel(
+            x, f, nk, xi, dimension=2, order=ORDER, weighting=defs.WEIGHT_CENTER,
+            emit_cond=True)[1])
+    return xk, fk, keys
+
+
+def phase_stream(dev, wtt, smi, resident_ms):
+    """``fit_stream`` of the headline configuration on a 2^24-case host
+    cloud (~12 GB of NumPy), chunk 2^21: its rate beside the serial sum
+    (H2D + fit + D2H of one chunk, times the chunks), the PCIe byte bound at
+    the copy rates this run measures, and the resident ``fit_many`` on
+    2^23.  Every chunk bit-equal to ``fit_many(plan=)`` of that chunk; scipy
+    parity on the first 1,024 cases.  Returns the cloud, the result, the
+    moment keys and the launches of the path."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xk, fk, keys = stream_cloud(dev)
+    cloud_s = time.perf_counter() - t0
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    out = np.empty((B_STREAM, 15))
+    out.fill(0.0)                      # touched: the stream's time is not page faults
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = wtt.fit_stream(xk, fk, chunk=CHUNK_STREAM, out=out, **kw)
+    first_s = time.perf_counter() - t0
+    launches = _kernel_launches()
+    # again: the first call also allocates its pinned slots, which PyTorch's
+    # host allocator then keeps for the next
+    t0 = time.perf_counter()
+    wtt.fit_stream(xk, fk, chunk=CHUNK_STREAM, out=out, **kw)
+    stream_s = time.perf_counter() - t0
+    # the stream's own plan, made again: on its first chunk (2^21 cases) the
+    # key's maximum may pass the moment body's edge, and the plan then names
+    # the rows body; the bit-for-bit check below holds the stream to it
+    plan = wtt.plan_fit_many(xk[:CHUNK_STREAM], **kw)
+    body = {"moments": "fit_moment_2d", "rows": "fit_rows"}.get(plan.route.assembly)
+    if res.fi is not out or body is None or launches[body] < B_STREAM // CHUNK_STREAM:
+        raise RuntimeError("fit_stream (plan %s) launched %s for %d chunks"
+                           % (plan.route, launches, B_STREAM // CHUNK_STREAM))
+
+    from wlsqm_tpu_torch.fitter import condprobe
+
+    edge = condprobe.est_certified_edges()["moments"]
+    # every chunk against fit_many(plan=) of that chunk, bit for bit
+    equal = True
+    for lo in range(0, B_STREAM, CHUNK_STREAM):
+        sl = slice(lo, lo + CHUNK_STREAM)
+        ref = wtt.fit_many(torch.from_numpy(xk[sl]).to(dev), torch.from_numpy(fk[sl]).to(dev),
+                           plan=plan, **kw).fi
+        equal &= torch.equal(ref.cpu(), torch.from_numpy(out[sl]))
+    scipy_err = parity_check(xk[:B_SCIPY], fk[:B_SCIPY], out[:B_SCIPY])
+
+    # one chunk's parts, serially: upload from pinned memory, fit, download
+    n = CHUNK_STREAM
+    hx = torch.from_numpy(xk[:n]).pin_memory()
+    hf = torch.from_numpy(fk[:n]).pin_memory()
+    dx, df = torch.empty_like(hx, device=dev), torch.empty_like(hf, device=dev)
+    h2d_ms, _ = _time_ms(lambda: (dx.copy_(hx, non_blocking=True),
+                                  df.copy_(hf, non_blocking=True)))
+    fit_ms, _ = _time_ms(lambda: wtt.fit_many(dx, df, plan=plan, **kw))
+    fi_d = wtt.fit_many(dx, df, plan=plan, **kw).fi
+    ho = torch.empty(fi_d.shape, dtype=torch.float64, pin_memory=True)
+    d2h_ms, _ = _time_ms(lambda: ho.copy_(fi_d, non_blocking=True))
+    chunks = B_STREAM // n
+    up_bytes, down_bytes = (hx.numel() + hf.numel()) * 8, ho.numel() * 8
+    h2d_gbs, d2h_gbs = up_bytes / h2d_ms / 1e6, down_bytes / d2h_ms / 1e6
+    serial_ms = (h2d_ms + fit_ms + d2h_ms) * chunks
+    bound_ms = max(up_bytes * chunks / h2d_gbs / 1e6, down_bytes * chunks / d2h_gbs / 1e6)
+    del hx, hf, dx, df, fi_d, ho
+    line = {"path": "stream", "device": smi, "B": B_STREAM, "chunk": CHUNK_STREAM,
+            "cloud_s": cloud_s, "first_stream_s": first_s, "stream_s": stream_s,
+            "fits_per_s": B_STREAM / stream_s,
+            "serial_sum_ms": serial_ms, "overlap": serial_ms / (stream_s * 1e3),
+            "chunk_h2d_ms": h2d_ms, "chunk_fit_ms": fit_ms, "chunk_d2h_ms": d2h_ms,
+            "h2d_GB_s": h2d_gbs, "d2h_GB_s": d2h_gbs, "pcie_bound_ms": bound_ms,
+            "pcie_bound_fits_per_s": B_STREAM / bound_ms * 1e3,
+            "resident_fit_many_2^23_fits_per_s": B_MAIN / resident_ms * 1e3,
+            "per_chunk_bit_equal": equal, "parity_vs_scipy": scipy_err,
+            "launches": launches, "route": plan.route.path,
+            "assembly": plan.route.assembly, "moment_key_max": float(keys.max()),
+            "moment_key_edge": edge, "cases_over_moment_edge": int((keys > edge).sum()),
+            "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+    print(json.dumps(line), flush=True)
+    if not equal:
+        raise RuntimeError("fit_stream differs from fit_many(plan=) on a chunk")
+    if scipy_err > PARITY:
+        raise RuntimeError("fit_stream parity against scipy %.3e > %.0e" % (scipy_err, PARITY))
+    return (xk, fk, out, keys), launches
+
+
+def phase_sharded(dev, wtt, smi, idx_np, ibvp_plan, stream):
+    """The sharded layer on one card: ``sharded_fit_pallas`` (headline at
+    2^22) on D = 1 and on 4 logical shards of the card, bit-equal to the
+    one-device call; ``sharded_fit_many`` (the engine, at 2^20: its
+    one-device call at 2^22 would not fit beside its temporaries) bit-equal
+    to the engine on each shard's cases, and to 1e-10 of the one-device
+    call (cuBLAS's batched gemv computes the rows past 16 x 65,535 of a
+    2^20 call with another kernel: the last shard differs in the last bits);
+    ``sharded_gather_values`` with the plan on the IBVP cloud, D = 1 and 4,
+    bit-equal to ``gather_rows`` (each shard launches the gather kernel);
+    ``fit_stream(mesh=[card] * 4)`` on the 2^24 cloud under the one-device
+    stream's plan, bit-equal to that stream, and under its own plan, held to
+    1e-10 of scipy on the 1,024 cases with the largest moment keys and of
+    the one-device stream on every case.  Returns the launches of the path
+    (D = 4)."""
+    from wlsqm_tpu_torch.fitter import engine
+    from wlsqm_tpu_torch.ops import fit_kernel, gather
+    from wlsqm_tpu_torch.parallel import sharding
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(91)
+    xk, fk, nk, xi = _cloud(B_SHARD, gen, dev)
+    kw = dict(dimension=2, order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    one_ms, one = _events_ms(lambda: fit_kernel.fit_kernel(xk, fk, nk, xi, **kw))
+    meshes = {D: sharding.make_mesh(devices=[dev] * D) for D in (1, 4)}
+    line = {"path": "sharded", "device": smi, "B_kernel": B_SHARD, "B_engine": B_SHARD_ENGINE,
+            "N_gather": N_IBVP}
+    equal = {}
+    for D, mesh in meshes.items():
+        got = sharding.join(sharding.sharded_fit_pallas(mesh, xk, fk, nk, xi, **kw))
+        equal["fit_pallas_D%d" % D] = torch.equal(got, one)
+        line["fit_pallas_D%d_ms" % D] = _time_ms(
+            lambda: sharding.sharded_fit_pallas(mesh, xk, fk, nk, xi, **kw))[0]
+    line["fit_kernel_ms"] = _time_ms(lambda: fit_kernel.fit_kernel(xk, fk, nk, xi, **kw))[0]
+    del one, got
+
+    s = slice(0, B_SHARD_ENGINE)
+    Be = B_SHARD_ENGINE
+    args = (xk[s], fk[s], nk[s], xi[s], xk.new_zeros((Be, 15)),
+            torch.full((Be,), ORDER, dtype=torch.int32, device=dev),
+            torch.zeros(Be, dtype=torch.int64, device=dev),
+            torch.full((Be,), wtt.WEIGHT_CENTER, dtype=torch.int32, device=dev))
+    ekw = dict(dimension=2, NO=15)
+    ref = engine.fit_batch(*args, **ekw)[0]
+    for D, mesh in meshes.items():
+        ms, got = _events_ms(lambda: sharding.sharded_fit_many(mesh, *args, **ekw)[0])
+        # the engine on each shard's cases in turn, on the default stream: what
+        # the streams and threads must not change
+        own = torch.cat([engine.fit_batch(*a, **ekw)[0] for a in zip(
+            *(torch.tensor_split(t, D) for t in args))])
+        got = sharding.join(got)
+        equal["fit_many_D%d" % D] = torch.equal(got, own)
+        line["fit_many_D%d_bit_equal_to_one_device" % D] = torch.equal(got, ref)
+        line["fit_many_D%d_vs_one_device" % D] = _rel(got, ref)
+        line["fit_many_D%d_ms" % D] = ms
+    line["engine_one_device_ms"] = _events_ms(lambda: engine.fit_batch(*args, **ekw))[0]
+    del ref, got, own, args, xk, fk, nk, xi
+    torch.cuda.empty_cache()
+
+    idx = torch.from_numpy(idx_np).to(dev)
+    u = torch.randn((N_IBVP,), generator=gen, device=dev, dtype=torch.float64)
+    ref = gather.gather_rows(u, idx, ibvp_plan)
+    for D, mesh in meshes.items():
+        got = sharding.join(sharding.sharded_gather_values(mesh, u, idx, plan=ibvp_plan))
+        equal["gather_D%d" % D] = torch.equal(got.view(torch.int64), ref.view(torch.int64))
+        line["gather_D%d_ms" % D] = _time_ms(
+            lambda: sharding.sharded_gather_values(mesh, u, idx, plan=ibvp_plan))[0]
+    line["gather_rows_ms"] = _time_ms(lambda: gather.gather_rows(u, idx, ibvp_plan))[0]
+    del ref, got
+
+    # the path as a user drives it, counted: four logical shards throughout
+    xk_np, fk_np, out1, keys = stream
+    gen = torch.Generator(device=dev).manual_seed(91)
+    xk, fk, nk, xi = _cloud(B_SHARD, gen, dev)
+    out4, out4d = np.empty_like(out1), np.empty_like(out1)
+    out4.fill(0.0)
+    out4d.fill(0.0)
+    mesh = meshes[4]
+    skw = dict(chunk=CHUNK_STREAM, mesh=mesh, order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    _zero_launches()
+    sharding.sharded_fit_pallas(mesh, xk, fk, nk, xi, **kw)
+    sharding.sharded_gather_values(mesh, u, idx, plan=ibvp_plan)
+    # the one-device stream's plan (a mesh plans on 16,384 cases, which may name
+    # the other body: both certified, other bits) ...
+    plan = wtt.plan_fit_many(xk_np[:CHUNK_STREAM], order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    t0 = time.perf_counter()
+    wtt.fit_stream(xk_np, fk_np, out=out4, plan=plan, **skw)
+    line["stream_mesh4_s"] = time.perf_counter() - t0
+    # ... and the mesh's own plan, as a user gets it
+    t0 = time.perf_counter()
+    wtt.fit_stream(xk_np, fk_np, out=out4d, **skw)
+    line["stream_mesh4_default_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    equal["stream_mesh4"] = bool(np.array_equal(out4, out1))
+    line["bit_equal"] = equal
+    # the default mesh stream replays its 16,384-case plan over every case: held
+    # to scipy on the B_SCIPY cases with the largest moment keys, and to the
+    # one-device stream everywhere
+    mplan = wtt.plan_fit_many(xk_np[:16384], order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    top = np.sort(np.argpartition(keys, -B_SCIPY)[-B_SCIPY:])
+    line["stream_mesh4_default_route"] = str(mplan.route)
+    line["stream_mesh4_default_top_keys"] = [float(keys[top].min()), float(keys[top].max())]
+    line["stream_mesh4_default_top_key_vs_scipy"] = parity_check(
+        xk_np[top], fk_np[top], out4d[top])
+    line["stream_top_key_vs_scipy"] = parity_check(xk_np[top], fk_np[top], out1[top])
+    line["stream_mesh4_default_vs_stream"] = float(
+        max(_rel_rows(out4d[lo:lo + CHUNK_STREAM], out1[lo:lo + CHUNK_STREAM]).max()
+            for lo in range(0, B_STREAM, CHUNK_STREAM)))
+    line["launches"] = launches
+    line["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    print(json.dumps(line), flush=True)
+    if not all(equal.values()):
+        raise RuntimeError("a sharded call differs from the one-device call: %s" % (equal,))
+    worst = max(line["fit_many_D%d_vs_one_device" % D] for D in meshes)
+    if worst > PARITY:
+        raise RuntimeError("sharded_fit_many %.3e off the one-device engine" % worst)
+    worst = max(line["stream_mesh4_default_top_key_vs_scipy"],
+                line["stream_mesh4_default_vs_stream"])
+    if worst > PARITY:
+        raise RuntimeError("the default mesh stream is %.3e off scipy or the stream" % worst)
+    if launches["gather_rows"] != 4 or launches["fit_moment_2d"] < 4:
+        raise RuntimeError("the sharded path did not launch the kernels per shard: %s"
+                           % (launches,))
+    return launches
+
+
+def phase_serialization(dev, wtt):
+    """A Prepared of 2^16 order-4 cases to an npz file and back (the JAX
+    package's layout), and through the torch.save pair: solve after loading
+    is bit-equal."""
+    import shutil
+
+    from wlsqm_tpu_torch.utils import serialization
+
+    gen = torch.Generator(device=dev).manual_seed(101)
+    xk, fk, nk, xi = _cloud(B_SERIAL, gen, dev)
+    prep = wtt.prepare(xk, xi, order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    fi1, sens1 = wtt.solve(prep, fk, do_sens=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    line = {"path": "serialization", "B": B_SERIAL}
+    try:
+        for name, save, load in (
+                ("npz", serialization.save_prepared, serialization.load_prepared),
+                ("torch", serialization.save_prepared_torch, serialization.load_prepared_torch)):
+            path = os.path.join(root, "prepared." + name)
+            t0 = time.perf_counter()
+            save(path, prep)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load(path)
+            load_s = time.perf_counter() - t0
+            fi2, sens2 = wtt.solve(back, fk, do_sens=True)
+            line[name] = {"save_s": save_s, "load_s": load_s,
+                          "file_mb": os.path.getsize(path) / 1e6,
+                          "device": str(back.c.device),
+                          "bit_equal": torch.equal(fi1, fi2) and torch.equal(
+                              sens1.nan_to_num(), sens2.nan_to_num())}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(line), flush=True)
+    if not all(line[n]["bit_equal"] and line[n]["device"].startswith("cuda")
+               for n in ("npz", "torch")):
+        raise RuntimeError("a Prepared did not round-trip bit for bit: %s" % (line,))
+
+
+def phase_warmup(dev, wtt):
+    """``warmup()`` with its default configurations: in this process, where
+    the libraries are built and loaded (warm), and in a fresh interpreter,
+    which loads the built libraries and launches every instance for the first
+    time (cold; the nvcc builds themselves are ``phase_build``'s).  Returns
+    the launches of the warm call."""
+    _zero_launches()
+    t0 = time.perf_counter()
+    reports = wtt.warmup()
+    warm_s = time.perf_counter() - t0
+    launches = _kernel_launches()
+    code = ("import json, time; t0 = time.perf_counter(); import wlsqm_tpu_torch as w; "
+            "r = w.warmup(); print(json.dumps({'s': time.perf_counter() - t0, "
+            "'launches': [x['launches'] for x in r]}))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    cold_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError("warmup in a fresh interpreter failed:\n" + proc.stderr[-4000:])
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    line = {"path": "warmup", "warm_s": warm_s, "cold_process_wall_s": cold_wall,
+            "cold_warmup_s": cold["s"], "launches": launches,
+            "configs": [{k: r[k] for k in ("config", "path", "assembly", "compile_s", "run_s",
+                                          "launches")} for r in reports]}
+    print(json.dumps(line), flush=True)
+    for rep in reports:
+        n = rep["launches"]
+        if (n["fit_moment_2d"] + n["fit_rows"] < 2
+                or n["cond_estimate@fit_moment_2d"] + n["cond_estimate@fit_rows"] < 1):
+            raise RuntimeError("warmup did not launch a configuration's instances: %s" % rep)
+    if cold["launches"] != [r["launches"] for r in reports]:
+        raise RuntimeError("the fresh interpreter's warmup launched otherwise: %s" % cold)
+    return launches
+
+
+def phase_kdtree(pts, idx_np, setup):
+    """The native k-d tree on the IBVP cloud (2^22 points, K = 28): build
+    and query seconds beside scipy's cKDTree on all cores, with equal
+    neighbour sets (and equal to the IBVP set-up's, which used it)."""
+    import scipy.spatial
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.utils import neighbors
+
+    if not native.available():
+        raise RuntimeError("the native k-d tree is not available on this machine")
+    if not isinstance(neighbors.host_tree(pts[:16]), native.KDTree):
+        raise RuntimeError("host_tree did not pick the native tree")
+    t0 = time.perf_counter()
+    tree = native.KDTree(pts)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, idx_n = tree.query(pts, k=K_IBVP)
+    query_s = time.perf_counter() - t0
+    del tree
+    t0 = time.perf_counter()
+    st = scipy.spatial.cKDTree(pts)
+    sbuild_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, idx_s = st.query(pts, k=K_IBVP, workers=-1)
+    squery_s = time.perf_counter() - t0
+    del st
+    same = bool(np.array_equal(np.sort(idx_n, 1), np.sort(idx_s, 1)))
+    same_setup = bool(np.array_equal(idx_n.astype(np.int32), idx_np))
+    line = {"path": "kdtree", "n": len(pts), "k": K_IBVP, "cores": os.cpu_count(),
+            "native_build_s": build_s, "native_query_s": query_s,
+            "scipy_build_s": sbuild_s, "scipy_query_s": squery_s,
+            "ibvp_setup_knn_s": setup["knn_host_s"],
+            "neighbour_sets_equal": same, "equal_to_setup": same_setup}
+    print(json.dumps(line), flush=True)
+    if not (same and same_setup):
+        raise RuntimeError("the native tree's neighbours differ from scipy's: %s" % (line,))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
@@ -2576,7 +3112,20 @@ def main() -> int:
     expert = phase_expert(dev, wtt, smi.splitlines()[0])
     torch.cuda.empty_cache()
     compat = phase_compat(dev, wtt, smi.splitlines()[0])
-    by_path = {"expert": expert, **compat}
+    torch.cuda.empty_cache()
+    grad = phase_grad(dev, wtt)
+    torch.cuda.empty_cache()
+    stream, stream_launches = phase_stream(dev, wtt, smi.splitlines()[0],
+                                           moment["route_ms_2^23"])
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(dev, wtt, smi.splitlines()[0], idx_np, plan, stream)
+    del stream
+    torch.cuda.empty_cache()
+    phase_serialization(dev, wtt)
+    warm = phase_warmup(dev, wtt)
+    phase_kdtree(pts, idx_np, setup)
+    by_path = {"expert": expert, **compat, "grad": grad, "stream": stream_launches,
+               "sharded": sharded, "warmup": warm}
 
     def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2602,7 +3151,8 @@ def main() -> int:
               "IBVP step: n=2^22, K=28, f64, F=1 (ms_F3, library_ms_F3, bound_ms_F3: "
               "F=3); launches over %d steps, library torch.index_select" % STEPS,
               batch=N_IBVP, **{k: ibvp[k] for k in ("ms_F3", "library_ms_F3", "bound_ms_F3",
-                                                    "launches_F3")}),
+                                                    "launches_F3")},
+              launches_by_path={p: n["gather_rows"] for p, n in by_path.items()}),
         *(entry("cond_estimate@" + kernel, "wlsqm_tpu_torch/csrc/%s.cu" % src,
                 "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],
                 dict(t, launches=cert_launches["cond_estimate@" + kernel]),

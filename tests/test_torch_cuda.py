@@ -849,3 +849,145 @@ def test_compat_entry_points_without_a_card_raise(monkeypatch):
     fi = np.zeros(6)
     wtt.fit_2D(xk, xk[:, 0], np.zeros(2), fi, device="cpu")
     np.testing.assert_allclose(fi[:3], [0.0, 1.0, 0.0], atol=1e-12)
+
+
+# -- gradients, the stream, the sharded layer and warmup on the card ------------
+
+def _headline(dev, B, seed):
+    xk, fk, nk, xi = _cloud(dev, B, 30, 4, seed=seed, ragged=False)
+    return xk, fk, xi
+
+
+def test_grad_through_fit_many_is_the_engines(dev):
+    """fit_many with fk (and then xk) requiring grad warns, never launches a
+    kernel, and its gradient is the engine's; a kernel route raises; under
+    no_grad the route launches the moment kernel again."""
+    from wlsqm_tpu_torch.fitter import engine
+
+    xk, fk, xi = _headline(dev, 4096, 61)
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk, xi, **kw)
+    assert plan.route.path == "kernel"
+    before = (fit_kernel.LAUNCHES, fit_rows.LAUNCHES)
+    for name in ("fk", "xk"):
+        t = dict(xk=xk.clone(), fk=fk.clone())
+        t[name].requires_grad_(True)
+        with pytest.warns(UserWarning, match="autograd"):
+            fi = wtt.fit_many(t["xk"], t["fk"], xi, **kw).fi
+        g = torch.randn_like(fi)
+        got = torch.autograd.grad((fi * g).sum(), t[name])[0]
+        e = dict(xk=xk.clone(), fk=fk.clone())
+        e[name].requires_grad_(True)
+        B = xk.shape[0]
+        ref_fi = engine.fit_batch(e["xk"], e["fk"], torch.full((B,), 30, device=dev),
+                                  xi, xk.new_zeros((B, 15)),
+                                  torch.full((B,), 4, device=dev, dtype=torch.int32),
+                                  torch.zeros(B, device=dev, dtype=torch.int64),
+                                  torch.full((B,), wtt.WEIGHT_CENTER, device=dev,
+                                             dtype=torch.int32), dimension=2, NO=15)[0]
+        ref = torch.autograd.grad((ref_fi * g).sum(), e[name])[0]
+        assert _rel(got.reshape(B, -1), ref.reshape(B, -1)) <= PARITY
+        for bad in (dict(backend="kernel"), dict(plan=plan)):
+            with pytest.raises(ValueError, match="fit_rows_diffable"):
+                wtt.fit_many(t["xk"], t["fk"], xi, **kw, **bad)
+    torch.cuda.synchronize()
+    assert (fit_kernel.LAUNCHES, fit_rows.LAUNCHES) == before
+    with torch.no_grad():
+        wtt.fit_many(xk, fk.clone().requires_grad_(True), xi, plan=plan, **kw)
+    assert fit_kernel.LAUNCHES == before[0] + 1
+    with pytest.raises(ValueError, match="no backward"):
+        fit_kernel.fit_kernel(xk, fk.clone().requires_grad_(True), torch.full(
+            (xk.shape[0],), 30, device=dev), xi, dimension=2, order=4,
+            weighting=wtt.WEIGHT_CENTER)
+
+
+def test_fixed_trip_is_the_loop_form_on_the_card(dev):
+    from wlsqm_tpu_torch.fitter import engine
+
+    xk, fk, nk, xi = _cloud(dev, 4096, 30, 4, seed=62)
+    fk = fk + 1e-3 * torch.randn_like(fk)
+    B = xk.shape[0]
+    args = (xk, fk, nk, xi, xk.new_zeros((B, 15)),
+            torch.full((B,), 4, device=dev, dtype=torch.int32),
+            torch.zeros(B, device=dev, dtype=torch.int64),
+            torch.full((B,), wtt.WEIGHT_CENTER, device=dev, dtype=torch.int32))
+    kw = dict(dimension=2, NO=15, iterative=True, max_iter=5)
+    loop = engine.fit_batch(*args, **kw)
+    fixed = engine.fit_batch(*args, fixed_trip=True, **kw)
+    assert torch.equal(loop[0], fixed[0]) and torch.equal(loop[2], fixed[2])
+    assert int(loop[2].max()) >= 1
+
+
+def test_fit_stream_is_fit_many_per_chunk(dev):
+    """fit_stream on a host cloud: every chunk bit-equal to fit_many(plan=)
+    of that chunk, one moment launch a chunk; and over four logical shards
+    of the card."""
+    g = np.random.default_rng(63)
+    B, chunk = 70_000, 16_384
+    xk = g.uniform(-1, 1, (B, 30, 2))
+    fk = np.sin(3 * xk[..., 0]) * np.cos(2 * xk[..., 1])
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER)
+    before = fit_kernel.LAUNCHES
+    res = wtt.fit_stream(xk, fk, chunk=chunk, **kw)
+    n_chunks = -(-B // chunk)
+    assert fit_kernel.LAUNCHES - before == n_chunks
+    plan = wtt.plan_fit_many(xk[:chunk], **kw)
+    for lo in range(0, B, chunk):
+        hi = min(lo + chunk, B)
+        ref = wtt.fit_many(xk[lo:hi], fk[lo:hi], plan=plan, **kw).fi.cpu().numpy()
+        np.testing.assert_array_equal(res.fi[lo:hi], ref)
+    mesh = [dev] * 4
+    res4 = wtt.fit_stream(xk, fk, chunk=chunk, mesh=mesh, plan=plan, **kw)
+    np.testing.assert_array_equal(res4.fi, res.fi)
+
+
+def test_sharded_fit_pallas_and_gather_local_on_four_logical_shards(dev):
+    from wlsqm_tpu_torch.parallel import sharding
+
+    xk, fk, nk, xi = _cloud(dev, 65_536, 30, 4, seed=64)
+    kw = dict(dimension=2, order=4, weighting=wtt.WEIGHT_CENTER)
+    one = fit_kernel.fit_kernel(xk, fk, nk, xi, **kw)
+    for D in (1, 4):
+        mesh = sharding.make_mesh(devices=[dev] * D)
+        before = fit_kernel.LAUNCHES
+        got = sharding.join(sharding.sharded_fit_pallas(mesh, xk, fk, nk, xi, **kw))
+        assert fit_kernel.LAUNCHES == before + D
+        assert torch.equal(got, one)
+
+    rng = np.random.default_rng(65)
+    n, K = 1 << 14, 12
+    pts = rng.uniform(-1, 1, (n, 2))
+    pts = pts[gather.morton_order(pts)]
+    from wlsqm_tpu_torch.utils import neighbors
+
+    idx, _ = neighbors.knn(pts, pts, K, backend="host")
+    plan = gather.plan_window_gather(idx, n)
+    u = torch.randn((n, 3), dtype=torch.float64, device=dev)
+    ref = gather.gather_rows(u, idx, plan)
+    for D in (1, 3, 4):
+        mesh = sharding.make_mesh(devices=[dev] * D)
+        before = gather.LAUNCHES
+        got = sharding.join(sharding.sharded_gather_values(mesh, u, idx, plan=plan))
+        assert gather.LAUNCHES == before + D
+        assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+    # gather_local on each of four slices of the plan
+    meta = np.asarray(plan.meta, np.int32).reshape(plan.nblk, 3)
+    nb, Bs = plan.nblk // 4, n // 4
+    kw = dict(window=plan.window, TKp=-(-plan.T * K // 128) * 128, n_pad=plan.n_pad,
+              T=plan.T)
+    before = gather.LAUNCHES
+    got = torch.cat([gather.gather_local(u, idx[s * Bs:(s + 1) * Bs],
+                                         meta[s * nb:(s + 1) * nb], np.zeros(1, np.int32), **kw)
+                     for s in range(4)])
+    assert gather.LAUNCHES == before + 4
+    assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+
+
+def test_warmup_builds_and_launches_every_instance(dev):
+    reports = wtt.warmup()
+    assert len(reports) == 5
+    for rep in reports:
+        n = rep["launches"]
+        key = n["cond_estimate@fit_moment_2d"] + n["cond_estimate@fit_rows"]
+        assert n["fit_moment_2d"] + n["fit_rows"] >= 2 and key >= 1, rep
+    assert {r["assembly"] for r in reports} == {"moments", "rows"}

@@ -19,7 +19,9 @@ def test_import_leaves_jax_out():
             "wlsqm_tpu_torch.fitter.simple, wlsqm_tpu_torch.fitter.impl, "
             "wlsqm_tpu_torch.fitter.infra, wlsqm_tpu_torch.utils.lapackdrivers, "
             "wlsqm_tpu_torch.utils.ptrwrap, "
-            "wlsqm_tpu_torch.examples.ibvp_heat, wlsqm_tpu_torch.native; "
+            "wlsqm_tpu_torch.examples.ibvp_heat, wlsqm_tpu_torch.native, "
+            "wlsqm_tpu_torch.parallel.sharding, wlsqm_tpu_torch.utils.serialization, "
+            "wlsqm_tpu_torch.utils.profiling, wlsqm_tpu_torch.warmup; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wlsqm_tpu' not in sys.modules; print('ok')")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -32,11 +34,11 @@ def test_import_leaves_jax_out():
 def test_public_names():
     import wlsqm_tpu_torch as wtt
 
-    for name in ("fit", "fit_many", "plan_fit_many", "FitPlan", "FitResult",
+    for name in ("fit", "fit_many", "fit_stream", "plan_fit_many", "FitPlan", "FitResult",
                  "Prepared", "prepare", "solve", "interpolate", "WEIGHT_CENTER",
                  "number_of_dofs", "i2_X4", "b3_XYZ2", "ExpertSolver",
                  "set_compat_precision", "compat_precision", "interpolate_fit",
-                 "lambdify_fit",
+                 "lambdify_fit", "warmup",
                  "interpolate_continuous"):
         assert hasattr(wtt, name), name
     from wlsqm_tpu_torch.fitter import simple

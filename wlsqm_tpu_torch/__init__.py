@@ -19,7 +19,10 @@ This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
   ``utils.lapackdrivers`` and ``utils.ptrwrap`` keep the reference's module
   names;
 * :mod:`~wlsqm_tpu_torch.api` — ``fit``, ``fit_many``, ``plan_fit_many``,
-  the expert-mode ``prepare`` / ``solve`` and ``interpolate``;
+  ``fit_stream`` (host clouds in chunks), the expert-mode ``prepare`` /
+  ``solve`` and ``interpolate``;
+* :mod:`~wlsqm_tpu_torch.parallel.sharding` — the case axis over a list
+  of devices;
 * :mod:`~wlsqm_tpu_torch.fitter.engine` — the batched f64 engine and
   ``Prepared``; :mod:`~wlsqm_tpu_torch.fitter.interp` and
   :mod:`~wlsqm_tpu_torch.fitter.polyeval` — evaluation of fitted models;
@@ -30,8 +33,12 @@ This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
   ``fit_rows_diffable``;
 * :mod:`~wlsqm_tpu_torch.ops.gather` — the IBVP step's gather ``u[idx]``
   (Morton order, window plan, the gather kernel and its plain version);
-* :mod:`~wlsqm_tpu_torch.utils.neighbors` — kNN on the device or scipy's
-  k-d tree;
+* :mod:`~wlsqm_tpu_torch.utils.neighbors` — kNN on the device or a host
+  k-d tree (the native one of :mod:`~wlsqm_tpu_torch.native`, or scipy's);
+* :mod:`~wlsqm_tpu_torch.utils.serialization` — a Prepared to and from an
+  ``.npz`` file in the JAX package's layout; :mod:`~wlsqm_tpu_torch.utils.profiling`
+  — a synchronising timer and a ``torch.profiler`` trace;
+* :mod:`~wlsqm_tpu_torch.warmup` — build the kernels and warm the routes;
 * :mod:`~wlsqm_tpu_torch.examples.ibvp_heat` — the heat-equation time
   stepper.
 
@@ -57,6 +64,7 @@ from wlsqm_tpu_torch.fitter.expert import ExpertSolver  # noqa: F401
 from wlsqm_tpu_torch.api import (  # noqa: F401
     fit,
     fit_many,
+    fit_stream,
     plan_fit_many,
     FitPlan,
     FitResult,
@@ -65,3 +73,4 @@ from wlsqm_tpu_torch.api import (  # noqa: F401
     interpolate,
 )
 from wlsqm_tpu_torch.fitter.engine import Prepared  # noqa: F401
+from wlsqm_tpu_torch.warmup import warmup  # noqa: F401

@@ -1,7 +1,8 @@
 """Functional PyTorch API for wlsqm_tpu_torch.
 
-Port of :mod:`wlsqm_tpu.api`: ``fit_many`` and its plan, the expert-mode
-``prepare`` / ``solve`` pair and ``interpolate``.  Typical flow::
+Port of :mod:`wlsqm_tpu.api`: ``fit_many`` and its plan, ``fit_stream``
+for clouds in host memory, the expert-mode ``prepare`` / ``solve`` pair and
+``interpolate``.  Typical flow::
 
     import wlsqm_tpu_torch as wtt
 
@@ -35,7 +36,9 @@ card, and a machine without one raises (``device="cpu"`` runs on the CPU).
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -45,8 +48,8 @@ from wlsqm_tpu_torch.fitter import calibration, condprobe, defs, engine, interp,
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
 
-__all__ = ["FitResult", "FitPlan", "fit", "fit_many", "plan_fit_many", "prepare",
-           "solve", "interpolate"]
+__all__ = ["FitResult", "FitPlan", "fit", "fit_many", "fit_stream", "plan_fit_many",
+           "prepare", "solve", "interpolate"]
 
 #: backend names; the JAX package's "pallas" and "xla" are synonyms
 _BACKENDS = {"auto": "auto", "kernel": "kernel", "engine": "engine",
@@ -381,6 +384,25 @@ def _kernel_shape_ok(K: int, dim: int, order: int) -> bool:
     return K >= (3 * defs.number_of_dofs(dim, order)) // 2
 
 
+_GRAD_HINT = (
+    "differentiate through backend='engine' (wlsqm_tpu_torch.fitter.engine.fit_batch, "
+    "gradients in xk, fk, xi and fi_init) or, for gradients in fk at kernel speed, "
+    "wlsqm_tpu_torch.ops.fit_rows.fit_rows_diffable")
+
+
+def _grad_to_engine(name: str) -> None:
+    """The autograd rule of ``backend="auto"``: the kernels have no backward,
+    so a call that autograd records runs the f64 engine, with a warning (the
+    JAX package's rule for traced calls, wlsqm_tpu/api.py:589-603)."""
+    warnings.warn(
+        "%s(backend='auto') under autograd: an input requires grad and the CUDA "
+        "kernels have no backward, so this call runs the f64 engine, which autograd "
+        "differentiates (the JAX package degrades a traced call the same way). Under "
+        "torch.no_grad() the call routes as usual; for gradients in fk at kernel "
+        "speed use wlsqm_tpu_torch.ops.fit_rows.fit_rows_diffable." % name,
+        UserWarning, stacklevel=3)
+
+
 def _check_mixed_steps(mixed_steps) -> None:
     """``mixed_steps`` tunes the sweeps of the JAX package's emulated
     precisions ("mixed", "fast", "ds"); this package solves in f64, so only
@@ -456,6 +478,12 @@ def fit_many(
         there, and with no card the call raises.  ``device="cpu"`` computes
         on the CPU.
 
+    Under autograd (grad mode on and any of xk, fk, xi, fi_init requiring
+    grad) the kernels are never launched, since they have no backward:
+    ``backend="auto"`` runs the f64 engine with a ``UserWarning``, and a
+    kernel route (``backend="kernel"``, or a plan whose route is a kernel)
+    raises ``ValueError``.  Under ``torch.no_grad()`` nothing changes.
+
     Returns a :class:`FitResult` of tensors on that device.
     """
     if backend not in _BACKENDS:
@@ -502,6 +530,17 @@ def fit_many(
         want = plan.route.assembly
         if refine_steps is None:
             refine_steps = plan.route.refine_steps
+
+    if config.wants_grad(xk, fk, xi, fi_init):
+        if backend == "kernel":
+            raise ValueError(
+                "fit_many: a kernel route (backend='kernel' or a plan whose route is a "
+                "kernel) under autograd: the CUDA kernels have no backward, so the "
+                "gradient would be missing; %s, or call it under torch.no_grad()"
+                % _GRAD_HINT)
+        if backend == "auto":
+            _grad_to_engine("fit_many")
+            backend = "engine"
 
     if backend == "kernel":
         o, kn, wm = (_homogeneous(v, device) for v in (order, knowns, weighting))
@@ -686,6 +725,8 @@ def plan_fit_many(
     default here; ``fit_many``'s auto route honours it too).
     ``refine_steps`` pins the kernel's sweeps and disables the split.  On
     CPU tensors a kernel route runs the kernel's plain torch version.
+    Geometry that autograd records plans the engine, with a warning: a
+    kernel route would raise on replay under autograd.
     """
     scalars = tuple(_scalar(v) for v in (order, knowns, weighting))
     for name, s in zip(("order", "knowns", "weighting"), scalars):
@@ -702,6 +743,9 @@ def plan_fit_many(
     count_fidelity = iterative and config.iter_count_fidelity()
     assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
                 if _kernel_shape_ok(K, dim, o) and not count_fidelity else None)
+    if assembly is not None and config.wants_grad(xk, xi):
+        _grad_to_engine("plan_fit_many")
+        assembly = None
     if assembly is None:
         return FitPlan(route=ladder.Route(path="xla", precision=engine.PRECISION_F64))
     cond_amp = condprobe.probe(xk, nk, xi, o, wm, dimension=dim, knowns=kn)
@@ -839,3 +883,218 @@ def interpolate(fi, xi, x, *, dimension: int, order: int, diff: int = 0, device=
     """
     return interp.eval_fit(fi, xi, x, dimension=dimension, order=order, diff=diff,
                            device=device)
+
+
+# ---------------------------------------------------------------------------
+# Streaming clouds that live in host memory
+# ---------------------------------------------------------------------------
+
+#: host threads that copy a chunk into, and its results out of, pinned memory
+_COPY_THREADS = 8
+
+
+def _fill(dst: np.ndarray, src, lo: int, hi: int, a: int, pool=None) -> None:
+    """``dst`` <- rows [a, a + len(dst)) of ``src``'s chunk [lo, hi), the rows
+    past ``hi`` filled with the chunk's first row (the reference's padding);
+    with a ``pool``, copied by its threads."""
+    m = max(0, min(len(dst), hi - a))
+    if m < len(dst):
+        dst[m:] = src[lo]
+    if pool is None:
+        dst[:m] = src[a:a + m]
+        return
+    step = max(1, -(-m // _COPY_THREADS))
+    list(pool.map(lambda r: np.copyto(dst[r:min(r + step, m)], src[a + r:a + min(r + step, m)]),
+                  range(0, m, step)))
+
+
+def _padded(src, lo: int, hi: int, a: int, n: int) -> np.ndarray:
+    """Rows [a, a + n) of ``src``'s chunk [lo, hi), padded as :func:`_fill` pads."""
+    out = np.empty((n,) + src.shape[1:], src.dtype)
+    _fill(out, src, lo, hi, a)
+    return out
+
+
+class _Lane:
+    """One device's share of each chunk: on a card, two pinned staging
+    slots for the inputs and two for the results, the inputs' device
+    slots, an upload stream and a compute stream, and the events that keep
+    a slot from being refilled while a copy still reads it."""
+
+    def __init__(self, device, n, arrays, NO):
+        self.device, self.n = device, n
+        self.cuda = device.type == "cuda"
+        self.pending = [None, None]
+        if not self.cuda:
+            return
+        f64 = dict(dtype=torch.float64)
+        self.host = [{k: torch.empty((n,) + a.shape[1:], dtype=dt, pin_memory=True)
+                      for k, (a, dt) in arrays.items()} for _ in range(2)]
+        self.dev = [{k: torch.empty((n,) + a.shape[1:], dtype=dt, device=device)
+                     for k, (a, dt) in arrays.items()} for _ in range(2)]
+        self.fi = [torch.empty((n, NO), pin_memory=True, **f64) for _ in range(2)]
+        self.it = [torch.empty((n,), dtype=torch.int32, pin_memory=True) for _ in range(2)]
+        self.up = torch.cuda.Stream(device)
+        self.comp = torch.cuda.Stream(device)
+        self.uploaded = [torch.cuda.Event() for _ in range(2)]
+        self.consumed = [torch.cuda.Event() for _ in range(2)]
+        self.fetched = [torch.cuda.Event() for _ in range(2)]
+
+    def launch(self, c, arrays, lo, hi, a, fit, pool) -> None:
+        """Chunk c's rows [a, a + n): stage, upload and fit (queued)."""
+        slot = c % 2
+        if not self.cuda:
+            self.pending[slot] = fit({k: torch.from_numpy(_padded(src, lo, hi, a, self.n))
+                                      for k, (src, _) in arrays.items()})
+            return
+        self.uploaded[slot].synchronize()      # the upload of chunk c - 2 read this slot
+        for k, (src, _) in arrays.items():
+            _fill(self.host[slot][k].numpy(), src, lo, hi, a, pool)
+        with torch.cuda.device(self.device):
+            with torch.cuda.stream(self.up):
+                self.up.wait_event(self.consumed[slot])   # chunk c - 2's fit is done with it
+                for k in arrays:
+                    self.dev[slot][k].copy_(self.host[slot][k], non_blocking=True)
+                self.uploaded[slot].record(self.up)
+            with torch.cuda.stream(self.comp):
+                self.comp.wait_event(self.uploaded[slot])
+                res = fit(self.dev[slot])
+                self.consumed[slot].record(self.comp)
+                self.fi[slot].copy_(res.fi, non_blocking=True)
+                self.it[slot].copy_(res.iterations, non_blocking=True)
+                self.fetched[slot].record(self.comp)
+        self.pending[slot] = res
+
+    def drain(self, c, fi_out, iters_out, a, m, pool) -> None:
+        """Write chunk c's first m results to rows [a, a + m) of the outputs."""
+        slot = c % 2
+        res, self.pending[slot] = self.pending[slot], None
+        if not self.cuda:
+            fi_out[a:a + m] = res.fi[:m].numpy()
+            iters_out[a:a + m] = res.iterations[:m].numpy()
+            return
+        self.fetched[slot].synchronize()
+        _fill(fi_out[a:a + m], self.fi[slot].numpy(), 0, m, 0, pool)
+        iters_out[a:a + m] = self.it[slot].numpy()[:m]
+
+
+def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536, out=None, mesh=None,
+               **kwargs) -> FitResult:
+    """Fit a cloud that lives in host memory, streaming fixed-size chunks.
+
+    Port of the JAX package's ``fit_stream`` (wlsqm_tpu/api.py:902-1022).
+    Host arrays (NumPy, ``np.memmap`` included) are uploaded one chunk at a
+    time and fitted with :func:`fit_many`; the DOFs land in a host array, so
+    the cloud is bounded by host storage, not device memory.  On a card each
+    device keeps two pinned staging slots: a chunk is copied into one and
+    uploaded on a side stream while the previous chunk computes on the
+    compute stream, with events between them, and its results come back
+    into pinned memory and are written straight into ``out``.  The last
+    partial chunk is padded by repeating its first row, as the reference
+    does.  (The reference streams nothing: its OpenMP loop holds the whole
+    problem set in RAM, wlsqm/fitter/simple.pyx:953ff.)
+
+    xk (B, K, dim) | fk (B, K) | xi (B, dim) | nk (B,) — host array-likes.
+    chunk: cases per step (default 65536).
+    out: optional preallocated (B, NO) f64 array for the DOFs.
+    mesh: optional list of devices (:func:`wlsqm_tpu_torch.parallel.sharding.make_mesh`;
+        one device may repeat).  Each chunk, rounded up to a multiple of the
+        device count, is split over them, each device streaming its share
+        on its own streams (the JAX package's ``_fit_stream_sharded``).  With
+        per-case ``order``/``knowns``/``weighting``/``fi_init`` arrays each
+        share runs :func:`fit_many`'s eager routing on its own cases (the
+        JAX package's ``_fit_stream_sharded_hetero`` decides a chunk's
+        routes once for all shards; both certify every route).
+    kwargs: forwarded to :func:`fit_many` (order, weighting, backend, gate,
+        device, ...); per-case parameter arrays are sliced with the
+        geometry.  ``do_sens``/``debug`` are refused (their outputs would not
+        stream); call :func:`fit_many` on a chunk.
+
+    With a scalar configuration and ``backend="auto"`` the route is planned
+    once (:func:`plan_fit_many`) on the first ``min(B, chunk)`` cases and
+    replayed on every chunk.  Returns a :class:`FitResult` of host NumPy
+    arrays (``sens`` None).
+    """
+    if kwargs.get("do_sens") or kwargs.get("debug"):
+        raise ValueError("fit_stream does not support do_sens/debug; "
+                         "call fit_many on individual chunks instead")
+    device = kwargs.pop("device", None)
+    xk = np.asarray(xk)
+    if xk.ndim == 2:
+        xk = xk[:, :, None]
+    B, K, dim = xk.shape
+    fk = np.asarray(fk)
+    xi_np = None if xi is None else np.asarray(xi)
+    nk_np = None if nk is None else np.asarray(nk)
+    per_case = {}
+    for key in ("order", "knowns", "weighting", "fi_init"):
+        v = kwargs.get(key)
+        if v is not None and np.ndim(v) >= 1:
+            per_case[key] = np.asarray(v)
+
+    order = kwargs.get("order", 2)
+    max_order = kwargs.get("max_order") or int(np.max(np.asarray(order)))
+    NO = defs.number_of_dofs(dim, max_order)
+    kwargs.setdefault("max_order", max_order)
+
+    fi_out = out if out is not None else np.empty((B, NO), np.float64)
+    if fi_out.shape != (B, NO):
+        raise ValueError("out must have shape (%d, %d)" % (B, NO))
+    iters_out = np.zeros((B,), np.int32)
+    result = FitResult(fi=fi_out, sens=None, iterations=iters_out,
+                       cond_scaled=np.full((B,), np.nan))
+    if B == 0:
+        return result
+
+    from wlsqm_tpu_torch.parallel import sharding
+
+    devs = (sharding.make_mesh(devices=mesh) if mesh is not None
+            else [config.resolve_device(device)])
+    if (kwargs.get("backend", "auto") == "auto" and "plan" not in kwargs
+            and not per_case and (B >= chunk or mesh is not None)):
+        # plan once, replay per chunk: the stream neither re-probes every chunk
+        # nor flip-flops between routes; the probe needs representative
+        # geometry only, so a mesh's plan looks at no more than 16,384 cases
+        probe_n = min(B, chunk if mesh is None else min(chunk, 16384))
+        kwargs["plan"] = plan_fit_many(
+            xk[:probe_n], None if xi_np is None else xi_np[:probe_n],
+            nk=None if nk_np is None else nk_np[:probe_n], order=order,
+            knowns=kwargs.get("knowns", 0),
+            weighting=kwargs.get("weighting", defs.WEIGHT_UNIFORM),
+            iterative=bool(kwargs.get("iterative", False)),
+            precision=kwargs.get("precision"), refine_steps=kwargs.get("refine_steps"),
+            device=devs[0])
+
+    D = len(devs)
+    step = sharding.pad_cases(min(chunk, B), D)
+    sub = step // D
+    arrays = {"xk": (xk, torch.float64), "fk": (fk, torch.float64)}
+    if xi_np is not None:
+        arrays["xi"] = (xi_np, torch.float64)
+    if nk_np is not None:
+        arrays["nk"] = (nk_np, torch.int32)
+    lanes = [_Lane(d, sub, arrays, NO) for d in devs]
+    kw = {k: v for k, v in kwargs.items() if k not in per_case}
+
+    def fitter(lo, hi, a, lane):
+        def fit(t):
+            cases = {k: _padded(v, lo, hi, a, sub) for k, v in per_case.items()}
+            return fit_many(t["xk"], t["fk"], t.get("xi"), nk=t.get("nk"),
+                            device=lane.device, **cases, **kw)
+        return fit
+
+    chunks = list(range(0, B, step))
+    with concurrent.futures.ThreadPoolExecutor(_COPY_THREADS) as pool:
+        for c, lo in enumerate(chunks + [None]):
+            if lo is not None:
+                hi = min(lo + step, B)
+                for i, lane in enumerate(lanes):
+                    a = lo + i * sub
+                    lane.launch(c, arrays, lo, hi, a, fitter(lo, hi, a, lane), pool)
+            if c:
+                plo = chunks[c - 1]
+                phi = min(plo + step, B)
+                for i, lane in enumerate(lanes):
+                    a = plo + i * sub
+                    lane.drain(c - 1, fi_out, iters_out, a, max(0, min(sub, phi - a)), pool)
+    return result

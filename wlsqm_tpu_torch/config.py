@@ -58,6 +58,21 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype = DTYPE) -> torch.Tens
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record an operation on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, hint: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel launch: a kernel
+    writes its outputs through a raw pointer, so they carry no gradient, or
+    only the part the wrapper's own torch passes give."""
+    if wants_grad(*tensors):
+        raise ValueError("%s: the CUDA kernel has no backward, and an input requires "
+                         "grad; %s, or call it under torch.no_grad()" % (name, hint))
+
+
 # ---------------------------------------------------------------------------
 # The compat surface's routing knobs (the JAX package's wlsqm_tpu/config.py
 # l.77-162, same names, values and environment variables).

@@ -323,7 +323,8 @@ def solve_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
 
 
 def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
-                             max_iter: int, do_sens: bool = False):
+                             max_iter: int, do_sens: bool = False,
+                             fixed_trip: bool = False):
     """Fit with iterative refinement (ALGO_ITERATIVE).
 
     Follows the reference (reference: wlsqm/fitter/impl.pyx:986-1083
@@ -331,6 +332,13 @@ def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     the data points, take the l∞ residual norm over valid neighbors, and stop
     on *exact* norm stagnation (norm == previous norm) or after ``max_iter``
     corrective fits.  Sensitivities come from the initial solve only.
+
+    The loop form reads ``done.all()`` on the host after every trip and
+    stops when every case has stagnated.  ``fixed_trip=True`` runs exactly
+    ``max_iter`` masked trips with no host read (the JAX package's
+    ``lax.scan`` form): stagnated cases are masked, so the DOFs and counts
+    are bit-identical to the loop form, and trips past all-stagnation are
+    no-ops.  Autograd differentiates either form here.
 
     Returns (fi_out, sens, iterations) with per-case iteration counts; fk
     (F, B, K) solves F fields as :func:`solve_prepared` does, with counts
@@ -342,8 +350,9 @@ def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     done = torch.zeros(shape, dtype=torch.bool, device=fk.device)
     prev_norm = torch.full(shape, -1.0, dtype=fk.dtype, device=fk.device)
     iters = torch.zeros(shape, dtype=torch.int32, device=fk.device)
-    i = 0
-    while i < max_iter and not bool(done.all()):
+    for _ in range(max_iter):
+        if not fixed_trip and bool(done.all()):
+            break
         coeffs = torch.where(prep.active, fi_cur, 0.0)
         model = torch.einsum("bkj,...bj->...bk", prep.c, coeffs)
         resid = torch.where(kmask, fk - model, 0.0)
@@ -355,7 +364,6 @@ def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
         fi_cur = torch.where(done[..., None], fi_cur, fi_new)
         iters = iters + (~done).to(torch.int32)
         prev_norm = norm
-        i += 1
     return fi_cur, sens, iters
 
 
@@ -383,11 +391,13 @@ def fit_batch(
     ruiz_max_iter: int = ruiz_ops.RUIZ_MAX_ITER,
     ruiz_eps: float = ruiz_ops.RUIZ_EPS,
     scaling: str = "ruiz",
+    fixed_trip: bool = False,
 ):
     """Fit a batch of local models end to end, in float64.
 
     Returns (fi_out, sens, iterations, cond_scaled); ``sens`` is an empty
-    tensor unless ``do_sens``.  The batched equivalent of the reference's
+    tensor unless ``do_sens``.  ``fixed_trip`` as for
+    :func:`solve_iterative_prepared`.  The batched equivalent of the reference's
     ``generic_fit_{basic,iterative}_many_parallel`` call stacks (reference:
     wlsqm/fitter/simple.pyx:953-1171): the OpenMP prange becomes the batch axis.
     """
@@ -397,7 +407,8 @@ def fit_batch(
         ruiz_max_iter=ruiz_max_iter, ruiz_eps=ruiz_eps, scaling=scaling,
     )
     if iterative:
-        fi_out, sens, iters = solve_iterative_prepared(prep, fk, fi, max_iter, do_sens)
+        fi_out, sens, iters = solve_iterative_prepared(prep, fk, fi, max_iter, do_sens,
+                                                       fixed_trip=fixed_trip)
     else:
         fi_out, sens = solve_prepared(prep, fk, fi, do_sens)
         iters = torch.zeros(fk.shape[0], dtype=torch.int32, device=fk.device)

@@ -51,7 +51,7 @@ from math import factorial
 import numpy as np
 import torch
 
-from wlsqm_tpu_torch import native
+from wlsqm_tpu_torch import config, native
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 
 __all__ = ["fit_kernel", "fit_moments_plain", "supported", "LAUNCHES",
@@ -482,6 +482,8 @@ def fit_kernel(xk, fk, nk, xi, *, dimension: int, order: int, weighting: int,
         return fit_moments_plain(xk, fk, nk, xi, dimension=dimension, order=order,
                                  weighting=weighting, refine_steps=refine_steps,
                                  emit_cond=emit_cond)
+    config.refuse_grad("fit_kernel", "differentiate through the f64 engine "
+                       "(wlsqm_tpu_torch.fitter.engine.fit_batch)", xk, fk, xi)
     if xk.shape[-1] != dimension:
         raise ValueError("xk has dimension %d, not %d" % (xk.shape[-1], dimension))
     B = xk.shape[0]

@@ -51,7 +51,7 @@ import os
 import numpy as np
 import torch
 
-from wlsqm_tpu_torch import native
+from wlsqm_tpu_torch import config, native
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 from wlsqm_tpu_torch.ops import fit_kernel
 
@@ -438,6 +438,9 @@ def fit_rows(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
                               order=order, weighting=weighting, knowns=knowns,
                               refine_steps=refine_steps, do_sens=do_sens,
                               max_iter=max_iter, emit_cond=emit_cond)
+    config.refuse_grad("fit_rows", "use fit_rows_diffable (gradients in fk) or the "
+                       "f64 engine (wlsqm_tpu_torch.fitter.engine.fit_batch)",
+                       xk, fk, xi, fi_init)
     if xk.shape[-1] != dimension:
         raise ValueError("xk has dimension %d, not %d" % (xk.shape[-1], dimension))
     B, K, _ = xk.shape

@@ -24,9 +24,12 @@ that Morton order buys (the kernel's reads of ``u`` then hit the L2).
   kernel is checked against;
 * :func:`gather_rows`, :func:`gather_rows_pair` — the wrappers: a CPU
   tensor runs the plain version, a CUDA tensor launches the kernel or
-  raises.  :data:`LAUNCHES` counts kernel launches.
+  raises.  :data:`LAUNCHES` counts kernel launches;
+* :func:`gather_local` — the shard form, for one shard's slice of a plan
+  (the JAX package's signature).
 
-The shard form ``gather_local`` belongs to the sharding port (ROADMAP A14).
+The kernel has no backward, as the JAX kernel has no reverse mode: a ``u``
+that requires grad is refused (differentiate through ``u[idx]``).
 
 Usage::
 
@@ -45,10 +48,11 @@ import os
 import numpy as np
 import torch
 
-from wlsqm_tpu_torch import native
+from wlsqm_tpu_torch import config, native
 
 __all__ = ["morton_order", "plan_window_gather", "gather_rows", "gather_rows_pair",
-           "gather_rows_plain", "GatherPlan", "BLOCK_T", "WINDOW", "LAUNCHES"]
+           "gather_local", "gather_rows_plain", "GatherPlan", "BLOCK_T", "WINDOW",
+           "LAUNCHES"]
 
 #: cases per block of the plan (a multiple of 8)
 BLOCK_T = 16
@@ -241,15 +245,17 @@ def _launch(words, idx, out) -> None:
     LAUNCHES += 1
 
 
-def _check_plan(name, n, idx, plan: GatherPlan):
+def _check_plan(name, n, shape, plan: GatherPlan):
+    """Raise unless a cloud of ``n`` rows and indices of ``shape`` (B, K) are
+    those ``plan`` was built for."""
     if n != plan.n:
         raise ValueError("%s: u has %d rows but the GatherPlan was built for n=%d; "
                          "rebuild the plan for this cloud" % (name, n, plan.n))
-    B, K = idx.shape
+    B, K = shape
     if K != plan.K or -(-B // plan.T) != plan.nblk:
         raise ValueError("%s: idx has shape %s but the GatherPlan was built for K=%d "
                          "and %d blocks of %d; rebuild the plan for these indices"
-                         % (name, tuple(idx.shape), plan.K, plan.nblk, plan.T))
+                         % (name, tuple(shape), plan.K, plan.nblk, plan.T))
 
 
 def _as_idx(idx, device) -> torch.Tensor:
@@ -264,20 +270,17 @@ def _words(u2d: torch.Tensor) -> torch.Tensor:
     return u2d.contiguous().view(torch.int32)
 
 
-def gather_rows(u: torch.Tensor, idx, plan: GatherPlan) -> torch.Tensor:
-    """``u[idx]`` through the gather kernel; u (n,) or (n, F), idx (B, K).
+_GRAD_HINT = "differentiate through u[idx] (gather_rows_plain)"
 
-    Bit-identical to ``u[idx]`` for every 4- and 8-byte dtype (float64,
-    float32, int32, int64, ...): the kernel copies bits.  A CPU
-    tensor runs :func:`gather_rows_plain`; a CUDA tensor launches the kernel
-    for every row, or raises.  Returns the shape and dtype of ``u[idx]``.
-    """
+
+def _gather(name: str, u: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``u[idx]`` for u (n,) or (n, F) and idx (B, K) int32 on u's device:
+    the plain version on the CPU, the kernel on every row on the card."""
+    config.refuse_grad(name, _GRAD_HINT, u)
     squeeze = u.ndim == 1
     u2d = u[:, None] if squeeze else u
-    idx = _as_idx(idx, u.device)
-    _check_plan("gather_rows", u2d.shape[0], idx, plan)
     if u2d.element_size() not in (4, 8):
-        raise TypeError("gather_rows supports 4- and 8-byte dtypes; got %s" % (u.dtype,))
+        raise TypeError("%s supports 4- and 8-byte dtypes; got %s" % (name, u.dtype))
     if u.device.type == "cpu":
         return gather_rows_plain(u, idx)
     B, K = idx.shape
@@ -286,6 +289,55 @@ def gather_rows(u: torch.Tensor, idx, plan: GatherPlan) -> torch.Tensor:
     _launch([words], idx.reshape(-1), [out])
     res = out.view(u.dtype).reshape(B, K, u2d.shape[1])
     return res[..., 0] if squeeze else res
+
+
+def gather_rows(u: torch.Tensor, idx, plan: GatherPlan) -> torch.Tensor:
+    """``u[idx]`` through the gather kernel; u (n,) or (n, F), idx (B, K).
+
+    Bit-identical to ``u[idx]`` for every 4- and 8-byte dtype (float64,
+    float32, int32, int64, ...): the kernel copies bits.  A CPU
+    tensor runs :func:`gather_rows_plain`; a CUDA tensor launches the kernel
+    for every row, or raises.  Returns the shape and dtype of ``u[idx]``.
+    """
+    idx = _as_idx(idx, u.device)
+    _check_plan("gather_rows", u.shape[0], idx.shape, plan)
+    return _gather("gather_rows", u, idx)
+
+
+def gather_local(v_all: torch.Tensor, idx_s, meta_s, bad_s, *, window: int, TKp: int,
+                 n_pad: int, T: int) -> torch.Tensor:
+    """One shard's ``v_all[idx_s]`` against the whole value array.
+
+    The shard form of :func:`gather_rows`, with the JAX package's signature
+    (``wlsqm_tpu/ops/gather.py:417``, less ``interpret``), for a caller
+    that holds one shard's slice of a plan: ``meta_s`` is the shard's slice
+    of the plan's per-block windows, (Bs / T, 3) or flat, ``bad_s`` its
+    overflow rows as shard-local case rows, padded with 0.  The TPU kernel
+    needs the windows at run time and patches the overflow rows with a
+    plain gather; the CUDA kernel reads any index, so it gathers every row
+    of ``idx_s`` itself and ``meta_s`` / ``bad_s`` / ``window`` / ``TKp`` /
+    ``n_pad`` are checked, not read.  (:func:`wlsqm_tpu_torch.parallel.
+    sharding.sharded_gather_values` needs no slice of the plan: it launches
+    the kernel on each shard's indices however the cases split.)
+
+    v_all (n,) or (n, F) of a 4- or 8-byte dtype; idx_s (Bs, K) int with
+    ``Bs == (number of blocks in meta_s) * T``.  Bit-identical to
+    ``v_all[idx_s]``.
+    """
+    idx_s = _as_idx(idx_s, v_all.device)
+    n_meta = meta_s.numel() if isinstance(meta_s, torch.Tensor) else np.size(meta_s)
+    bad = np.asarray(bad_s.cpu() if isinstance(bad_s, torch.Tensor) else bad_s)
+    Bs, K = idx_s.shape
+    n = v_all.shape[0]
+    if n_meta % 3 or Bs != (n_meta // 3) * T:
+        raise ValueError("gather_local: idx_s has %d rows but meta_s holds %d blocks of "
+                         "T=%d" % (Bs, n_meta // 3, T))
+    if TKp < T * K or n_pad < n or window <= 0:
+        raise ValueError("gather_local: the layout (window=%d, TKp=%d, n_pad=%d) does not "
+                         "hold blocks of %d x %d over %d rows" % (window, TKp, n_pad, T, K, n))
+    if bad.size and (bad.min() < 0 or bad.max() >= Bs):
+        raise ValueError("gather_local: overflow rows must lie in [0, %d)" % Bs)
+    return _gather("gather_local", v_all, idx_s)
 
 
 def gather_rows_pair(u_pair, idx, plan: GatherPlan):
@@ -299,13 +351,14 @@ def gather_rows_pair(u_pair, idx, plan: GatherPlan):
     """
     hi, lo = (p if isinstance(p, torch.Tensor) else torch.from_numpy(np.array(p))
               for p in u_pair)
+    config.refuse_grad("gather_rows_pair", _GRAD_HINT, hi, lo)
     hi = hi.to(torch.float32)
     lo = lo.to(device=hi.device, dtype=torch.float32)
     if hi.shape != lo.shape:
         raise ValueError("gather_rows_pair: (hi, lo) planes must have identical "
                          "shapes, got %s vs %s" % (tuple(hi.shape), tuple(lo.shape)))
     idx = _as_idx(idx, hi.device)
-    _check_plan("gather_rows_pair", hi.shape[0], idx, plan)
+    _check_plan("gather_rows_pair", hi.shape[0], idx.shape, plan)
     if hi.device.type == "cpu":
         return gather_rows_plain(hi, idx), gather_rows_plain(lo, idx)
     squeeze = hi.ndim == 1

@@ -14,6 +14,12 @@ DRprev = DCprev = 1, each sweep computes
 ``max_iter`` sweeps.  Batched over the leading axes with a per-problem
 ``done`` mask: converged problems freeze with DR = DC = 1, and the Python
 loop ends once every problem is done (the JAX ``lax.while_loop`` rule).
+
+The factors carry no autograd history, as the reference's
+``stop_gradient`` has it: the scaling is a pure preconditioner (the solve
+row-scales the RHS and col-unscales the solution), so the fit is exactly
+invariant to it and the true Jacobian through it is zero.  Detaching is
+exact, and it keeps the sweeps off the tape.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ def ruiz_scale(A: torch.Tensor, max_iter: int = RUIZ_MAX_ITER, eps: float = RUIZ
     Returns (row_scale, col_scale, iterations): shapes (..., n), (..., n),
     (...,); ``iterations`` is the per-problem sweep count.
     """
-    absA = A.abs()
+    absA = A.detach().abs()
     ones_n = torch.ones_like(A[..., :, 0])
     done = torch.zeros(ones_n.shape[:-1], dtype=torch.bool, device=A.device)
     iters = torch.zeros(ones_n.shape[:-1], dtype=torch.int32, device=A.device)
@@ -75,7 +81,7 @@ def jacobi_scale(A: torch.Tensor):
 
     Returns (row_scale, col_scale, iterations) like :func:`ruiz_scale`.
     """
-    d = torch.diagonal(A, dim1=-2, dim2=-1)
+    d = torch.diagonal(A.detach(), dim1=-2, dim2=-1)
     s = torch.where(d > 0, 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0)), 1.0)
     iters = torch.ones(s.shape[:-1], dtype=torch.int32, device=A.device)
     return s, s, iters

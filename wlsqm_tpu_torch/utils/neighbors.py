@@ -7,11 +7,10 @@ backends for :func:`knn`:
   brute-force blocked distances and ``torch.topk`` on the device (the card
   unless ``device="cpu"``).  Keeps the data on the device; the cost is
   O(M·N) per query set.
-* ``backend="host"`` — scipy's ``cKDTree`` on all host cores.  Better for
-  large clouds queried once (an IBVP cloud's setup).
-
-The JAX package's native C++ k-d tree (``wlsqm_tpu/native/kdtree.cpp``) is
-not ported yet (ROADMAP A11): :func:`host_tree` is scipy's tree.
+* ``backend="host"`` — a k-d tree on all host cores (:func:`host_tree`):
+  the package's native C++ tree (:class:`wlsqm_tpu_torch.native.KDTree`)
+  where g++ is present, scipy's ``cKDTree`` otherwise.  Better for large
+  clouds queried once (an IBVP cloud's setup).
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wlsqm_tpu_torch import config
+from wlsqm_tpu_torch import config, native
 
 __all__ = ["knn", "radius_neighbors", "build_neighborhoods", "host_tree"]
 
@@ -27,8 +26,11 @@ _BACKENDS = {"device": "device", "tpu": "device", "host": "host"}
 
 
 def host_tree(points):
-    """A scipy ``cKDTree`` over ``points``: ``query(x, k)`` and
-    ``query_ball_point(x, r)``."""
+    """The best host k-d tree over ``points``: the native C++ tree, or
+    scipy's ``cKDTree`` where there is no g++.  Both expose ``query(x, k)``
+    and ``query_ball_point(x, r)``."""
+    if native.available():
+        return native.KDTree(np.asarray(points))
     import scipy.spatial
 
     return scipy.spatial.cKDTree(np.asarray(points))
