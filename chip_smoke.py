@@ -1,20 +1,26 @@
 """Smoke run of the PyTorch port on one NVIDIA card: build, check, time.
 
-Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (five libraries from
-three sources — each fit kernel without and with its conditioning key —
+Builds the CUDA kernels from ``wlsqm_tpu_torch/csrc`` (nine libraries from
+three sources — the moment kernel's one per dimension and the rows
+kernel's, each without and with its conditioning key, and the gather —
 one nvcc run each, started together with the g++ build of the native k-d
 tree), checks each against its plain torch
-version (both bodies of the rows kernel, every instance of the gather),
+version (both bodies of each fit kernel, the moment kernel over dims 1-3,
+orders 0-4, knowns and ALGO_ITERATIVE; every instance of the gather),
 then drives the port's paths through its public routes:
 
 * the headline fit — 2D, order 4, K = 30, WEIGHT_CENTER, basic algorithm,
   the workload of bench.py — through ``plan_fit_many`` + ``fit_many(plan=)``
   on 2^23 cases (the moment kernel);
-* the sens path — the same fit with ``do_sens=True`` (the ``sens`` row of
-  benchmarks/run_regression_gate.py) on 2^21 cases (the rows kernel's warp
-  body);
+* the iterative path — the same fit with ALGO_ITERATIVE, max_iter = 3 (the
+  ``iterative`` row of benchmarks/run_regression_gate.py) on 2^23 cases
+  through ``plan_fit_many(iterative=True)`` + ``fit_many(plan=)`` (the
+  moment kernel);
+* the sens path — the same fit with ``do_sens=True`` (the ``sens`` row)
+  on 2^21 cases (the rows kernel's warp body);
 * the dim3 path — 3D, order 4, K = 48, WEIGHT_CENTER (the ``dim3`` row) on
-  2^21 cases through ``fit_many(backend="kernel")`` (the warp body);
+  2^21 cases through ``fit_many(backend="kernel")`` (the moment kernel's
+  warp body; the rows kernel timed beside it on the same cloud);
 * the IBVP heat step — the ``gather`` row (l.238-289) on a 2^22-point
   Morton-ordered cloud, K = 28: ``prepare`` once, then per step
   ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
@@ -39,7 +45,9 @@ then drives the port's paths through its public routes:
   ``fit_many(backend="auto")`` (the eager split), and the same with a known
   DOF (the rows kernel with its key); held against a long-double-refined
   oracle, after ``calibrate_device`` has measured the card's units anew and
-  held the shipped record to them.
+  held the shipped record to them; then the moment kernel's new certified
+  configurations (1D order 4 and 2D order 4 ALGO_ITERATIVE, 2D order 4 with
+  the value known) against the same oracle.
 
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
@@ -76,6 +84,7 @@ B_MAIN = 1 << 23        # the "10M-point-scale" headline cloud of bench.py
 B_ROWS = 1 << 21        # the sens and dim3 paths
 B_CHECK = 65536         # kernel against its plain version, order 4 (2D, 3D)
 B_GRID = 8191           # kernel against its plain version, the rest of the grid
+B_MOMENT_GRID = 1 << 14  # the moment kernel's grid of dims, orders, knowns, max_iter
 B_PLAIN = 1 << 18       # the plain versions' intermediates cap their batch
 B_ENGINE = 65536        # slice checked against the port's f64 engine
 B_ENGINE_DIM3 = 16384
@@ -83,6 +92,7 @@ B_SWEEP = 16384         # 3D order-4 radius sweep, per radius
 B_SCIPY = 1024          # slice checked against parity_check (scipy f64)
 B_CERT = 1 << 22        # the certified auto route
 B_CERT_ROWS = 1 << 20   # ... its rows-kernel part (a known DOF)
+B_CERT_NEW = 1 << 20    # the certified route on the moment kernel's new configurations
 B_PLAN = 32768          # cases a plan is made from
 B_ORACLE = 8192         # sample held against the long-double-refined oracle
 B_EXPERT = 1 << 20      # ExpertSolver: the Prepared is ~6 GB (c 3.8, factor 1.9)
@@ -97,6 +107,9 @@ B_SHARD_ENGINE = 1 << 20  # sharded_fit_many (the engine: at 2^22 its temporarie
 B_SERIAL = 1 << 16      # a Prepared through npz and back
 B_COMPAT = 65536        # fit_3D_many with sens, fit_1D_iterative_many
 B_COND2 = 4096          # keys held against cond_2 by SVD
+KEY_EPS = 2.0 ** -50    # kernel vs plain past the certified key edge: KEY_EPS * key,
+KEY_CAP = 1e-9          # ... at most KEY_CAP, and the kernel no farther from the
+ORACLE_FACTOR = 4.0     # oracle than ORACLE_FACTOR times the plain version (or PARITY)
 KEY_TOL = 1e-6          # kernel key vs plain key, relative (its own sensitivity
                         # is ~cond * 2^-53)
 COLLINEAR = 0.05        # share of near-collinear cases on the certified route
@@ -108,6 +121,7 @@ K_DIM3 = 48
 K_GRID = {1: 16, 2: 30, 3: 56}
 K_SLAB_EDGE = (151, 152)  # moment kernel: the slabs, 64 (2K + 1 + (K | 1)) doubles, fill
                          # the H100's 227 KB a block at K = 151 (staged); 152 is not
+K_SLAB_EDGE_3D = (113, 114)  # ... in 3D (the thread body, orders 0-2): 64 ((3K | 1) + (K | 1))
 K_WIDE = 130            # the warp body's configurations again: five chunks of 32, the
                         # last ragged
 ORDER = 4
@@ -115,8 +129,9 @@ PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), parity_check's b
 REPS = 5                # timed repetitions after one warm-up; the median is reported
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 FP64_FLOP_S = 67e12     # H100 SXM data sheet: FP64 peak (on the tensor cores)
-MOMENT_SPILL_BYTES = 400  # ptxas spill stores or loads a fit_moment_2d instance may show:
+MOMENT_SPILL_BYTES = 400  # ptxas spill stores or loads a 2D basic fit_moment instance may show:
                           # the order-4 instances' level (PERF.md); more fails the run
+MAX_ITER = 3            # the iterative path's max_iter (the gate row's)
 COUNT_TV = 0.1          # ALGO_ITERATIVE counts: bar on the histograms' distance
 COUNT_SLACK = 0.01      # ... kernel vs plain, each against the JAX engine's counts
 RADII = (0.03, 0.1, 0.3, 1.0)
@@ -280,19 +295,38 @@ def _rows_flops(dim, order, center, n, refine, do_sens, trips, n_known):
     return float(total.sum())
 
 
-def _moment_flops(order, center, n, refine):
-    """FP64 operations of the 2D moment kernel, counted from its loops."""
+def _moment_flops(order, center, n, refine, dim=2, iters=None, max_iter=0, n_known=0):
+    """FP64 operations the moment kernel needs, counted from its loops, for
+    cases with n valid neighbours (a tensor): per neighbour the offsets, the
+    CENTER weight, the power ladders, and for each moment and RHS entry one
+    add (1D) or one product of two ladders and an add (2D, 3D); in 3D the
+    x^a y^b products that the z ladder multiplies are made once per
+    neighbour (those with a, b >= 1: the others are ladder entries), as
+    the warp body makes them (the thread body makes one per moment, its
+    design's cost, not the function's); the known values' pass; the factor,
+    the solve and the sweeps; with ``iters`` (the per-case ALGO_ITERATIVE
+    counts) each trip's residual pass (min(iters + 1, max_iter) of them)
+    and each refit's sweep."""
     from wlsqm_tpu_torch.fitter import defs
     from wlsqm_tpu_torch.ops import fit_kernel
 
-    NO = defs.number_of_dofs(2, order)
-    NM = len(fit_kernel.moment_lattice(2, 2 * order)[0])
+    NO = defs.number_of_dofs(dim, order)
+    NM = len(fit_kernel.moment_lattice(dim, 2 * order)[0])
     NT = NO * (NO + 1) // 2
     solve = 2 * NO * NO
-    per_k = 4 + (9 if center else 0) + (5 * order + 1) + 2 * NM + 2 * NO  # powers, sums
-    total = (n * 7 if center else 0) + n * per_k
+    sums = (NM + NO) * (1 if dim == 1 else 2)
+    if dim == 3:
+        sums += order * (2 * order - 1)      # a, b >= 1, a + b <= 2 order
+    per_k = 2 * dim + ((2 * dim - 1 + 6) if center else 0) + (2 * dim * order + order + 1) + sums
+    total = (n * (4 * dim - 1) if center else 0) + n * per_k
+    total = total + 2 * n_known * NO
+    sweep = NO + 2 * NO * NO + 2 * NO + solve + NO
     total = total + 2 * NO + 2 * NT + _chol_flops(NO) + NO + solve
-    total = total + refine * (NO + 2 * NO * NO + 2 * NO + solve + NO) + NO
+    total = total + refine * sweep + NO
+    if iters is not None:
+        passes = torch.clamp(iters.long() + 1, max=max_iter)
+        total = total + passes * n * (2 * dim + dim * order + _nnz(dim, order) + 2 * NO + 2)
+        total = total + iters.long() * sweep
     return float(total.sum())
 
 
@@ -351,16 +385,21 @@ def phase_build():
     print(json.dumps({"build_wall_s": round(wall, 3), "parallel_builds": len(libs)}),
           flush=True)
     # indirect branches in the moment kernel: a table switch the compiler
-    # left to run time (the key's row sums once cost 4-5x the fit that way)
-    brx = {name: _indirect_branches(libs[name].path) for name in ("fit_moment", "fit_moment_cond")}
-    print(json.dumps({"fit_moment_2d_indirect_branches": brx}), flush=True)
+    # left to run time (the key's row sums once cost 4-5x the fit that way);
+    # every instance of every dimension, with and without the key
+    brx = {name: _indirect_branches(lib.path) for name, lib in libs.items()
+           if name.startswith("fit_moment")}
+    print(json.dumps({"fit_moment_indirect_branches": brx}), flush=True)
+    if sum(len(per) for per in brx.values()) != 2 * (10 + 20 + 10):
+        raise RuntimeError("phase_build found %s moment instances, not 80" % (
+            {k: len(v) for k, v in brx.items()},))
     if any(n for per in brx.values() for n in per.values()):
-        raise RuntimeError("fit_moment_2d has indirect branches (BRX): %s" % (brx,))
+        raise RuntimeError("fit_moment has indirect branches (BRX): %s" % (brx,))
 
 
 def _indirect_branches(path):
-    """BRX instructions per fit_moment_2d instance of a library, from
-    ``cuobjdump -sass`` beside nvcc."""
+    """BRX instructions per moment-kernel instance (thread and warp body) of
+    a library, from ``cuobjdump -sass`` beside nvcc."""
     from wlsqm_tpu_torch import native
 
     tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
@@ -368,9 +407,9 @@ def _indirect_branches(path):
                           check=True).stdout
     out, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*fit_moment_2dILi(\d)ELi(\d)E", line)
+        m = re.search(r"Function : \S*(fit_moment_(?:thread|warp))I((?:L[a-z]+\d+E)+)E", line)
         if m:
-            name = "fit_moment_2d<%s,%s>" % m.groups()
+            name = "%s<%s>" % (m.group(1), ",".join(re.findall(r"L[a-z]+(\d+)E", m.group(2))))
             out[name] = 0
         elif "Function :" in line:
             name = None
@@ -380,42 +419,104 @@ def _indirect_branches(path):
 
 
 def phase_moment_vs_plain(dev, wtt):
+    """The moment kernel against its plain version: 2D order 4 at B_CHECK,
+    the slab edges (K_SLAB_EDGE: the largest K whose slabs one block
+    stages, and the first whose walks read global memory), and the grid of
+    dims 1-3 x orders 0-4 x knowns {0, the value, the highest DOF} x basic
+    and max_iter = 3 x UNIFORM and CENTER at B_MOMENT_GRID, ragged nk with
+    NaN padding (1D at nk >= 2 NO), 3D order 4 also at K = 48 (the dim3
+    path's) and K_WIDE, 3D order 2 at its thread body's slab edges: fi
+    within PARITY, the known DOFs fi_init's bits, fi (and the counts) the
+    same bits with the key.  PARITY holds on every case in 2D and 3D; in 1D
+    on the cases whose key is under the moment body's certified edge (the
+    calibration record's).  Past it the two, which sum the moments in other
+    orders, differ by roundoff the conditioning amplifies (1D order 4
+    clouds of 10-16 points reach keys of 1e6-1e7): held to KEY_EPS times
+    the key, at most KEY_CAP, and against an independent witness, the
+    long-double-refined oracle (calibration.oracle_case_errors, the
+    reduced system's with knowns): on each such case the kernel's error is
+    within PARITY of the oracle or at most ORACLE_FACTOR times the plain
+    version's own."""
+    from wlsqm_tpu_torch.fitter import calibration, condprobe, defs
     from wlsqm_tpu_torch.ops import fit_kernel
 
     gen = torch.Generator(device=dev).manual_seed(2026)
     worst_rel, worst_abs = 0.0, 0.0
     weightings = (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER)
-    checks = [(ORDER, w, B_CHECK, K) for w in weightings]
-    checks += [(o, w, B_GRID, K) for o in range(ORDER) for w in weightings]
-    # the largest K whose slabs one block stages, and the first whose walks
-    # read global memory instead
-    checks += [(ORDER, w, B_GRID, k) for k in K_SLAB_EDGE for w in weightings]
+    checks = [(2, ORDER, w, 0, 0, B_CHECK, K) for w in weightings]
+    checks += [(2, ORDER, w, 0, 0, B_GRID, k) for k in K_SLAB_EDGE for w in weightings]
+    for dim in (1, 2, 3):
+        for order in range(ORDER + 1):
+            NO = defs.number_of_dofs(dim, order)
+            for kn in sorted({0, 1, 1 << (NO - 1)}):
+                for mi in (0, 3):
+                    checks += [(dim, order, w, kn, mi, B_MOMENT_GRID, K_GRID[dim])
+                               for w in weightings]
+    checks += [(3, ORDER, w, kn, mi, B_MOMENT_GRID, k) for k in (K_DIM3, K_WIDE)
+               for w in weightings for kn in (0, 1 << 34) for mi in (0, 3)]
+    checks += [(3, 2, w, 0, 0, B_GRID, k) for k in K_SLAB_EDGE_3D for w in weightings]
+    edge = condprobe.est_certified_edges()["moments"]
     per = {}
-    for order, w, B, k in checks:
-        xk, fk, nk, xi = _cloud(B, gen, dev, K=k, order=order, ragged=True, offset=True)
-        got = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=order, weighting=w)
-        ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, dimension=2, order=order,
-                                           weighting=w)
+    for dim, order, w, kn, mi, B, k in checks:
+        NO = defs.number_of_dofs(dim, order)
+        lo = 2 * NO if dim == 1 else min((3 * NO) // 2, k - 8)   # K = 48 < 1.5 NO at 3D order 4
+        xk, fk, nk, xi = _cloud(B, gen, dev, dim=dim, K=k, order=order, ragged=True,
+                                offset=True, lo=lo)
+        fi0 = torch.randn((B, NO), generator=gen, device=dev, dtype=torch.float64)
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn, max_iter=mi)
+        got = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, **kw)
+        key = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, emit_cond=True, **kw)
+        ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, fi0, **kw)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("kernel gave non-finite DOFs at order %d weighting %d"
-                               % (order, w))
-        rel = _rel(got, ref)
-        per["order%d_w%d_B%d_K%d" % (order, w, B, k)] = rel
+        fi, fr = (got[0], ref[0]) if mi else (got, ref)
+        name = "d%d_o%d_w%d_kn%d_it%d_B%d_K%d" % (dim, order, w, kn, mi, B, k)
+        KN = fit_kernel.known_dofs(kn, dim, order)
+        if not bool(torch.isfinite(fi).all()):
+            raise RuntimeError("moment kernel gave non-finite DOFs: %s" % name)
+        if not (_same_bits(fi, key[0]) and _same_bits(fi[:, KN], fi0[:, KN])
+                and (not mi or torch.equal(got[1], key[1]))):
+            raise RuntimeError("moment kernel %s: fi differs with the key, or a known DOF "
+                               "is not fi_init's bits" % name)
+        err = (fi - fr).abs().amax(1) / fr.abs().amax(1).clamp_min(1.0)
+        under = (key[-1] <= edge) if dim == 1 else torch.ones_like(key[-1], dtype=torch.bool)
+        rel = err[under].max().item() if bool(under.any()) else 0.0
+        per[name] = rel
+        witness = True
+        if not bool(under.all()):
+            past = (~under).nonzero().squeeze(1)
+            e = calibration.oracle_case_errors([fi[past], fr[past]], xk[past], fk[past],
+                                               nk[past], xi[past], fi0[past], KN, w, dim, order)
+            witness = bool((e[0] <= np.maximum(ORACLE_FACTOR * e[1], PARITY)).all())
+            per[name + "_past_edge"] = {"cases": len(past), "worst": err[past].max().item(),
+                                        "worst_over_key": (err / key[-1])[past].max().item(),
+                                        "worst_vs_oracle": float(e[0].max()),
+                                        "plain_worst_vs_oracle": float(e[1].max()),
+                                        "worst_over_plain_vs_oracle": float(
+                                            (e[0] / np.maximum(e[1], 1e-300)).max())}
+        if mi:
+            per[name + "_iters_equal"] = float((got[1] == ref[1]).double().mean())
         worst_rel = max(worst_rel, rel)
-        worst_abs = max(worst_abs, (got - ref).abs().max().item())
-        if rel > PARITY:
-            raise RuntimeError("kernel vs plain at order %d weighting %d: %.3e > %.0e"
-                               % (order, w, rel, PARITY))
-    print(json.dumps({"fit_moment_vs_plain_rel": per, "worst_rel": worst_rel,
-                      "worst_abs": worst_abs, "tol": PARITY}), flush=True)
+        worst_abs = max(worst_abs, (fi - fr)[under].abs().max().item() if bool(under.any())
+                        else 0.0)
+        tol = torch.where(under, PARITY, (KEY_EPS * key[-1]).clamp_max(KEY_CAP))
+        if rel > PARITY or not bool((err <= tol).all()) or not witness:
+            raise RuntimeError("moment kernel vs plain at %s: %.3e > %.0e (under the key "
+                               "edge), or past it more than min(%.1e x key, %.0e) or farther "
+                               "from the oracle than %g x the plain version: %s"
+                               % (name, rel, PARITY, KEY_EPS, KEY_CAP, ORACLE_FACTOR,
+                                  per.get(name + "_past_edge")))
+        del xk, fk, nk, xi, fi0, got, key, ref
+    print(json.dumps({"fit_moment_vs_plain_rel": per, "configs": len(checks),
+                      "worst_rel": worst_rel, "worst_abs": worst_abs, "tol": PARITY}),
+          flush=True)
     return worst_abs, worst_rel
 
 
 def phase_moment_scale(dev):
     """The moment kernel's own scale (wlsqm_moment_scale runs the fit's device
     functions alone) against _prescale, bit for bit, which fit_rows and
-    condprobe keep using: on the headline cloud at 2^23 and on cases whose
+    condprobe keep using: on the headline cloud at 2^23, on 1D and 3D clouds
+    at 2^20 (each dimension's library), and on cases whose
     h² is an exact power of four or one ulp of the coordinate either side
     of it (where ceil(0.5 log2) and an exact frexp rule part), with nk = 0
     and NaN padding."""
@@ -436,9 +537,14 @@ def phase_moment_scale(dev):
     adv_n[:16] = 0
     adv_x[torch.arange(K, device=dev)[None, :] >= adv_n[:, None]] = torch.nan
     out = {}
+    x1, _, n1, i1 = _cloud(1 << 20, torch.Generator(device=dev).manual_seed(43), dev, dim=1,
+                           K=K_GRID[1], ragged=True, offset=True)
+    x3, _, n3, i3 = _cloud(1 << 20, torch.Generator(device=dev).manual_seed(44), dev, dim=3,
+                           K=K_DIM3, order=2, ragged=True, offset=True)
     for name, args in (("headline_2^23", (xk, nk, xi)),
                        ("powers_of_four", (adv_x, adv_n, torch.zeros((m, 2), dtype=torch.float64,
-                                                                     device=dev)))):
+                                                                     device=dev))),
+                       ("dim1_2^20", (x1, n1, i1)), ("dim3_2^20", (x3, n3, i3))):
         e, inv_s = fit_kernel.moment_scale(*args)
         _, _, e_ref, inv_ref = fit_kernel._prescale(*args)
         torch.cuda.synchronize()
@@ -570,27 +676,32 @@ def phase_rows_vs_plain(dev, wtt):
     return worst_abs, worst_rel
 
 
-def _count_shares(dev):
-    """The rows kernel's and its plain version's ALGO_ITERATIVE counts on the
-    seeded clouds of tests/iterative_counts.py, against the JAX f64 engine's
-    counts stored beside them: (equal, within one, histogram distance) per
-    set (the rows grid, the warp configurations, both), and the worst DOF
-    difference kernel vs plain."""
+def _count_shares(dev, body="rows"):
+    """A kernel's (the rows kernel's or the moment kernel's) and its plain
+    version's ALGO_ITERATIVE counts on the seeded clouds of
+    tests/iterative_counts.py, against the JAX f64 engine's counts stored
+    beside them: (equal, within one, histogram distance) per set (the rows
+    grid, the warp configurations, both), and the worst DOF difference
+    kernel vs plain."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import iterative_counts
 
-    from wlsqm_tpu_torch.ops import fit_rows
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
     stored = iterative_counts.load()
     got = {"kernel": {}, "plain": {}}
+    if body == "rows":
+        kernel, plain = fit_rows.fit_rows, fit_rows.fit_rows_plain
+    else:
+        kernel, plain = fit_kernel.fit_kernel, fit_kernel.fit_moments_plain
     worst = 0.0
     for key, dim, order, w, B, Kc, seed in iterative_counts.configs():
         xk, fk, nk, xi, fi0, kn = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
                                    else a for a in iterative_counts.cloud(dim, order, B, Kc, seed))
         kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
                   max_iter=iterative_counts.MAX_ITER)
-        fi_k, it_k, _ = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
-        fi_p, it_p, _ = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+        fi_k, it_k = kernel(xk, fk, nk, xi, fi0, **kw)[:2]
+        fi_p, it_p = plain(xk, fk, nk, xi, fi0, **kw)[:2]
         worst = max(worst, _rel(fi_k, fi_p))
         got["kernel"][key] = it_k.cpu().numpy()
         got["plain"][key] = it_p.cpu().numpy()
@@ -608,19 +719,21 @@ def _count_shares(dev):
 
 
 def phase_iterative_counts(dev):
-    """ROADMAP C2: the kernel's counts and the plain version's against the
-    JAX engine's on the same seeded clouds; the kernel is held to be no
-    farther from them than the plain version (pooled histogram distance
+    """ROADMAP C2: each fit kernel's counts and its plain version's against
+    the JAX engine's on the same seeded clouds; each kernel is held to be no
+    farther from them than its plain version (pooled histogram distance
     within COUNT_SLACK, equal share no lower by more than it), and its DOFs
     to PARITY of the plain version's."""
-    out, per, worst = _count_shares(dev)
-    print(json.dumps({"iterative_counts_vs_jax": out, "hist_distance_per_config": per,
-                      "fi_kernel_vs_plain": worst, "tol": PARITY}), flush=True)
-    k, p = out["kernel_all_vs_jax"], out["plain_all_vs_jax"]
-    if not (worst <= PARITY and k["hist_distance"] <= p["hist_distance"] + COUNT_SLACK
-            and k["equal"] >= p["equal"] - COUNT_SLACK):
-        raise RuntimeError("ALGO_ITERATIVE counts: kernel %s, plain %s against the JAX "
-                           "engine; fi %.3e" % (k, p, worst))
+    for body in ("rows", "moments"):
+        out, per, worst = _count_shares(dev, body)
+        print(json.dumps({"body": body, "iterative_counts_vs_jax": out,
+                          "hist_distance_per_config": per, "fi_kernel_vs_plain": worst,
+                          "tol": PARITY}), flush=True)
+        k, p = out["kernel_all_vs_jax"], out["plain_all_vs_jax"]
+        if not (worst <= PARITY and k["hist_distance"] <= p["hist_distance"] + COUNT_SLACK
+                and k["equal"] >= p["equal"] - COUNT_SLACK):
+            raise RuntimeError("ALGO_ITERATIVE counts (%s): kernel %s, plain %s against the "
+                               "JAX engine; fi %.3e" % (body, k, p, worst))
 
 
 def phase_radius_sweep(dev, wtt):
@@ -683,7 +796,7 @@ def phase_headline(dev, wtt):
     engine_err = _rel(fi[:B_ENGINE], eng)
     print(json.dumps({"path": "headline", "B": B_MAIN, "route": plan.route.path,
                       "assembly": plan.route.assembly,
-                      "launches": {"fit_moment_2d": launches,
+                      "launches": {"fit_moment": launches,
                                    "fit_rows": fit_rows.LAUNCHES},
                       "first_call_s": round(first_s, 4),
                       "inputs_outputs_gb": round(inputs_gb + fi.numel() * 8 / 1e9, 3),
@@ -728,9 +841,11 @@ def phase_headline(dev, wtt):
     rhs = (sw * fkm)[..., None]
     library_ms, library_t = _time_ms(lambda: torch.linalg.lstsq(A, rhs))
     del A, rhs, sw, fkm, out
-    ptxas = {lib: {name: v for name, v in _ptxas_summary(fit_kernel.load(cond).log).items()
-                   if name.startswith("fit_moment_2d")}
-             for lib, cond in (("fit_moment", False), ("fit_moment_cond", True))}
+    # the headline instances: the 2D thread body without knowns and
+    # ALGO_ITERATIVE, both weightings, without and with the key
+    ptxas = {lib: {name: v for name, v in _ptxas_summary(fit_kernel.load(2, cond).log).items()
+                   if re.fullmatch(r"fit_moment_thread<2,\d,\d,0>", name)}
+             for lib, cond in (("fit_moment_d2", False), ("fit_moment_d2_cond", True))}
     spills = sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
                  for per in ptxas.values() for v in per.values())
     print(json.dumps({
@@ -748,7 +863,7 @@ def phase_headline(dev, wtt):
         "route_minus_launch_ms_2^23": route_ms - launch_ms,
         "fit_kernel_minus_launch_ms_2^23": kernel_ms - launch_ms,
         "fit_kernel_extra_memory_gb_2^23": round(fit_kernel_extra_gb, 4),
-        "fit_moment_2d_ptxas": ptxas, "fit_moment_2d_spill_bytes": spills,
+        "fit_moment_basic_2d_ptxas": ptxas, "fit_moment_basic_2d_spill_bytes": spills,
         "bound_2^23": full_bound, "bound_2^18": small_bound,
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}), flush=True)
     if route_ms - launch_ms > 1.0:
@@ -757,7 +872,7 @@ def phase_headline(dev, wtt):
     worst = max(max(v.get("spill_stores", 0), v.get("spill_loads", 0))
                 for per in ptxas.values() for v in per.values())
     if worst > MOMENT_SPILL_BYTES:
-        raise RuntimeError("fit_moment_2d spills %d bytes (> %d): %s"
+        raise RuntimeError("the 2D basic fit_moment instances spill %d bytes (> %d): %s"
                            % (worst, MOMENT_SPILL_BYTES, ptxas))
     return {"launches": launches, "ms": small_launch_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "route_ms_2^23": route_ms, **small_bound}
@@ -797,7 +912,7 @@ def phase_sens(dev, wtt):
                              fi[:B_SCIPY].cpu().numpy())
     print(json.dumps({"path": "sens", "B": B_ROWS, "route": plan.route.path,
                       "assembly": plan.route.assembly,
-                      "launches": {"fit_moment_2d": fit_kernel.LAUNCHES,
+                      "launches": {"fit_moment": fit_kernel.LAUNCHES,
                                    "fit_rows": launches},
                       "first_call_s": round(first_s, 4),
                       "fi_vs_engine": fi_err, "sens_vs_engine": sens_err,
@@ -811,48 +926,180 @@ def phase_sens(dev, wtt):
                        do_sens=True, launches=launches)
 
 
+def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its=None,
+                  plain_b=B_PLAIN):
+    """The moment kernel on one path: the route, fit_kernel and the launch at
+    the path's B; fit_kernel, the launch, the plain version and the library
+    yardstick (torch.linalg.lstsq on the prebuilt sqrt(w)-weighted basis) at
+    ``plain_b``; the bounds at both sizes (``its``: the per-case counts the
+    path gave, for the trips the work needs)."""
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    xk, fk, nk, xi = data
+    B = xk.shape[0]
+    NO = defs.number_of_dofs(dim, ORDER)
+    W, RS = wtt.WEIGHT_CENTER, fit_kernel.DEFAULT_REFINE_STEPS
+    kw = dict(dimension=dim, order=ORDER, weighting=W, max_iter=max_iter)
+    times, bounds = {}, {}
+    tag = "2^%d" % int(math.log2(B))
+    times["route_" + tag] = _time_ms(route)
+    times["fit_kernel_" + tag] = _time_ms(lambda: fit_kernel.fit_kernel(xk, fk, nk, xi, **kw))
+
+    def launcher(d, it):
+        b = d[0].shape[0]
+        out = torch.empty((b, NO), dtype=torch.float64, device=dev)
+        iters = torch.empty((b,), dtype=torch.int32, device=dev) if max_iter else None
+        flops = _moment_flops(ORDER, True, d[2].long(), RS, dim=dim, iters=it,
+                              max_iter=max_iter)
+        return ((lambda: fit_kernel._launch(*d, out, iters=iters, order=ORDER, weighting=W,
+                                            refine_steps=RS, max_iter=max_iter)),
+                _bound((*d, out, iters), flops))
+
+    fn, bounds[tag] = launcher(data, its)
+    times["launch_" + tag] = _time_ms(fn)
+    del fn
+    s = slice(0, plain_b)
+    small = tuple(t[s] for t in data)
+    times["fit_kernel_2^18"] = _time_ms(lambda: fit_kernel.fit_kernel(*small, **kw))
+    fn, bounds["2^18"] = launcher(small, None if its is None else its[s])
+    times["launch_2^18"] = _time_ms(fn)
+    del fn
+    times["plain_2^18"] = _time_ms(lambda: fit_kernel.fit_moments_plain(*small, **kw))
+    A, sw, fkm = _weighted_basis(*small, dim, ORDER, W)
+    rhs = (sw * fkm)[..., None]
+    times["library_lstsq_2^18"] = _time_ms(lambda: torch.linalg.lstsq(A, rhs))
+    del A, rhs, sw, fkm
+    med = {k: v[0] for k, v in times.items()}
+    print(json.dumps({
+        "path": name, "kernel": "fit_moment", "ms": {k: v[1] for k, v in times.items()},
+        "fits_per_s": {k: (B if k.endswith(tag) else plain_b) / v * 1e3
+                       for k, v in med.items()},
+        "bound_" + tag: bounds[tag], "bound_2^18": bounds["2^18"],
+        "launch_vs_bound_" + tag: bounds[tag]["bound_ms"] / med["launch_" + tag],
+        "library": "torch.linalg.lstsq on the prebuilt sqrt(w)-weighted basis "
+                   "(basis build excluded)",
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}), flush=True)
+    return {"launches": launches, "ms": med["launch_2^18"], "plain_ms": med["plain_2^18"],
+            "library_ms": med["library_lstsq_2^18"], "launch_ms_full": med["launch_" + tag],
+            "route_ms_full": med["route_" + tag], **bounds["2^18"]}
+
+
+def phase_iterative(dev, wtt):
+    """The gate row's ``iterative`` configuration (the headline fit with
+    max_iter = 3; benchmarks/run_regression_gate.py l.104-124, 307) at 2^23
+    through plan_fit_many(iterative=True) + fit_many(plan=): the moment
+    kernel alone, as the JAX package routes it (its corrective refits are
+    refinement steps on the moment store); parity against scipy, the counts
+    against the plain version's, fits/s (median of 5 and spread) beside the
+    bound."""
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xk, fk, nk, xi = _cloud(B_MAIN, torch.Generator(device=dev).manual_seed(45), dev)
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], iterative=True, **kw)
+    if (plan.route.path, plan.route.assembly) != ("kernel", "moments"):
+        raise RuntimeError("the iterative plan did not route to the moment kernel: %s"
+                           % (plan,))
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = wtt.fit_many(xk, fk, xi, plan=plan, iterative=True, max_iter=MAX_ITER, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _kernel_launches()
+    if launches != _launches(moment=1):
+        raise RuntimeError("the iterative path launched %s, not the moment kernel once"
+                           % (launches,))
+    fi, its = res.fi, res.iterations
+    if (tuple(fi.shape) != (B_MAIN, 15) or not bool(torch.isfinite(fi).all())
+            or int(its.min()) < 1 or int(its.max()) > MAX_ITER):
+        raise RuntimeError("iterative path: bad outputs, shape %s, counts %d-%d"
+                           % (tuple(fi.shape), int(its.min()), int(its.max())))
+    scipy_err = parity_check(xk[:B_SCIPY].cpu().numpy(), fk[:B_SCIPY].cpu().numpy(),
+                             fi[:B_SCIPY].cpu().numpy())
+    s = slice(0, B_PLAIN)
+    fi_p, it_p = fit_kernel.fit_moments_plain(xk[s], fk[s], nk[s], xi[s], dimension=2,
+                                              max_iter=MAX_ITER, **kw)
+    plain_err = _rel(fi[s], fi_p)
+    hist = torch.bincount(its.long(), minlength=MAX_ITER + 1).tolist()
+    counts = {"equal_to_plain": float((its[s] == it_p).double().mean()),
+              "within_one_of_plain": float(((its[s] - it_p).abs() <= 1).double().mean()),
+              "histogram": hist,
+              "plain_histogram": torch.bincount(it_p.long(), minlength=MAX_ITER + 1).tolist()}
+    print(json.dumps({"path": "iterative", "B": B_MAIN, "route": plan.route.path,
+                      "assembly": plan.route.assembly, "max_iter": MAX_ITER,
+                      "launches": launches, "first_call_s": round(first_s, 4),
+                      "parity_vs_scipy": scipy_err, "vs_plain_2^18": plain_err,
+                      "counts": counts, "tol": PARITY,
+                      "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}),
+          flush=True)
+    if scipy_err > PARITY or plain_err > PARITY:
+        raise RuntimeError("iterative path parity: scipy %.3e, plain %.3e > %.0e"
+                           % (scipy_err, plain_err, PARITY))
+    del res, fi, fi_p, it_p
+    t = _moment_times(dev, wtt, "iterative", (xk, fk, nk, xi), dim=2, launches=1,
+                      max_iter=MAX_ITER, its=its,
+                      route=lambda: wtt.fit_many(xk, fk, xi, plan=plan, iterative=True,
+                                                 max_iter=MAX_ITER, **kw))
+    return t
+
+
 def phase_dim3(dev, wtt):
     """The dim3 path at 2^21 through fit_many(backend="kernel"): K = 48 is
     under the auto route's K >= 1.5 NO = 52, which keeps such groups on the
     engine as the JAX package does, so the path asks for the kernel as the
-    gate row calls fit_pallas directly."""
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+    gate row calls fit_pallas directly; the forced kernel takes the moment
+    body in 3D (``fit_pallas(assembly="auto")``: the moment kernel's warp
+    body here), held to the port's engine.  The rows kernel is timed beside
+    it on the same cloud, through a plan that names it."""
+    from wlsqm_tpu_torch.fitter import ladder
+    from wlsqm_tpu_torch.ops import fit_kernel
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(44)
     xk, fk, nk, xi = _cloud(B_ROWS, gen, dev, dim=3, K=K_DIM3)
     kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
-    auto = wtt.plan_fit_many(xk[:32768], xi[:32768], **kw).route
-    fit_kernel.LAUNCHES = fit_rows.LAUNCHES = 0
+    auto = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw).route
+    _zero_launches()
     t0 = time.perf_counter()
     res = wtt.fit_many(xk, fk, xi, backend="kernel", **kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fit_rows.LAUNCHES
-    if launches < 1 or fit_kernel.LAUNCHES:
-        raise RuntimeError("the dim3 path did not run on the rows kernel alone")
+    launches = _kernel_launches()
+    if launches != _launches(moment=1):
+        raise RuntimeError("the dim3 path did not run on the moment kernel alone: %s"
+                           % (launches,))
     fi = res.fi
     if tuple(fi.shape) != (B_ROWS, 35) or not bool(torch.isfinite(fi).all()):
         raise RuntimeError("dim3 path: bad DOFs, shape %s" % (tuple(fi.shape),))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s = slice(0, B_ENGINE_DIM3)
     err = _rel(fi[s], wtt.fit_many(xk[s], fk[s], xi[s], backend="engine", **kw).fi)
+    rows_plan = wtt.FitPlan(route=ladder.Route(path="kernel", assembly="rows"))
+    rows_fi = wtt.fit_many(xk[s], fk[s], xi[s], plan=rows_plan, **kw).fi
     print(json.dumps({"path": "dim3", "B": B_ROWS, "route": "kernel (backend='kernel')",
-                      "auto_plan_route": auto.path, "launches": {
-                          "fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": launches},
+                      "auto_plan_route": auto.path, "launches": launches,
                       "first_call_s": round(first_s, 4), "fi_vs_engine": err,
-                      "tol": PARITY, "peak_mem_gb": round(peak_gb, 3)}), flush=True)
+                      "fi_vs_rows_kernel": _rel(fi[s], rows_fi), "tol": PARITY,
+                      "peak_mem_gb": round(peak_gb, 3)}), flush=True)
     if err > PARITY:
         raise RuntimeError("dim3 path parity: %.3e > %.0e" % (err, PARITY))
-    del res, fi
-    return _rows_times(dev, wtt, "dim3", (xk, fk, nk, xi), plan=None, dim=3,
-                       do_sens=False, launches=launches)
+    del res, fi, rows_fi
+    data = (xk, fk, nk, xi)
+    k1 = _moment_times(dev, wtt, "dim3", data, dim=3, launches=1,
+                       route=lambda: wtt.fit_many(xk, fk, xi, backend="kernel", **kw))
+    k2 = _rows_times(dev, wtt, "dim3_rows", data, plan=rows_plan, dim=3, do_sens=False,
+                     launches=0)
+    return k1, k2
 
 
 def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
-    """Route, fit_rows and launch at 2^21; fit_rows, launch, plain and the
-    library yardstick at 2^18; the bounds at both sizes."""
+    """Route (``plan``, which names the rows body), fit_rows and launch at
+    2^21; fit_rows, launch, plain and the library yardstick at 2^18; the
+    bounds at both sizes."""
     from wlsqm_tpu_torch.fitter import defs
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
@@ -860,12 +1107,9 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
     NO = defs.number_of_dofs(dim, ORDER)
     W, RS = wtt.WEIGHT_CENTER, fit_rows.DEFAULT_REFINE_STEPS
     kw = dict(order=ORDER, weighting=W)
-    if plan is not None:
-        route = lambda: wtt.fit_many(xk, fk, xi, plan=plan, do_sens=do_sens, **kw)  # noqa: E731
-    else:
-        route = lambda: wtt.fit_many(xk, fk, xi, backend="kernel", **kw)  # noqa: E731
     times, bounds = {}, {}
-    times["route_2^21"] = _time_ms(route)
+    times["route_2^21"] = _time_ms(
+        lambda: wtt.fit_many(xk, fk, xi, plan=plan, do_sens=do_sens, **kw))
     times["fit_rows_2^21"] = _time_ms(lambda: fit_rows.fit_rows(
         xk, fk, nk, xi, dimension=dim, do_sens=do_sens, **kw))
 
@@ -915,7 +1159,8 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
                    "(basis build excluded)",
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}), flush=True)
     return {"launches": launches, "ms": med["launch_2^18"], "plain_ms": med["plain_2^18"],
-            "library_ms": med["library_lstsq_2^18"], **bounds["2^18"]}
+            "library_ms": med["library_lstsq_2^18"], "launch_ms_full": med["launch_2^21"],
+            **bounds["2^18"]}
 
 # -- the IBVP path ---------------------------------------------------------------
 
@@ -1351,8 +1596,8 @@ def _kernel_launches():
 
 
 def _launches(moment=0, rows=0, key_moment=0, key_rows=0, gather=0):
-    return {"fit_moment_2d": moment, "fit_rows": rows,
-            "cond_estimate@fit_moment_2d": key_moment, "cond_estimate@fit_rows": key_rows,
+    return {"fit_moment": moment, "fit_rows": rows,
+            "cond_estimate@fit_moment": key_moment, "cond_estimate@fit_rows": key_rows,
             "gather_rows": gather}
 
 
@@ -1531,8 +1776,9 @@ def phase_compat(dev, wtt, smi):
     """The fit_* entries on the card: fit_2D_many at 2^20 (the moment kernel,
     one launch), fit_3D_many with sens and a known DOF at 65,536 (the rows
     kernel's warp body), fit_1D_iterative_many at 65,536 under count fidelity
-    (the engine) and without (the rows kernel), and fit_2D on one case; each
-    held to the port's engine at 1e-10, the 2D calls also to scipy."""
+    (the engine) and without (the moment kernel, as the JAX package routes
+    1D ALGO_ITERATIVE), and fit_2D on one case; each held to the port's
+    engine at 1e-10, the 2D calls also to scipy."""
     from wlsqm_tpu_torch import config
 
     torch.cuda.empty_cache()
@@ -1599,7 +1845,7 @@ def phase_compat(dev, wtt, smi):
                 "fit_1D_iterative_many_" + ("fidelity" if fidelity is None else "kernel"),
                 (*args1, fi, None, False, *cfg, 3), (*args1, fi_e, None, False, *cfg, 3))
             held(rec, fi, fi_e)
-            if rec["launches"] != _launches(rows=want, key_rows=want):
+            if rec["launches"] != _launches(moment=want, key_moment=want):
                 raise RuntimeError("fit_1D_iterative_many (fidelity %s) launched %s"
                                    % (fidelity, rec["launches"]))
     finally:
@@ -1892,11 +2138,83 @@ def _oracle_err(fi, xk, fk, xi, sel):
     return err
 
 
+def phase_certified_moments(dev, wtt):
+    """The certified route on the configurations the moment kernel newly
+    takes: 1D order 4 with ALGO_ITERATIVE (K = 16), 2D order 4 with the value
+    known and 2D order 4 with ALGO_ITERATIVE (K = 30), the bench workload at
+    B_CERT_NEW each.  The plan's route and launches; the moment kernel's
+    share of cases whose key is under its key edge (the calibration
+    record's, measured on 2D order 4 basic); on up to B_ORACLE of those the
+    worst error against the long-double-refined oracle
+    (calibration._reduced_oracle: calibration._strong_oracle, or the
+    reduced system's with the known value), relative to the case's max
+    |ref|; fails past PARITY."""
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    edge = condprobe.est_certified_edges()["moments"]
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    W = wtt.WEIGHT_CENTER
+    out = {}
+    for name, dim, Kc, kn, it in (("1d_o4_iterative", 1, K_GRID[1], 0, True),
+                                  ("2d_o4_known_value", 2, K, 1, False),
+                                  ("2d_o4_iterative", 2, K, 0, True)):
+        xk, fk, nk, xi = _cloud(B_CERT_NEW, gen, dev, dim=dim, K=Kc)
+        NO = wtt.number_of_dofs(dim, ORDER)
+        fi0 = torch.zeros((B_CERT_NEW, NO), dtype=torch.float64, device=dev)
+        fi0[:, 0] = 0.25
+        mi = MAX_ITER if it else 0
+        kw = dict(order=ORDER, knowns=kn, weighting=W)
+        plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], iterative=it, **kw)
+        _zero_launches()
+        res = wtt.fit_many(xk, fk, xi, fi_init=fi0, plan=plan, iterative=it, max_iter=mi,
+                           **kw)
+        torch.cuda.synchronize()
+        launches = _kernel_launches()
+        k1 = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, dimension=dim, order=ORDER,
+                                   weighting=W, knowns=kn, max_iter=mi, emit_cond=True)
+        fi, key = k1[0], k1[-1]
+        cert = (key <= edge).nonzero().squeeze(1)
+        on_k1 = (plan.route.path, plan.route.assembly) == ("kernel", "moments")
+        if on_k1 and not _same_bits(res.fi, fi):
+            raise RuntimeError("%s: the planned route is not the moment kernel's bits" % name)
+        sel = cert[torch.randperm(len(cert), generator=torch.Generator().manual_seed(5)
+                                  ).to(dev)[:B_ORACLE]].cpu().numpy()
+        a = [t[sel].cpu().numpy() for t in (xk, xi, fk, fi0)]
+        got = fi[sel].cpu().numpy()
+        err = np.full(len(sel), np.nan)
+        with np.errstate(all="ignore"):
+            for lo in range(0, len(sel), 512):
+                s = slice(lo, lo + 512)
+                try:
+                    ref = calibration._reduced_oracle(a[0][s], a[1][s], a[2][s], a[3][s],
+                                                      [0] if kn else [], W, dim, ORDER)
+                except np.linalg.LinAlgError:
+                    continue
+                err[s] = np.abs(got[s] - ref).max(-1) / np.abs(ref).max(-1)
+        out[name] = {"route": plan.route.path, "assembly": plan.route.assembly,
+                     "launches": launches, "certified_share": len(cert) / B_CERT_NEW,
+                     "key_edge": edge, "oracle_cases": int(np.isfinite(err).sum()),
+                     "worst_certified_vs_oracle": float(np.nanmax(err)) if len(sel) else None,
+                     "key_median": float(key.median())}
+        del xk, fk, nk, xi, fi0, res, k1, fi, key
+    print(json.dumps({"path": "certified_moments", "B": B_CERT_NEW, "configs": out,
+                      "tol": PARITY}), flush=True)
+    bad = {n: v for n, v in out.items() if v["worst_certified_vs_oracle"] is not None
+           and not v["worst_certified_vs_oracle"] <= PARITY}
+    if bad:
+        raise RuntimeError("moment kernel past PARITY of the oracle on certified cases: %s"
+                           % (bad,))
+    return out
+
+
 def phase_certified(dev, wtt):
     """The certified auto route at full width (B_CERT cases): the plan from
-    the first B_PLAN cases, its replay, the eager auto route, and the auto
-    route with a known DOF (the rows kernel), with the launch counts read
-    right after; then the checks and the times."""
+    the first B_PLAN cases, its replay, the eager auto route, the auto
+    route with a known DOF (the moment kernel, as the JAX package routes
+    it), and the rows body's eager split on that batch (what the auto route
+    runs for the groups it sends to the rows kernel), with the launch counts
+    read right after; then the checks and the times."""
     from wlsqm_tpu_torch import api
     from wlsqm_tpu_torch.fitter import condprobe
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
@@ -1920,11 +2238,15 @@ def phase_certified(dev, wtt):
     plan_s = time.perf_counter() - t0
     res_plan = wtt.fit_many(xk, fk, xi, plan=plan, **kw)
     res_auto = wtt.fit_many(xk, fk, xi, backend="auto", **kw)
-    res_rows = wtt.fit_many(xk[r], fk[r], xi[r], backend="auto", knowns=kn,
-                            fi_init=fi_init, **kw)
+    res_known = wtt.fit_many(xk[r], fk[r], xi[r], backend="auto", knowns=kn,
+                             fi_init=fi_init, **kw)
+    edge_r = condprobe.split_partition_choice(assembly="rows")[1]
+    res_rows = api._eager_split_group(xk[r], fk[r], nk[r], xi[r], fi_init, dim=2,
+                                      order=ORDER, knowns=kn, weighting=wtt.WEIGHT_CENTER,
+                                      assembly="rows", edge=edge_r)[0]
     torch.cuda.synchronize()
-    launches = {"fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
-                "cond_estimate@fit_moment_2d": fit_kernel.COND_LAUNCHES,
+    launches = {"fit_moment": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
+                "cond_estimate@fit_moment": fit_kernel.COND_LAUNCHES,
                 "cond_estimate@fit_rows": fit_rows.COND_LAUNCHES}
     route = plan.route
     shown = ("path", "assembly", "kernel_precision", "refine_steps", "split_edge",
@@ -1946,13 +2268,13 @@ def phase_certified(dev, wtt):
     del wide, wide_key
     if (route.path, route.assembly) != ("kernel-split", "moments"):
         raise RuntimeError("the plan is not a moment-kernel split: %s" % (route,))
-    if launches["cond_estimate@fit_moment_2d"] < 3 or launches["cond_estimate@fit_rows"] < 1:
+    if launches["cond_estimate@fit_moment"] < 4 or launches["cond_estimate@fit_rows"] < 1:
         raise RuntimeError("the certified route did not launch the kernels' keys: %s"
                            % (launches,))
-    for name, res, n in (("plan", res_plan, B_CERT), ("auto", res_auto, B_CERT),
-                         ("rows", res_rows, B_CERT_ROWS)):
-        if tuple(res.fi.shape) != (n, 15):
-            raise RuntimeError("certified %s: shape %s" % (name, tuple(res.fi.shape)))
+    for name, fi, n in (("plan", res_plan.fi, B_CERT), ("auto", res_auto.fi, B_CERT),
+                        ("known", res_known.fi, B_CERT_ROWS), ("rows", res_rows, B_CERT_ROWS)):
+        if tuple(fi.shape) != (n, 15):
+            raise RuntimeError("certified %s: shape %s" % (name, tuple(fi.shape)))
 
     # ---- what the route is made of: the kernel alone, the key, the engine ----
     fi_kernel = wtt.fit_many(xk, fk, xi, backend="kernel", **kw).fi
@@ -1984,20 +2306,33 @@ def phase_certified(dev, wtt):
     auto_equal = (_same_bits(res_auto.fi[~bad], fi_kernel[~bad])
                   and _same_bits(res_auto.fi[over], tail))
     del tail
-    # (e) the rows route: the same two checks with the rows kernel's key
+    # (e) the route with a known DOF (the moment kernel with its knowns and
+    # key) and the rows body's split on it: the same two checks with each
+    # kernel's key
+    fi_e = wtt.fit_many(xk[:B_ENGINE], fk[:B_ENGINE], xi[:B_ENGINE], backend="engine",
+                        knowns=kn, fi_init=fi_init[:B_ENGINE], **kw).fi
+    fi_m, _, _, key_m = api._run_kernel_group(
+        xk[r], fk[r], nk[r], xi[r], fi_init, assembly="moments", refine_steps=None,
+        emit_cond=True, **dict(gkw, knowns=kn))
     fi_r, _, _, key_r = fit_rows.fit_rows(xk[r], fk[r], nk[r], xi[r], fi_init, dimension=2,
                                           knowns=kn, emit_cond=True, **kw)
-    edge_r = condprobe.split_partition_choice(assembly="rows")[1]
-    bad_r = ~(key_r <= edge_r)
-    over_r = bad_r.nonzero().squeeze(1)
-    tail = api._engine_group(xk[r][over_r], fk[r][over_r], nk[r][over_r], xi[r][over_r],
-                             fi_init[over_r], **dict(gkw, knowns=kn))
-    rows_equal = (_same_bits(res_rows.fi[~bad_r], fi_r[~bad_r])
-                  and _same_bits(res_rows.fi[over_r], tail))
-    rows_vs_engine = _rel(res_rows.fi[:B_ENGINE][~bad_r[:B_ENGINE]], wtt.fit_many(
-        xk[:B_ENGINE], fk[:B_ENGINE], xi[:B_ENGINE], backend="engine", knowns=kn,
-        fi_init=fi_init[:B_ENGINE], **kw).fi[~bad_r[:B_ENGINE]])
-    del tail, fi_r
+    checks = {}
+    for name, res, fi_b, key_b, edge_b in (
+            ("known", res_known.fi, fi_m, key_m,
+             condprobe.split_partition_choice(assembly="moments")[1]),
+            ("rows", res_rows, fi_r, key_r, edge_r)):
+        bad_b = ~(key_b <= edge_b)
+        over_b = bad_b.nonzero().squeeze(1)
+        tail = api._engine_group(xk[r][over_b], fk[r][over_b], nk[r][over_b],
+                                 xi[r][over_b], fi_init[over_b], **dict(gkw, knowns=kn))
+        checks[name + "_equal"] = (_same_bits(res[~bad_b], fi_b[~bad_b])
+                                   and _same_bits(res[over_b], tail))
+        checks[name + "_vs_engine"] = _rel(res[:B_ENGINE][~bad_b[:B_ENGINE]],
+                                           fi_e[~bad_b[:B_ENGINE]])
+        checks[name + "_tail"] = len(over_b)
+    rows_equal = checks["known_equal"] and checks["rows_equal"]
+    rows_vs_engine = max(checks["known_vs_engine"], checks["rows_vs_engine"])
+    del tail, fi_r, fi_m, fi_e
 
     # the oracle on a seeded sample: every certified case within 1e-10; the
     # tail's own error is reported
@@ -2043,12 +2378,12 @@ def phase_certified(dev, wtt):
         "path": "certified", "split_edge": edge, "rows_edge": edge_r,
         "certified_share": 1.0 - n_bad / B_CERT, "tail": n_bad, "tail_window": k,
         "tail_overflow": max(n_bad - k, 0), "collinear": int(squeezed.sum()),
-        "rows_certified_share": 1.0 - int(bad_r.sum()) / B_CERT_ROWS,
+        "known_split": checks,
         "key": {"median": key.nanmedian().item(), "max_finite": key[
             torch.isfinite(key)].max().item(), "non_finite": int((~torch.isfinite(key)).sum())},
         "plan_equals_composition": plan_equal, "auto_equals_composition": auto_equal,
-        "rows_auto_equals_composition": rows_equal,
-        "rows_certified_vs_engine": rows_vs_engine,
+        "known_and_rows_equal_composition": rows_equal,
+        "known_and_rows_certified_vs_engine": rows_vs_engine,
         "err_vs_oracle": errors, "oracle_sample": B_ORACLE, "tol": PARITY,
         "ms": {name: v[1] for name, v in times.items()},
         "key_share_of_launch_ms": med["launch_key"] - med["launch"],
@@ -2057,14 +2392,14 @@ def phase_certified(dev, wtt):
         "peak_mem_gb": round(peak_gb, 3)}), flush=True)
     if not (plan_equal and auto_equal and rows_equal):
         raise RuntimeError("a certified route differs from its composition: plan %s, "
-                           "auto %s, rows %s" % (plan_equal, auto_equal, rows_equal))
+                           "auto %s, known and rows %s" % (plan_equal, auto_equal, checks))
     for name in ("plan_certified", "auto_certified"):
         e = errors[name]
         if e["oracle_failed"] or not e["max"] <= PARITY:
             raise RuntimeError("certified cases against the oracle (%s): %s > %.0e"
                                % (name, e, PARITY))
     if not rows_vs_engine <= PARITY:
-        raise RuntimeError("rows route, certified cases vs engine: %.3e > %.0e"
+        raise RuntimeError("known-DOF routes, certified cases vs engine: %.3e > %.0e"
                            % (rows_vs_engine, PARITY))
     return launches
 
@@ -2302,7 +2637,8 @@ def _moment_variants_lib(emit_cond):
         {fit_kernel._HEADER: fit_kernel.tables_header(), "fit_moment_variants.cuh": variants},
         {"wlsqm_fit_moment_variant": (i32, [i32] + [vp] * 7 + [ctypes.c_int64, i32, i32, vp]),
          "wlsqm_moment_phase_cycles": (i32, [vp])},
-        defines=("WLSQM_EMIT_COND=%d" % emit_cond, "WLSQM_MOMENT_VARIANTS=1"))
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond, "WLSQM_MOMENT_DIM=2",
+                 "WLSQM_MOMENT_VARIANTS=1"), includes=fit_kernel._INCLUDES)
 
 
 def _phase_cycles(lib, names=()):
@@ -2506,6 +2842,48 @@ def _auto_route_times():
             "fit_many_plan_ms": _time_ms(lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw))}
 
 
+def _headline_route_times():
+    """The headline path (phase_headline's cloud at B_MAIN): fit_many(plan=)
+    and fit_kernel, median and the REPS times after one warm-up, through
+    whichever wlsqm_tpu_torch is first on sys.path."""
+    import wlsqm_tpu_torch as wtt
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    dev = torch.device("cuda")
+    xk, fk, nk, xi = _cloud(B_MAIN, torch.Generator(device=dev).manual_seed(42), dev)
+    kw = dict(order=ORDER, weighting=wtt.WEIGHT_CENTER)
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw)
+    return {"package": os.path.dirname(os.path.abspath(wtt.__file__)),
+            "route": plan.route.path, "assembly": plan.route.assembly,
+            "fit_many_plan_ms": _time_ms(lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw)),
+            "fit_kernel_ms": _time_ms(lambda: fit_kernel.fit_kernel(
+                xk, fk, nk, xi, dimension=2, **kw))}
+
+
+def _other_this_this_other(other_root, fn):
+    """Run this file's ``fn`` in four processes of their own, each importing
+    one checkout's wlsqm_tpu_torch (built there): other, this, this, other."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import importlib.util, json, sys; sys.path.insert(0, %r); "
+            "spec = importlib.util.spec_from_file_location('smoke', %r); "
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+            "print(json.dumps(m.%s()))")
+    runs = []
+    for root in (other_root, here, here, other_root):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", code % (root, os.path.abspath(__file__), fn)],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError("%s in %s failed:\n%s" % (fn, root, proc.stderr[-4000:]))
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({fn + "_other_this_this_other": runs, "card": smi.splitlines()[0]}),
+          flush=True)
+    return runs
+
+
 def measure_auto_route(other_root):
     """The certified auto route of this checkout against another one (the
     parent commit, unpacked by ``git archive`` into a git-ignored
@@ -2516,25 +2894,16 @@ def measure_auto_route(other_root):
 
         python3 -c "import chip_smoke; chip_smoke.measure_auto_route('build/parent')"
     """
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = ("import importlib.util, json, sys; sys.path.insert(0, %r); "
-            "spec = importlib.util.spec_from_file_location('smoke', %r); "
-            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
-            "print(json.dumps(m._auto_route_times()))")
-    runs = []
-    for root in (other_root, here, here, other_root):
-        root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", code % (root, os.path.abspath(__file__))],
-                              cwd=root, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError("auto route in %s failed:\n%s" % (root, proc.stderr[-4000:]))
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"auto_route_other_this_this_other": runs, "card": smi.splitlines()[0]}),
-          flush=True)
-    return runs
+    return _other_this_this_other(other_root, "_auto_route_times")
+
+
+def measure_headline_route(other_root):
+    """The headline path of this checkout against another one, as
+    measure_auto_route (other, this, this, other; _headline_route_times):
+
+        python3 -c "import chip_smoke; chip_smoke.measure_headline_route('build/parent')"
+    """
+    return _other_this_this_other(other_root, "_headline_route_times")
 
 
 def measure_engine_batch_invariance():
@@ -2771,7 +3140,7 @@ def phase_stream(dev, wtt, smi, resident_ms):
     # key's maximum may pass the moment body's edge, and the plan then names
     # the rows body; the bit-for-bit check below holds the stream to it
     plan = wtt.plan_fit_many(xk[:CHUNK_STREAM], **kw)
-    body = {"moments": "fit_moment_2d", "rows": "fit_rows"}.get(plan.route.assembly)
+    body = {"moments": "fit_moment", "rows": "fit_rows"}.get(plan.route.assembly)
     if res.fi is not out or body is None or launches[body] < B_STREAM // CHUNK_STREAM:
         raise RuntimeError("fit_stream (plan %s) launched %s for %d chunks"
                            % (plan.route, launches, B_STREAM // CHUNK_STREAM))
@@ -2948,7 +3317,7 @@ def phase_sharded(dev, wtt, smi, idx_np, ibvp_plan, stream):
                 line["stream_mesh4_default_vs_stream"])
     if worst > PARITY:
         raise RuntimeError("the default mesh stream is %.3e off scipy or the stream" % worst)
-    if launches["gather_rows"] != 4 or launches["fit_moment_2d"] < 4:
+    if launches["gather_rows"] != 4 or launches["fit_moment"] < 4:
         raise RuntimeError("the sharded path did not launch the kernels per shard: %s"
                            % (launches,))
     return launches
@@ -3022,8 +3391,8 @@ def phase_warmup(dev, wtt):
     print(json.dumps(line), flush=True)
     for rep in reports:
         n = rep["launches"]
-        if (n["fit_moment_2d"] + n["fit_rows"] < 2
-                or n["cond_estimate@fit_moment_2d"] + n["cond_estimate@fit_rows"] < 1):
+        if (n["fit_moment"] + n["fit_rows"] < 2
+                or n["cond_estimate@fit_moment"] + n["cond_estimate@fit_rows"] < 1):
             raise RuntimeError("warmup did not launch a configuration's instances: %s" % rep)
     if cold["launches"] != [r["launches"] for r in reports]:
         raise RuntimeError("the fresh interpreter's warmup launched otherwise: %s" % cold)
@@ -3097,11 +3466,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     moment = phase_headline(dev, wtt)
     torch.cuda.empty_cache()
+    iterative = phase_iterative(dev, wtt)
+    torch.cuda.empty_cache()
     sens = phase_sens(dev, wtt)
     torch.cuda.empty_cache()
-    dim3 = phase_dim3(dev, wtt)
+    dim3, dim3_rows = phase_dim3(dev, wtt)
     torch.cuda.empty_cache()
     cert_launches = phase_certified(dev, wtt)
+    torch.cuda.empty_cache()
+    phase_certified_moments(dev, wtt)
     torch.cuda.empty_cache()
     pts, idx_np, plan, setup = ibvp_setup()
     g_abs = phase_gather_vs_plain(dev, idx_np, plan)
@@ -3124,7 +3497,11 @@ def main() -> int:
     phase_serialization(dev, wtt)
     warm = phase_warmup(dev, wtt)
     phase_kdtree(pts, idx_np, setup)
-    by_path = {"expert": expert, **compat, "grad": grad, "stream": stream_launches,
+    by_path = {"headline": _launches(moment=moment["launches"]),
+               "sens": _launches(rows=sens["launches"]),
+               "iterative": _launches(moment=iterative["launches"]),
+               "dim3": _launches(moment=dim3["launches"]),
+               "expert": expert, **compat, "grad": grad, "stream": stream_launches,
                "sharded": sharded, "warmup": warm}
 
     def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN, **extra):
@@ -3135,17 +3512,29 @@ def main() -> int:
                 "batch": batch, "config": config, **extra}
 
     print(json.dumps({"kernels": [
-        entry("fit_moment_2d", "wlsqm_tpu_torch/csrc/fit_moment.cu",
+        entry("fit_moment", "wlsqm_tpu_torch/csrc/fit_moment.cu",
               "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel, moment,
-              "headline: 2D order 4 K=30 CENTER",
-              launches_by_path={p: n["fit_moment_2d"] for p, n in by_path.items()}),
+              "headline: 2D order 4 K=30 CENTER (the thread body); max_abs_err over "
+              "dims 1-3, orders 0-4, knowns, max_iter",
+              launches_by_path={p: n["fit_moment"] for p, n in by_path.items()}),
+        entry("fit_moment@iterative", "wlsqm_tpu_torch/csrc/fit_moment.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel, iterative,
+              "iterative: 2D order 4 K=30 CENTER max_iter=3 (the thread body with "
+              "ALGO_ITERATIVE); ms_full: the launch at 2^23",
+              ms_full=iterative["launch_ms_full"], route_ms_full=iterative["route_ms_full"]),
+        entry("fit_moment@dim3", "wlsqm_tpu_torch/csrc/fit_moment.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel, dim3,
+              "dim3: 3D order 4 K=48 CENTER (the warp body); ms_full: the launch at 2^21; "
+              "rows_*: the rows kernel (warp body) timed beside it on the same cloud "
+              "through a plan naming the rows body (rows_ms_full: its launch at 2^21)",
+              ms_full=dim3["launch_ms_full"], route_ms_full=dim3["route_ms_full"],
+              **{"rows_" + k: dim3_rows[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms")},
+              rows_ms_full=dim3_rows["launch_ms_full"]),
         entry("fit_rows", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
               "sens: 2D order 4 K=30 CENTER do_sens (warp body)",
               launches_by_path={p: n["fit_rows"] for p, n in by_path.items()}),
-        entry("fit_rows@dim3", "wlsqm_tpu_torch/csrc/fit_rows.cu",
-              "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, dim3,
-              "dim3: 3D order 4 K=48 CENTER (warp body); library torch.linalg.lstsq"),
         entry("gather_rows", "wlsqm_tpu_torch/csrc/gather.cu",
               "wlsqm_tpu/ops/gather.py:168", g_abs, 0.0, ibvp,
               "IBVP step: n=2^22, K=28, f64, F=1 (ms_F3, library_ms_F3, bound_ms_F3: "
@@ -3157,10 +3546,11 @@ def main() -> int:
                 "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],
                 dict(t, launches=cert_launches["cond_estimate@" + kernel]),
                 "the launch with the key: 2D order 4 K=30 CENTER basic; launches on "
-                "the certified route; library condprobe.cond_key",
+                "the certified route (the rows body: its split on the known-DOF "
+                "batch); library condprobe.cond_key",
                 launches_by_path={p: n["cond_estimate@" + kernel]
                                   for p, n in by_path.items()})
-          for kernel, src, t in (("fit_moment_2d", "fit_moment", cond["moments"]),
+          for kernel, src, t in (("fit_moment", "fit_moment", cond["moments"]),
                                  ("fit_rows", "fit_rows", cond["rows"]))),
     ], "total_s": round(time.perf_counter() - t_start, 1)}),
         flush=True)

@@ -350,3 +350,65 @@ def test_auto_route_of_an_uncertifiable_batch_is_the_engine(monkeypatch):
     assert calls == [1]
     ref = wtt.fit_many(xk, fk, None, order=2, backend="engine", device=CPU)
     assert torch.equal(torch.nan_to_num(res.fi, 7.0), torch.nan_to_num(ref.fi, 7.0))
+
+
+def test_plans_name_the_moment_body_where_the_jax_package_does(monkeypatch):
+    """The certified route takes the moment body for 1D, for knowns and for
+    ALGO_ITERATIVE in 2D (``moment_cert_ok``: dims 1-2), the rows body for
+    sensitivities and for 3D; a forced kernel takes the moment body in 3D
+    too (``moment_auto_ok``).  Routing by configuration: the record
+    certifies every case."""
+    roomy_units(monkeypatch)
+    rng = np.random.default_rng(9)
+    kw = dict(ragged=False, radius=(0.3, 1.0))
+    x1 = cloud(rng, 64, 16, 1, orders=(2,), **kw)["xk"]
+    x2 = cloud(rng, 64, 30, 2, **kw)["xk"]
+    x3 = cloud(rng, 64, 24, 3, orders=(2,), **kw)["xk"]
+
+    def body(xk, **kw):
+        r = wtt.plan_fit_many(xk, None, device=CPU, **kw).route
+        assert r.path == "kernel", (xk.shape, kw, r)
+        return r.assembly
+
+    assert body(x1, order=2) == "moments"
+    assert body(x2, order=4, knowns=wt.b2_F) == "moments"
+    assert body(x2, order=4, iterative=True) == "moments"
+    assert body(x2, order=4, knowns=wt.b2_F, iterative=True) == "moments"
+    assert body(x2, order=4, do_sens=True) == "rows"
+    assert body(x3, order=2) == "rows"
+    calls = []
+    real = fit_kernel.fit_kernel
+    monkeypatch.setattr(fit_kernel, "fit_kernel",
+                        lambda *a, **k: calls.append(k["dimension"]) or real(*a, **k))
+    wtt.fit_many(x3, np.sin(x3[..., 0]), order=2, backend="kernel", device=CPU)
+    wtt.fit_many(x3, np.sin(x3[..., 0]), order=2, device=CPU)
+    assert calls == [3]
+
+
+def test_slice_end_to_end_matches_jax_f64(monkeypatch):
+    """The slice as a whole on the CPU (the moment kernel's plain version):
+    a 2D batch with known DOFs and ALGO_ITERATIVE through fit_many's auto
+    route, a plan and a forced kernel, and a forced 3D order-4 batch at
+    K = 48, each against the JAX package's f64 route to 1e-10; the known
+    DOFs are fi_init's bits."""
+    roomy_units(monkeypatch)
+    rng = np.random.default_rng(10)
+    case = cloud(rng, 256, 30, 2, orders=(4,), weightings=(2,), radius=(0.3, 1.0))
+    kn = wt.b2_F | wt.b2_Y
+    args = (case["xk"], case["fk"], case["xi"])
+    kw = dict(nk=case["nk"], order=4, knowns=kn, weighting=2, fi_init=case["fi0"],
+              iterative=True, max_iter=3)
+    _, ref = _jax(*args, **kw)
+    plan = wtt.plan_fit_many(case["xk"], case["xi"], nk=case["nk"], order=4, knowns=kn,
+                             weighting=2, iterative=True, device=CPU)
+    assert (plan.route.path, plan.route.assembly) == ("kernel", "moments")
+    for extra in (dict(), dict(plan=plan), dict(backend="kernel")):
+        res = wtt.fit_many(*args, device=CPU, **kw, **extra)
+        assert rel_err(res.fi.numpy(), ref) <= PARITY, extra
+        np.testing.assert_array_equal(res.fi.numpy()[:, [0, 2]], case["fi0"][:, [0, 2]])
+        assert 1 <= int(res.iterations.min()) and int(res.iterations.max()) <= 3
+    c3 = cloud(rng, 128, 48, 3, orders=(4,), weightings=(2,), radius=(0.3, 1.0))
+    a3 = (c3["xk"], c3["fk"], c3["xi"])
+    res = wtt.fit_many(*a3, nk=c3["nk"], order=4, weighting=2, backend="kernel", device=CPU)
+    _, ref3 = _jax(*a3, nk=c3["nk"], order=4, weighting=2)
+    assert rel_err(res.fi.numpy(), ref3) <= PARITY

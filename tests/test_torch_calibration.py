@@ -170,6 +170,50 @@ def test_strong_oracle_is_the_jax_one():
                                       jcal._strong_oracle(jxk, jxi, jfk, weighting, 2))
 
 
+def test_reduced_oracle_without_knowns_is_the_strong_oracle():
+    """With no known DOF the reduced system is the whole one, in dims 1-3:
+    to 1e-15 relative to max(|ref|, 1) (the same operations; NumPy's
+    einsum may sum a copied column slice in another order)."""
+    rng = np.random.default_rng(11)
+    for dim, order in ((1, 4), (2, 4), (3, 2)):
+        xk = rng.uniform(-1, 1, (16, 24, dim))
+        xi = rng.uniform(-0.1, 0.1, (16, dim))
+        fk = np.sin(3 * xk[..., 0])
+        for weighting in (1, 2):
+            ref = calibration._strong_oracle(xk, xi, fk, weighting, dim, order)
+            got = calibration._reduced_oracle(xk, xi, fk, np.zeros((16, 35)), [], weighting,
+                                              dim, order)
+            assert (np.abs(got - ref).max(-1) / np.maximum(np.abs(ref).max(-1), 1)).max() <= 1e-15
+
+
+def test_oracle_case_errors_fit_each_case_on_its_own_neighbours():
+    """Ragged cases (NaN past nk) with a known DOF: the oracle's fit has
+    fi0's bits on the known DOF and holds the f64 engine to 1e-10; a fit
+    moved by 1e-6 on one case shows that case's error and no other's."""
+    from wlsqm_tpu_torch.fitter import engine
+
+    rng = np.random.default_rng(12)
+    B, K, dim, order = 8, 16, 1, 3
+    xk = rng.uniform(-1, 1, (B, K, dim))
+    xi = np.zeros((B, dim))
+    fk = np.sin(3 * xk[..., 0])
+    nk = rng.integers(9, K + 1, B).astype(np.int32)
+    pad = np.arange(K)[None, :] >= nk[:, None]
+    xk[pad] = np.nan
+    fk[pad] = np.nan
+    fi0 = rng.standard_normal((B, 4))
+    t = [torch.as_tensor(a) for a in (xk, fk, nk, xi, fi0)]
+    fi, _, _, _ = engine.fit_batch(*t, torch.full((B,), order), torch.full((B,), 1),
+                                   torch.full((B,), 2), dimension=dim, NO=4)
+    moved = fi.clone()
+    moved[3, 1] += 1e-6 * max(float(fi[3].abs().max()), 1.0)
+    err = calibration.oracle_case_errors([fi, moved], t[0], t[1], t[2], t[3],
+                                         t[4], [0], 2, dim, order)
+    assert err[0].max() <= 1e-10
+    assert abs(err[1, 3] - 1e-6) <= 1e-9 and np.array_equal(np.delete(err[1], 3),
+                                                           np.delete(err[0], 3))
+
+
 def test_calibrate_device_fit_logic_matches_jax(monkeypatch):
     """Both harnesses on the same synthetic kernels: err = unit * (the case's
     cond·amp) on top of the oracle, key = 1.5 * cond·amp.  JAX's ds variants

@@ -147,16 +147,17 @@ def test_api_iterative_auto_route_honours_count_fidelity(monkeypatch):
     auto route and its plan on the engine, as in the JAX package (its
     api-scope default is off)."""
     from torch_port_cases import roomy_units
-    from wlsqm_tpu_torch.ops import fit_rows
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
     roomy_units(monkeypatch)
     rng = np.random.default_rng(3)
     xk = rng.uniform(-1, 1, (64, 30, 2))
     fk = np.sin(xk[..., 0])
     calls = []
-    real = fit_rows.fit_rows
-    monkeypatch.setattr(fit_rows, "fit_rows",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for mod, name in ((fit_rows, "fit_rows"), (fit_kernel, "fit_kernel")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _real=real, **k: calls.append(1) or _real(*a, **k))
     kw = dict(order=2, iterative=True, max_iter=3, device="cpu")
     wtt.fit_many(xk, fk, **kw)
     assert wtt.plan_fit_many(xk, **{k: v for k, v in kw.items() if k != "max_iter"}

@@ -61,8 +61,22 @@ def _cloud(dev, B, K, order, seed, dim=2, lo=None, ragged=True):
     return xk, fk, nk, xi
 
 
+def _rel_cases(a, b):
+    """Per-case L-inf error relative to max(|ref|, 1)."""
+    return (a - b).abs().amax(1) / b.abs().amax(1).clamp_min(1.0)
+
+
 def _rel(a, b):
-    return ((a - b).abs().amax(1) / b.abs().amax(1).clamp_min(1.0)).max().item()
+    return _rel_cases(a, b).max().item()
+
+
+#: past the certified key edge a kernel and its plain version differ by
+#: roundoff times the conditioning: held to KEY_EPS * key (2^-50 a unit of key),
+#: at most KEY_CAP, and the kernel within PARITY of the long-double-refined
+#: oracle or at most ORACLE_FACTOR times the plain version's own error there
+KEY_EPS = 2.0 ** -50
+KEY_CAP = 1e-9
+ORACLE_FACTOR = 4.0
 
 
 @pytest.mark.parametrize("weighting", [wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER])
@@ -135,11 +149,13 @@ def test_kernel_scale_is_prescale_bit_for_bit(dev):
     device functions alone) equal _prescale's bit for bit on 2^23 cases and
     on the adversarial ones (powers of four and an ulp either side, nk = 0,
     NaN padding)."""
-    for B, K, adversarial in ((1 << 23, 30, False), (8192, 30, True), (4096, 53, True)):
+    for B, K, adversarial, dim in ((1 << 23, 30, False, 2), (8192, 30, True, 2),
+                                   (4096, 53, True, 2), (1 << 20, 16, False, 1),
+                                   (1 << 20, 48, False, 3)):
         if adversarial:
             xk, nk, xi = _adversarial_scale_cloud(dev, B, K)
         else:
-            xk, _, nk, xi = _cloud(dev, B, K, 4, seed=12)
+            xk, _, nk, xi = _cloud(dev, B, K, 4, seed=12 + dim, dim=dim)
         e, inv_s = fit_kernel.moment_scale(xk, nk, xi)
         _, _, e_ref, inv_ref = fit_kernel._prescale(xk, nk, xi)
         torch.cuda.synchronize()
@@ -988,6 +1004,157 @@ def test_warmup_builds_and_launches_every_instance(dev):
     assert len(reports) == 5
     for rep in reports:
         n = rep["launches"]
-        key = n["cond_estimate@fit_moment_2d"] + n["cond_estimate@fit_rows"]
-        assert n["fit_moment_2d"] + n["fit_rows"] >= 2 and key >= 1, rep
+        key = n["cond_estimate@fit_moment"] + n["cond_estimate@fit_rows"]
+        assert n["fit_moment"] + n["fit_rows"] >= 2 and key >= 1, rep
+    # the 3D moment configuration warms the moment kernel (its warp body)
+    assert reports[-1]["assembly"] == "moments" and reports[-1]["launches"]["fit_moment"] >= 2
     assert {r["assembly"] for r in reports} == {"moments", "rows"}
+
+
+# ---------------------------------------------------------------------------
+# The moment kernel in dims 1 and 3, with knowns and ALGO_ITERATIVE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_moment_kernel_knowns_and_iterative_match_plain(dev, dim):
+    """Every order and weighting, knowns {0, the value, the highest DOF},
+    basic and max_iter = 3, ragged nk with NaN padding (1D at nk >= 2 NO):
+    fi within PARITY of the plain version, in 1D on every case whose key is
+    under the moment body's certified edge; past it (the kernel and the
+    plain version sum the moments in other orders, a difference the
+    conditioning amplifies: 1D order 4 clouds of 10-16 points reach keys of
+    1e6-1e7) within min(KEY_EPS x key, KEY_CAP) of the plain version and,
+    against the long-double-refined oracle, within PARITY or ORACLE_FACTOR
+    times the plain version's error; the known DOFs fi_init's bits, fi and
+    the counts the same bits with and without the key, the key within 1e-6
+    of the plain version's."""
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
+
+    edge = condprobe.est_certified_edges()["moments"]
+    K = K_BY_DIM[dim]
+    for order in range(5):
+        NO = wtt.number_of_dofs(dim, order)
+        lo = 2 * NO if dim == 1 else None
+        for kn in sorted({0, 1, 1 << (NO - 1)}):
+            for mi in (0, 3):
+                for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+                    xk, fk, nk, xi = _cloud(dev, 2048, K, order, seed=100 + order, dim=dim,
+                                            lo=lo)
+                    fi0 = torch.randn((2048, NO + 1), dtype=torch.float64, device=dev)
+                    kw = dict(dimension=dim, order=order, weighting=w, knowns=kn, max_iter=mi)
+                    before = fit_kernel.LAUNCHES
+                    got = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, **kw)
+                    key = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, emit_cond=True, **kw)
+                    torch.cuda.synchronize()
+                    assert fit_kernel.LAUNCHES == before + 2
+                    ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, fi0, emit_cond=True, **kw)
+                    fi = got[0] if mi else got
+                    case = (dim, order, kn, mi, w)
+                    assert torch.isfinite(fi).all(), case
+                    err = _rel_cases(fi, ref[0])
+                    KN = fit_kernel.known_dofs(kn, dim, order)
+                    if dim == 1:
+                        cap = (KEY_EPS * ref[-1]).clamp_max(KEY_CAP)
+                        assert bool((err <= torch.where(ref[-1] <= edge, PARITY, cap)).all()), case
+                        past = (ref[-1] > edge).nonzero().squeeze(1)
+                        e = calibration.oracle_case_errors(
+                            [fi[past], ref[0][past]], xk[past], fk[past], nk[past], xi[past],
+                            fi0[past], KN, w, dim, order)
+                        assert (e[0] <= np.maximum(ORACLE_FACTOR * e[1], PARITY)).all(), case
+                    else:
+                        assert err.max().item() <= PARITY, case
+                    assert torch.equal(_bits(fi), _bits(key[0])), case
+                    assert torch.equal(_bits(fi[:, KN]), _bits(fi0[:, KN])), case
+                    if mi:
+                        assert torch.equal(got[1], key[1]), case
+                        assert int(got[1].min()) >= 1 and int(got[1].max()) <= mi
+                    assert ((key[-1] - ref[-1]).abs() / ref[-1]).max().item() <= 1e-6, case
+
+
+def test_moment_ext_instance_is_the_basic_instance(dev):
+    """In 2D the instance compiled with knowns and ALGO_ITERATIVE gives, with
+    neither asked, the bits of the basic instance (the headline's), with and
+    without the key; with max_iter = 0 fit_kernel is the basic path."""
+    for order in range(5):
+        xk, fk, nk, xi = _cloud(dev, 8192, 30, order, seed=200 + order)
+        NO = wtt.number_of_dofs(2, order)
+        outs = []
+        for ext in (False, True):
+            out = torch.empty((8192, NO), dtype=torch.float64, device=dev)
+            est = torch.empty((8192,), dtype=torch.float64, device=dev)
+            fit_kernel._launch(xk, fk, nk, xi, out, order=order, weighting=wtt.WEIGHT_CENTER,
+                               refine_steps=1, ext=ext)
+            fit_kernel._launch(xk, fk, nk, xi, out.clone(), est, order=order,
+                               weighting=wtt.WEIGHT_CENTER, refine_steps=1, ext=ext)
+            outs += [out, est]
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(outs[0]), _bits(outs[2])), order
+        assert torch.equal(_bits(outs[1]), _bits(outs[3])), order
+        basic = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=order,
+                                      weighting=wtt.WEIGHT_CENTER, max_iter=0)
+        assert torch.equal(_bits(basic), _bits(outs[0]))
+
+
+def test_moment_iterative_counts_against_the_jax_engine(dev, capsys):
+    """ROADMAP C2 for the moment kernel: on the seeded clouds of
+    tests/iterative_counts.py its ALGO_ITERATIVE counts are no farther from
+    the JAX f64 engine's stored counts than its plain version's (pooled
+    histogram distance and equal share within COUNT_SLACK); DOFs within
+    PARITY of the plain version."""
+    import iterative_counts
+
+    stored = iterative_counts.load()
+    got = {"kernel": [], "plain": []}
+    ref = []
+    for key, dim, order, w, B, K, seed in iterative_counts.configs():
+        xk, fk, nk, xi, fi0, kn = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+                                   else a for a in iterative_counts.cloud(dim, order, B, K, seed))
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
+                  max_iter=iterative_counts.MAX_ITER)
+        fi_k, it_k = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, **kw)
+        fi_p, it_p = fit_kernel.fit_moments_plain(xk, fk, nk, xi, fi0, **kw)
+        assert _rel(fi_k, fi_p) <= PARITY, key
+        got["kernel"].append(it_k.cpu().numpy())
+        got["plain"].append(it_p.cpu().numpy())
+        ref.append(stored[key])
+    k = iterative_counts.shares(got["kernel"], ref)
+    p = iterative_counts.shares(got["plain"], ref)
+    with capsys.disabled():
+        print("\nmoment counts vs JAX (equal, within one, histogram distance): kernel %s, "
+              "plain %s" % (k, p))
+    assert k[2] <= p[2] + COUNT_SLACK and k[0] >= p[0] - COUNT_SLACK
+
+
+def test_routes_launch_the_moment_kernel_where_the_jax_package_does(dev):
+    """The certified route sends 1D, 2D knowns and 2D ALGO_ITERATIVE to the
+    moment kernel, sens and certified 3D to the rows kernel; a forced kernel
+    sends 3D order 4 at K = 48 to the moment kernel; counts by launch."""
+    def launches(fn):
+        b = fit_kernel.LAUNCHES, fit_rows.LAUNCHES
+        fn()
+        torch.cuda.synchronize()
+        return fit_kernel.LAUNCHES - b[0], fit_rows.LAUNCHES - b[1]
+
+    xk, fk, nk, xi = _cloud(dev, 8192, 30, 4, seed=300, ragged=False)
+    kw = dict(order=4, weighting=wtt.WEIGHT_CENTER)
+    it_plan = wtt.plan_fit_many(xk, xi, iterative=True, **kw)
+    assert it_plan.route.assembly == "moments"
+    assert launches(lambda: wtt.fit_many(xk, fk, xi, iterative=True, max_iter=3,
+                                         plan=it_plan, **kw)) == (1, 0)
+    fi0 = torch.ones((8192, 15), dtype=torch.float64, device=dev)
+    kn_plan = wtt.plan_fit_many(xk, xi, knowns=1, **kw)
+    assert kn_plan.route.assembly == "moments"
+    res = wtt.fit_many(xk, fk, xi, knowns=1, fi_init=fi0, plan=kn_plan, **kw)
+    assert (res.fi[:, 0] == 1).all()
+    assert launches(lambda: wtt.fit_many(xk, fk, xi, do_sens=True, backend="kernel",
+                                         **kw)) == (0, 1)
+    x1, f1, n1, i1 = _cloud(dev, 8192, 16, 2, seed=301, dim=1, ragged=False)
+    r1 = wtt.plan_fit_many(x1, i1, order=2, weighting=wtt.WEIGHT_CENTER).route
+    assert (r1.path, r1.assembly) == ("kernel", "moments")
+    x3, f3, n3, i3 = _cloud(dev, 8192, 48, 4, seed=302, dim=3)
+    assert launches(lambda: wtt.fit_many(x3, f3, i3, nk=n3, backend="kernel", **kw)) == (1, 0)
+    res = wtt.fit_many(x3, f3, i3, nk=n3, backend="kernel", **kw)
+    eng = wtt.fit_many(x3, f3, i3, nk=n3, backend="engine", **kw)
+    assert _rel(res.fi, eng.fi) <= PARITY
+    x3, f3, n3, i3 = _cloud(dev, 8192, 56, 4, seed=303, dim=3, ragged=False)
+    assert wtt.plan_fit_many(x3, i3, **kw).route.assembly != "moments"

@@ -15,6 +15,7 @@ import torch
 
 from torch_port_cases import cloud, rel_err
 from wlsqm_tpu.fitter import engine as jengine
+from wlsqm_tpu.ops import pallas_fit
 from wlsqm_tpu.ops.pallas_fit import fit_pallas
 from wlsqm_tpu_torch.fitter import calibration, condprobe, defs
 from wlsqm_tpu_torch.ops import fit_kernel
@@ -133,17 +134,152 @@ def test_refine_steps_converge():
 
 
 def test_supported_predicate():
+    """The kernel's coverage is the TPU moment body's: dims 1-3, orders 0-4,
+    one order, knowns mask and weighting (UNIFORM or CENTER), the basic
+    algorithm and ALGO_ITERATIVE; sensitivities need the rows kernel."""
     S = fit_kernel.supported
     assert S(2, 4, 0, defs.WEIGHT_CENTER)
     assert S(2, np.full(4, 0), np.zeros(4), np.full(4, defs.WEIGHT_UNIFORM))
-    assert not S(3, 4, 0, defs.WEIGHT_CENTER)
-    assert not S(1, 2, 0, defs.WEIGHT_CENTER)
+    assert S(3, 4, 0, defs.WEIGHT_CENTER)
+    assert S(1, 2, 0, defs.WEIGHT_CENTER)
+    assert S(2, 2, defs.b2_F, 1)
+    assert S(3, 4, 1 << 34, 2)
+    assert not S(4, 2, 0, 1)
+    assert not S(2, 5, 0, 1)
     assert not S(2, np.array([2, 3]), 0, 1)
-    assert not S(2, 2, defs.b2_F, 1)
+    assert not S(2, 2, np.array([0, 1]), 1)
     assert not S(2, 2, 0, np.array([1, 2]))
     assert not S(2, 2, 0, 3)
     assert not S(2, 2, 0, 1, do_sens=True)
-    assert not S(2, 2, 0, 1, iterative=True)
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_route_predicates_are_the_jax_packages(dim):
+    """auto_ok and cert_ok equal pallas_fit.moment_auto_ok and
+    moment_cert_ok wherever the TPU's VMEM term does not bind (this
+    kernel takes any K)."""
+    checked = 0
+    for order in range(5):
+        for K in (8, 16, 30, 48, 64):
+            if not pallas_fit.moment_vmem_ok(dim, order, K):
+                continue
+            assert fit_kernel.auto_ok(dim, order) == pallas_fit.moment_auto_ok(dim, order, K)
+            assert fit_kernel.cert_ok(dim, order) == pallas_fit.moment_cert_ok(dim, order, K)
+            checked += 1
+    assert checked >= 20
+    assert fit_kernel.MOMENT_AUTO_NM == pallas_fit.MOMENT_AUTO_NM
+
+
+def _knowns_cases(NO):
+    """knowns masks: none, the value, and the highest DOF (a higher bit)."""
+    return sorted({0, 1, 1 << (NO - 1)})
+
+
+def _grid_case(dim, order, B=96):
+    """A ragged bench-like cloud in ``dim`` dimensions (1D at nk >= 2 NO,
+    where its order 4 is conditioned inside 1e-10) with random fi_init."""
+    import iterative_counts
+
+    K = {1: 16, 2: 30, 3: 56}[dim]
+    xk, fk, nk, xi, fi0, _ = iterative_counts.cloud(dim, order, B, K, 77 + 10 * dim + order)
+    return xk, fk, nk, xi, fi0
+
+
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_plain_with_knowns_and_iterative_matches_jax_engine(dim, order):
+    """The plain version against the JAX f64 engine on dims 1-3 x orders 0-4
+    x knowns {0, the value, the highest DOF}, basic and max_iter = 3, both
+    weightings: 1e-10 relative to max(|ref|, 1); the known DOFs are
+    fi_init's bits; the counts are per-case integers in [0, 3]."""
+    xk, fk, nk, xi, fi0 = _grid_case(dim, order)
+    B, NO = fi0.shape
+    for kn in _knowns_cases(NO):
+        for mi in (0, 3):
+            for w in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
+                ref, _, it_ref, _ = jengine.fit_batch(
+                    *(jnp.asarray(a) for a in (xk, fk, nk, xi, fi0)),
+                    jnp.full((B,), order, jnp.int32), jnp.full((B,), kn, jnp.int64),
+                    jnp.full((B,), w, jnp.int32), dimension=dim, NO=NO,
+                    iterative=mi > 0, max_iter=mi, precision="f64")
+                out = fit_kernel.fit_moments_plain(
+                    *(torch.as_tensor(a) for a in (xk, fk, nk, xi, fi0)), dimension=dim,
+                    order=order, weighting=w, knowns=kn, max_iter=mi)
+                fi = (out[0] if mi else out).numpy()
+                assert rel_err(fi, np.asarray(ref)) <= PARITY, (kn, mi, w)
+                KN = fit_kernel.known_dofs(kn, dim, order)
+                np.testing.assert_array_equal(fi[:, KN], fi0[:, KN])
+                if mi:
+                    it = out[1].numpy()
+                    assert out[1].dtype == torch.int32 and it.min() >= 0 and it.max() <= mi
+
+
+def test_plain_iterative_counts_against_the_jax_engines():
+    """ALGO_ITERATIVE counts of the moment body against the JAX f64 engine's
+    stored counts, on the seeded clouds of tests/iterative_counts.py (the
+    first 256 cases of each grid configuration, knowns masks and initial
+    DOFs included), pooled: at least half equal (ROADMAP C2's bar), and at
+    least 85% within one, under C2's 90%: measured 0.889 here (the rows
+    kernel's plain version 0.902).  The DOFs hold 1e-10 of the rows body's.
+
+    Why the bar is lower, witnessed here: the moment body's corrective
+    refit is a refinement step on the moment store (pallas_fit.py
+    l.817-885), and its counts are bimodal.  It gives 2 on 5.1% of the
+    cases where the engine gives 2 on 25.7% (asserted: under half the
+    engine's share), so where the engine settles after two trips it
+    stops after one or runs all three, and the misses go both ways (584
+    cases at 1 where the engine gives 3, 265 at 3 where it gives 1).  Its
+    one-trip stops are mostly exact fixed points of the sweep: on 68% of
+    them the first refit leaves fi's bits unchanged (asserted: >= 60%).
+    Which end a case takes follows the size of the system: one trip on
+    59-100% of the cases with NO <= 4, three on 81-89% at 2D order 4, more
+    than the engine's 63-73% there (asserted), which is the iterative
+    path's configuration (97.6% three trips on the card)."""
+    import iterative_counts
+
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    stored = iterative_counts.load()
+    got, ref, fixed, o4 = [], [], [], []
+    n = 256
+    for key, dim, order, w, B, Kc, seed in iterative_counts.configs():
+        if not key.startswith("grid_"):
+            continue
+        xk, fk, nk, xi, fi0, kn = iterative_counts.cloud(dim, order, B, Kc, seed)
+        t = [torch.as_tensor(a[:n]) for a in (xk, fk, nk, xi, fi0)]
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
+        fi, it = fit_kernel.fit_moments_plain(*t, max_iter=iterative_counts.MAX_ITER, **kw)
+        fi_r, _, _ = fit_rows.fit_rows_plain(*t, max_iter=iterative_counts.MAX_ITER, **kw)
+        assert rel_err(fi.numpy(), fi_r.numpy()) <= PARITY, key
+        f0 = fit_kernel.fit_moments_plain(*t, **kw)
+        f1, _ = fit_kernel.fit_moments_plain(*t, max_iter=1, **kw)
+        fixed.append((f0.view(torch.int64) == f1.view(torch.int64)).all(1).numpy())
+        got.append(it.numpy())
+        ref.append(stored[key][:n])
+        if (dim, order) == (2, 4):
+            o4.append((float((got[-1] == 3).mean()), float((ref[-1] == 3).mean())))
+    equal, within, _ = iterative_counts.shares(got, ref)
+    assert equal >= 0.5 and within >= 0.85, (equal, within)
+    g, r, f = (np.concatenate(a) for a in (got, ref, fixed))
+    assert float((g == 1).mean()) > float((r == 1).mean())
+    assert float((g == 2).mean()) < 0.5 * float((r == 2).mean())
+    assert float(f[g == 1].mean()) >= 0.6
+    assert all(mine > theirs for mine, theirs in o4), o4
+
+
+def test_fit_kernel_outputs_in_fit_pallas_order():
+    """fi alone; (fi, iters) with max_iter; the key last with emit_cond."""
+    xk, fk, nk, xi, fi0 = _grid_case(2, 2, B=32)
+    t = [torch.as_tensor(a) for a in (xk, fk, nk, xi, fi0)]
+    kw = dict(dimension=2, order=2, weighting=defs.WEIGHT_CENTER, knowns=1)
+    fi = fit_kernel.fit_kernel(*t, **kw)
+    fi2, it = fit_kernel.fit_kernel(*t, max_iter=2, **kw)
+    fi3, it3, key = fit_kernel.fit_kernel(*t, max_iter=2, emit_cond=True, **kw)
+    fi4, key4 = fit_kernel.fit_kernel(*t, emit_cond=True, **kw)
+    assert fi.shape == (32, 6) and it.shape == (32,) and key.shape == (32,)
+    assert torch.equal(fi2, fi3) and torch.equal(it, it3) and torch.equal(fi, fi4)
+    assert torch.equal(key, key4)
+    np.testing.assert_array_equal(fi[:, 0].numpy(), fi0[:, 0])
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,8 @@ over the grid.
 The CUDA kernel itself is tested on the card by tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,20 +170,21 @@ def test_dim3_and_iterative_plans_route_to_the_rows_kernel(monkeypatch):
     ref = wt.fit_many(case["xk"], case["fk"], case["xi"], nk=case["nk"], order=4,
                       weighting=2, backend="xla", precision="f64")
     assert rel_err(res.fi.numpy(), np.asarray(ref.fi)) <= PARITY
+    # ALGO_ITERATIVE in 2D: the moment kernel covers it, as in the JAX package
     xk2 = cloud(rng, 8, 30, 2, ragged=False)["xk"]
     it = wtt.plan_fit_many(xk2, None, order=4, iterative=True, device=CPU).route
-    assert (it.path, it.assembly) == ("kernel", "rows")
+    assert (it.path, it.assembly) == ("kernel", "moments")
     # below K >= 1.5 NO the plan keeps the engine, as in the JAX package
     short = wtt.plan_fit_many(case["xk"][:, :48], case["xi"], order=4, device=CPU)
     assert short.route.path == "xla"
 
 
 def test_auto_batch_splits_between_the_kernels_and_the_engine(monkeypatch):
-    """Per-case orders and knowns at K = 20: knowns-free groups go to the
-    moment kernel (to the rows kernel when sens are asked for), knowns
-    groups to the rows kernel, order 4 (K < 1.5 NO) to one engine call; the
-    whole matches the JAX f64 route, sens included.  Routing by
-    configuration: the record certifies every case."""
+    """Per-case orders and knowns at K = 20: every group goes to the moment
+    kernel, knowns included (to the rows kernel when sens are asked for),
+    order 4 (K < 1.5 NO) to one engine call; the whole matches the JAX f64
+    route, sens included.  Routing by configuration: the record certifies
+    every case."""
     roomy_units(monkeypatch)
     calls = {"moments": 0, "rows": 0, "engine": 0}
 
@@ -206,9 +209,9 @@ def test_auto_batch_splits_between_the_kernels_and_the_engine(monkeypatch):
         assert rel_err(res.fi.numpy(), np.asarray(ref.fi)) <= PARITY
         if do_sens:
             assert rel_err(res.sens.numpy(), np.asarray(ref.sens)) <= PARITY
-    # per call 2 weightings x orders {2, 3} x knowns {0, mask}: without sens the
-    # knowns-free groups take the moment kernel; with sens every group the rows
-    assert calls == {"moments": 4, "rows": 12, "engine": 2}
+    # per call 2 weightings x orders {2, 3} x knowns {0, mask}: without sens
+    # every group takes the moment kernel; with sens every group the rows
+    assert calls == {"moments": 8, "rows": 8, "engine": 2}
 
 
 def test_iterative_auto_counts_come_from_the_rows_kernel(monkeypatch):
@@ -218,9 +221,18 @@ def test_iterative_auto_counts_come_from_the_rows_kernel(monkeypatch):
     args = (case["xk"], case["fk"], case["xi"])
     kw = dict(nk=case["nk"], order=3, weighting=2, iterative=True, max_iter=4)
     res = wtt.fit_many(*args, device=CPU, **kw)
-    direct = fit_rows.fit_rows(*_t(case, ("xk", "fk", "nk", "xi")), dimension=2,
-                               order=3, weighting=2, max_iter=4)
+    # ALGO_ITERATIVE in 2D is the moment kernel's since it covers it, as in
+    # the JAX package; the rows kernel is reached by a plan that names it
+    direct = fit_kernel.fit_kernel(*_t(case, ("xk", "fk", "nk", "xi")), dimension=2,
+                                   order=3, weighting=2, max_iter=4)
     assert torch.equal(res.fi, direct[0]) and torch.equal(res.iterations, direct[1])
+    plan = wtt.plan_fit_many(case["xk"], case["xi"], nk=case["nk"], order=3, weighting=2,
+                             iterative=True, device=CPU)
+    rows = wtt.fit_many(*args, device=CPU, plan=dataclasses.replace(
+        plan, route=dataclasses.replace(plan.route, assembly="rows")), **kw)
+    rdirect = fit_rows.fit_rows(*_t(case, ("xk", "fk", "nk", "xi")), dimension=2,
+                                order=3, weighting=2, max_iter=4)
+    assert torch.equal(rows.fi, rdirect[0]) and torch.equal(rows.iterations, rdirect[1])
     ref = wt.fit_many(*args, backend="xla", precision="f64", **kw)
     assert rel_err(res.fi.numpy(), np.asarray(ref.fi)) <= PARITY
     assert 1 <= int(res.iterations.min()) and int(res.iterations.max()) <= 4

@@ -110,8 +110,7 @@ def test_sharded_pallas_equals_single_device(dim, order, knowns):
     got = _join(sharding.sharded_fit_pallas(MESH, xk, fk, nk, xi, fi0, **kw))
     t = [torch.as_tensor(a) for a in (xk, fk, nk, xi, fi0)]
     if fit_kernel.supported(dim, order, knowns, wt.WEIGHT_CENTER):
-        one = fit_kernel.fit_kernel(*t[:4], dimension=dim, order=order,
-                                    weighting=wt.WEIGHT_CENTER)
+        one = fit_kernel.fit_kernel(*t, **kw)     # the moment kernel: 3D and knowns too
     else:
         one = fit_rows.fit_rows(*t, **kw)[0]
     np.testing.assert_array_equal(got, one.numpy())

@@ -57,10 +57,18 @@ def test_chain_tables_equal_pallas(dim):
 
 
 def test_tables_header_lists_every_order():
+    """One table struct per dimension and order; the warp body's instances
+    (3D orders 3-4) also carry the device arrays it reads at run time."""
     h = fit_kernel.tables_header()
-    for order in range(5):
-        no = defs.number_of_dofs(2, order)
-        nm = len(fit_kernel.moment_lattice(2, 2 * order)[1])
-        assert ("template <> struct MomentTables<%d> {\n"
-                "  static constexpr int NO = %d;\n"
-                "  static constexpr int NM = %d;" % (order, no, nm)) in h
+    for dim in (1, 2, 3):
+        for order in range(5):
+            no = defs.number_of_dofs(dim, order)
+            nm = len(fit_kernel.moment_lattice(dim, 2 * order)[1])
+            warp = fit_kernel.warp_body(dim, order)
+            assert ("template <> struct MomentTables<%d, %d> {\n"
+                    "  static constexpr int NO = %d;\n"
+                    "  static constexpr int NM = %d;\n"
+                    "  static constexpr bool kWarp = %s;"
+                    % (dim, order, no, nm, str(warp).lower())) in h
+    assert h.count("slot_at(int i)") == 2 and [
+        (d, o) for d in (1, 2, 3) for o in range(5) if fit_kernel.warp_body(d, o)] == [(3, 3), (3, 4)]

@@ -27,18 +27,18 @@ def test_warmup_planned_config_runs_and_reports():
     assert rep["assembly"] == "moments"
     assert rep["compile_s"] > 0 and rep["run_s"] > 0
     assert "route" in rep and rep["config"]["K"] == 12
-    assert set(rep["launches"]) == {"fit_moment_2d", "fit_rows", "cond_estimate@fit_moment_2d",
+    assert set(rep["launches"]) == {"fit_moment", "fit_rows", "cond_estimate@fit_moment",
                                     "cond_estimate@fit_rows", "gather_rows"}
 
 
 @pytest.mark.parametrize("cfg,assembly", [
     (dict(dimension=2, order=2, K=12, assembly="rows", refine_steps=1), "rows"),
-    (dict(dimension=3, order=2, K=16, assembly="moments"), "rows"),
+    (dict(dimension=3, order=2, K=16, assembly="moments"), "moments"),
     (dict(dimension=2, order=2, K=12, precision="ds"), "moments"),
 ])
 def test_warmup_explicit_kernel_config(cfg, assembly):
-    """An explicit body runs the kernel directly; a 3D moment body, which
-    the port has not got, warms the rows body that serves 3D."""
+    """An explicit body runs the kernel directly, a 3D moment body included
+    (forced, as ``fit_pallas(assembly="moments")`` is)."""
     (rep,) = wtt.warmup([dict(cfg, weighting=defs.WEIGHT_UNIFORM)], device="cpu")
     assert rep["path"] == "kernel" and rep["assembly"] == assembly
     assert assembly in rep["route"]

@@ -17,11 +17,12 @@ for clouds in host memory, the expert-mode ``prepare`` / ``solve`` pair and
 
 Routing is by configuration and by conditioning.  A homogeneous group with
 enough neighbours is kernel-eligible — the moment kernel
-(:func:`wlsqm_tpu_torch.ops.fit_kernel.supported`: dim 2, basic, no
-knowns) where it covers the group, else the rows kernel
-(:func:`wlsqm_tpu_torch.ops.fit_rows.supported`: dims 1-3, knowns,
-sensitivities, ALGO_ITERATIVE); the CUDA kernel for CUDA tensors, its plain
-torch version for CPU tensors.  ``backend="auto"`` and ``plan_fit_many``
+(:func:`wlsqm_tpu_torch.ops.fit_kernel.supported`: dims 1-3, orders 0-4,
+knowns, ALGO_ITERATIVE; on the certified routes dims 1-2,
+:func:`wlsqm_tpu_torch.ops.fit_kernel.cert_ok`) where it covers the group,
+else the rows kernel (:func:`wlsqm_tpu_torch.ops.fit_rows.supported`: the
+same and sensitivities), as the JAX package routes; the CUDA kernel for
+CUDA tensors, its plain torch version for CPU tensors.  ``backend="auto"`` and ``plan_fit_many``
 then probe the group's conditioning
 (:func:`wlsqm_tpu_torch.fitter.condprobe.probe`) and take the cheapest rung
 of :func:`wlsqm_tpu_torch.fitter.ladder.choose` that the device's
@@ -100,12 +101,20 @@ class FitResult:
         return torch.isfinite(self.fi).all(dim=-1)
 
 
-def _assembly(dim, order, knowns, weighting, do_sens, iterative, want=None):
+def _assembly(dim, order, knowns, weighting, do_sens, want=None, *, forced=False):
     """The kernel body for a homogeneous group: "moments" where the moment
     kernel covers it, else "rows" where the rows kernel does, else None.
-    ``want`` (a plan's ``route.assembly``) restricts the choice to one body."""
-    if want in (None, "moments") and fit_kernel.supported(
-            dim, order, knowns, weighting, do_sens=do_sens, iterative=iterative):
+
+    As in the JAX package, the certified routes (``backend="auto"``,
+    :func:`plan_fit_many`) take the moment body only where its calibration
+    units hold (:func:`fit_kernel.cert_ok`: dims 1-2), and a forced kernel
+    (``backend="kernel"``) wherever it runs (:func:`fit_kernel.supported`,
+    whose lattice guard is :func:`fit_kernel.auto_ok`: 3D too).
+    Sensitivities need the rows body.  ``want`` (a plan's
+    ``route.assembly``) restricts the choice to one body."""
+    if (want in (None, "moments")
+            and fit_kernel.supported(dim, order, knowns, weighting, do_sens=do_sens)
+            and (forced or fit_kernel.cert_ok(dim, int(order)))):
         return "moments"
     if want in (None, "rows") and fit_rows.supported(dim, order, knowns, weighting):
         return "rows"
@@ -121,17 +130,18 @@ def _run_kernel_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
     ``emit_cond`` the per-case conditioning key (B,) after them.
     """
     rs = fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None else refine_steps
+    mi = max_iter if iterative else 0
     if assembly == "moments":
-        out = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order,
-                                    weighting=weighting, refine_steps=rs,
-                                    emit_cond=emit_cond)
-        fi, key = out if emit_cond else (out, None)
-        res = (fi, torch.zeros(xk.shape[0], dtype=torch.int32, device=fi.device), None)
-        return res + (key,) if emit_cond else res
+        out = fit_kernel.fit_kernel(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
+                                    weighting=weighting, knowns=knowns, refine_steps=rs,
+                                    max_iter=mi, emit_cond=emit_cond)
+        out = out if isinstance(out, tuple) else (out,)
+        iters = (out[1] if mi else
+                 torch.zeros(xk.shape[0], dtype=torch.int32, device=out[0].device))
+        return (out[0], iters, None) + ((out[-1],) if emit_cond else ())
     return fit_rows.fit_rows(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
                              weighting=weighting, knowns=knowns, refine_steps=rs,
-                             do_sens=do_sens, max_iter=max_iter if iterative else 0,
-                             emit_cond=emit_cond)
+                             do_sens=do_sens, max_iter=mi, emit_cond=emit_cond)
 
 
 def _engine_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting):
@@ -545,16 +555,15 @@ def fit_many(
     if backend == "kernel":
         o, kn, wm = (_homogeneous(v, device) for v in (order, knowns, weighting))
         assembly = (None if debug or None in (o, kn, wm)
-                    else _assembly(dim, o, kn, wm, do_sens, iterative, want))
+                    else _assembly(dim, o, kn, wm, do_sens, want, forced=True))
         if assembly is None:
             raise ValueError(
                 "backend='kernel' requires a homogeneous batch (one order, knowns "
                 "mask and weighting, UNIFORM or CENTER, no debug) that a kernel "
-                "covers: the moment kernel takes dim 2 with no knowns, the basic "
-                "algorithm and no sens; the rows kernel takes dims 1-3, orders "
-                "0-4, knowns, sens and ALGO_ITERATIVE%s; use backend='auto' or "
-                "'engine'" % ("" if want is None else
-                              " (this plan replays the %s kernel)" % want))
+                "covers: the moment kernel takes dims 1-3, orders 0-4, knowns and "
+                "ALGO_ITERATIVE, but no sens; the rows kernel takes all of that and "
+                "sens%s; use backend='auto' or 'engine'"
+                % ("" if want is None else " (this plan replays the %s kernel)" % want))
         if split:
             fi_g, it_g, sens_g = _run_kernel_split(
                 xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
@@ -620,7 +629,7 @@ def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
     leftover = torch.ones(B, dtype=torch.bool, device=xk.device)
     count_fidelity = iterative and config.iter_count_fidelity()
     for o, kn, wm in groups:
-        assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
+        assembly = (_assembly(dim, o, kn, wm, do_sens)
                     if _kernel_shape_ok(K, dim, o) and not count_fidelity else None)
         if assembly is None:
             continue
@@ -714,8 +723,9 @@ def plan_fit_many(
     and captures the outcome, so ``fit_many(..., plan=plan)`` runs with no
     inspection of the data.  ``order``/``knowns``/``weighting`` must be
     scalars.  With K >= 1.5 NO and a kernel that covers the configuration
-    ("moments" where the moment kernel does, else "rows": knowns, dims 1 and
-    3, ``do_sens``, ``iterative``) the route is the cheapest certified rung:
+    ("moments" where the moment kernel's certified route does: dims 1-2,
+    knowns and ``iterative`` included; else "rows": ``do_sens`` and 3D) the
+    route is the cheapest certified rung:
     ``Route(path="kernel", kernel_precision="f64", assembly=...)``; for the
     basic algorithm, when the sample does not certify the batch,
     :func:`_maybe_split_route` may upgrade to a kernel certified on the
@@ -741,7 +751,7 @@ def plan_fit_many(
           else config.as_tensor(nk, device, torch.int32))
     o, kn, wm = scalars
     count_fidelity = iterative and config.iter_count_fidelity()
-    assembly = (_assembly(dim, o, kn, wm, do_sens, iterative)
+    assembly = (_assembly(dim, o, kn, wm, do_sens)
                 if _kernel_shape_ok(K, dim, o) and not count_fidelity else None)
     if assembly is not None and config.wants_grad(xk, xi):
         _grad_to_engine("plan_fit_many")

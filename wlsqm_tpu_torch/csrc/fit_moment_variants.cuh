@@ -88,7 +88,7 @@ __device__ __forceinline__ int slot_rt(int Di, int exi, int j) {
 // each), an odd stride so that neighbouring cases start on other banks.
 template <int ORDER>
 struct Scratch {
-  using T = MomentTables<ORDER>;
+  using T = MomentTables<2, ORDER>;
   static constexpr int M = 0, B = T::NM, S = B + T::NO, RD = S + T::NO;
   static constexpr int LDS = (RD + T::NO) | 1;
   static constexpr int kDoubles = (kCases * LDS + 1) / 2 * 2;  // slabs start 16-byte aligned
@@ -102,7 +102,7 @@ __device__ __forceinline__ void fit_case_group(double* cs, const double* xs, con
                                                double* __restrict__ fi,
                                                double* __restrict__ est, int refine_steps,
                                                int r, int base) {
-  using T = MomentTables<ORDER>;
+  using T = MomentTables<2, ORDER>;
   using S = Scratch<ORDER>;
   constexpr int NO = T::NO;
   constexpr int NM = T::NM;
@@ -580,7 +580,7 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
                   const int* __restrict__ nk, const double* __restrict__ xi,
                   const double* __restrict__ inv_s, double* __restrict__ fi,
                   double* __restrict__ est, int64_t B, int K, int refine_steps) {
-  using T = MomentTables<ORDER>;
+  using T = MomentTables<2, ORDER>;
   constexpr int NO = T::NO;
   constexpr int NM = T::NM;
   extern __shared__ __align__(16) double smem[];
@@ -740,7 +740,7 @@ template <int WEIGHTING, bool OWN_SCALE, bool SMEM_L, int TB, bool LADDERS = fal
 int launch_thread(const void* xk, const void* fk, const void* nk, const void* xi,
                   const void* inv_s, void* fi, void* est, int64_t B, int K, int refine_steps,
                   cudaStream_t st) {
-  constexpr int NT = MomentTables<4>::NO * (MomentTables<4>::NO + 1) / 2;
+  constexpr int NT = MomentTables<2, 4>::NO * (MomentTables<2, 4>::NO + 1) / 2;
   auto kernel = fit_moment_thread<4, WEIGHTING, OWN_SCALE, SMEM_L, TB, LADDERS, RECIP>;
   const int bytes = SMEM_L ? (int)sizeof(double) * NT * TB : 0;
   if (bytes > 48 * 1024) {
@@ -795,7 +795,10 @@ extern "C" int wlsqm_fit_moment_variant(int variant, const void* xk, const void*
       return dispatch_group<2>(xk, fk, nk, xi, fi, est, B, K, uniform ? U : C, refine_steps,
                                variant % 100 - 6, stream);
     case 9:
-      return dispatch(xk, fk, nk, xi, fi, est, B, K, 4, uniform ? U : C, refine_steps, stream);
+      return dispatch(Args{(const double*)xk, (const double*)fk, (const int*)nk,
+                           (const double*)xi, nullptr, (double*)fi, nullptr, (double*)est, B,
+                           K, 0, 0, refine_steps, 0},
+                      4, uniform ? U : C, false, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -309,6 +309,60 @@ def _strong_oracle(xk, xi, fk, weighting, dimension, order=4):
     return x / (r[:, None].astype(np.float64) ** deg[None, :])
 
 
+def _reduced_oracle(xk, xi, fk, fi0, KN, weighting, dimension, order=4):
+    """:func:`_strong_oracle` for a fit whose DOFs ``KN`` are known: their
+    part moved to the data side, the reduced system solved in the same
+    radius-scaled coordinates (f64 normal equations, one long-double
+    residual refinement); the known DOFs are fi0's."""
+    no = defs.number_of_dofs(dimension, order)
+    exp = tables.EXPONENTS[dimension][:no]
+    invf = tables.INV_FACT[dimension][:no]
+    deg = exp.sum(-1)
+    UN = [j for j in range(no) if j not in KN]
+    d = xk - xi[:, None, :]
+    d2 = (d ** 2).sum(-1)
+    r = np.sqrt(d2.max(-1))
+    t = d / r[:, None, None]
+    C = invf[None, None, :] * np.prod(t[:, :, None, :] ** exp[None, None, :, :], axis=-1)
+    if weighting == defs.WEIGHT_CENTER:
+        w = 1e-4 + (1 - 1e-4) * (1 - np.sqrt(d2 / d2.max(-1, keepdims=True))) ** 2
+    else:
+        w = np.ones_like(d2)
+    g = fi0[:, KN] * r[:, None] ** deg[None, KN]
+    fe = fk - np.einsum("bkj,bj->bk", C[..., KN], g)
+    Cu = C[..., UN]
+    A = np.einsum("bki,bk,bkj->bij", Cu, w, Cu)
+    x = np.linalg.solve(A, np.einsum("bkj,bk->bj", Cu, w * fe)[..., None])[..., 0]
+    Cl, wl, fl, xl = (a.astype(np.longdouble) for a in (Cu, w, fe, x))
+    resid = np.einsum("bkj,bk->bj", Cl, wl * (fl - np.einsum("bkj,bj->bk", Cl, xl)))
+    dx = np.linalg.solve(A, resid.astype(np.float64)[..., None])[..., 0]
+    x = (xl + dx.astype(np.longdouble)).astype(np.float64)
+    out = np.array(fi0[:, :no], dtype=np.float64)
+    out[:, UN] = x / r[:, None] ** deg[None, UN]
+    return out
+
+
+def oracle_case_errors(fits, xk, fk, nk, xi, fi0, KN, weighting, dimension, order):
+    """Per-case L∞ error of each fit in ``fits`` (tensors (B, NO)) against
+    :func:`_reduced_oracle` (the strong oracle when ``KN`` is empty),
+    relative to max(|ref|, 1): one case at a time on its own nk neighbours,
+    on the host.  For a few hundred cases (those past a key edge), not a
+    batch.  fi0 (B, >=NO) holds the known values (None without knowns)."""
+    a = [t.detach().cpu().numpy() for t in (xk, fk, xi)]
+    n = nk.cpu().numpy()
+    g = (fi0.detach().cpu().numpy() if fi0 is not None
+         else np.zeros((len(n), defs.number_of_dofs(dimension, order))))
+    got = [f.detach().cpu().numpy() for f in fits]
+    out = np.empty((len(fits), len(n)))
+    for j in range(len(n)):
+        s = slice(j, j + 1)
+        ref = _reduced_oracle(a[0][s, :n[j]], a[2][s], a[1][s, :n[j]], g[s], list(KN),
+                              weighting, dimension, order)[0]
+        for i, f in enumerate(got):
+            out[i, j] = np.abs(f[j] - ref).max() / max(np.abs(ref).max(), 1.0)
+    return out
+
+
 #: headroom the certified edge keeps to the parity bar: the edge is the
 #: largest swept cond·amp (or key) whose running worst-err envelope stays
 #: below tol / CERT_HEADROOM; it absorbs sweep-to-sweep scatter

@@ -12,8 +12,8 @@ kernel bodies and the engine:
    envelope ``f64_cert_unit_m * cond2(A_jacobi) * inv_s**order`` clears the
    bar for every sampled case;
 2. **kernel, rows assembly**: the same against the rows body's own units
-   (it also serves what the moment body does not cover: knowns, dims 1 and
-   3, sensitivities, ALGO_ITERATIVE);
+   (it also serves what the moment body's certified route does not cover:
+   sensitivities and 3D);
 3. **kernel, uncertified**: when the predicted floor exceeds
    ``beyond_parity_floor`` the problem is conditioning-limited — no two
    correct f64 normal-equation solves agree to 1e-10 there, the engine

@@ -91,7 +91,7 @@ def _write(path: str, text: str) -> None:
 def build(name: str, sources: list[str], headers: dict[str, str],
           signatures: dict[str, tuple], defines: tuple[str, ...] = (), *,
           compiler: str | None = None, flags: tuple[str, ...] = NVCC_FLAGS,
-          host_key: str = "") -> Library:
+          host_key: str = "", includes: tuple[str, ...] = ()) -> Library:
     """Compile ``sources`` with the generated ``headers`` and load the result.
 
     headers: file name -> text, written into the build directory, which is
@@ -99,7 +99,8 @@ def build(name: str, sources: list[str], headers: dict[str, str],
     argtypes), set on the loaded library.  defines: ``NAME=value`` macros
     (one source can give several libraries).  compiler and flags: nvcc and
     :data:`NVCC_FLAGS` unless given; host_key: anything else the library's
-    bits depend on (part of the hash).  No lock is held while the compiler
+    bits depend on (part of the hash); includes: headers beside the sources
+    that they include (hashed, not compiled).  No lock is held while the compiler
     runs, so builds of different libraries started from threads run at once.
     """
     compiler = compiler or nvcc()
@@ -107,7 +108,7 @@ def build(name: str, sources: list[str], headers: dict[str, str],
     key = hashlib.sha256()
     for part in [compiler, " ".join(flags), " ".join(dflags), host_key]:
         key.update(part.encode())
-    for src in sources:
+    for src in (*sources, *includes):
         with open(src, "rb") as f:
             key.update(f.read())
     for fname in sorted(headers):

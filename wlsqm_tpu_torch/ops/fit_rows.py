@@ -68,6 +68,7 @@ LAUNCHES = 0
 COND_LAUNCHES = 0
 
 _SRC = os.path.join(native.CSRC, "fit_rows.cu")
+_INCLUDES = (os.path.join(native.CSRC, "warp_chol.cuh"),)
 _HEADER = "fit_rows_tables.cuh"
 _ENTRY = "wlsqm_fit_rows"
 
@@ -103,10 +104,7 @@ def basis_rows(d, dimension: int, order: int):
     return torch.stack(cols, dim=-1)
 
 
-def known_dofs(knowns: int, dimension: int, order: int) -> list[int]:
-    """The DOFs (below NO) that the knowns bitmask marks as known."""
-    return [j for j in range(defs.number_of_dofs(dimension, order))
-            if (int(knowns) >> j) & 1]
+known_dofs = fit_kernel.known_dofs
 
 
 #: the rows kernel runs its warp body for NO >= WARP_MIN_NO, its thread
@@ -183,13 +181,7 @@ def tables_header() -> str:
 # Shared host contract: scaled knowns in, de-scale and restore out
 # ---------------------------------------------------------------------------
 
-def _scaled_knowns(fi_init, dscale, KN):
-    """ĝ = gi / fact · 2^(e_s·deg) on the known DOFs, 0 elsewhere (B, NO);
-    gi = fi_init, or 0 when it is None (pallas_fit.py l.1425-1433)."""
-    g = dscale.new_zeros(dscale.shape)
-    if fi_init is not None:
-        g[:, KN] = fi_init[:, KN].to(dscale) / dscale[:, KN]
-    return g
+_scaled_knowns = fit_kernel._scaled_knowns
 
 
 def _finish(y, iters, sens, fi_init, dscale, KN, key=None):
@@ -201,10 +193,7 @@ def _finish(y, iters, sens, fi_init, dscale, KN, key=None):
     sens) with zero counts when the basic algorithm ran, and the
     conditioning ``key`` after them when it is given.
     """
-    fi = y * dscale
-    if KN:
-        fi[:, KN] = (fi.new_zeros(()) if fi_init is None
-                     else fi_init[:, KN].to(fi))
+    fi = fit_kernel._restore_knowns(y * dscale, fi_init, KN)
     if sens is not None:
         sens.mul_(dscale[:, None, :])
         if KN:
@@ -352,7 +341,7 @@ def load(emit_cond: bool = False) -> native.Library:
         {_HEADER: tables_header()},
         {_ENTRY: (i32, [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                         i32, i32, i64, i32, i32, vp])},
-        defines=("WLSQM_EMIT_COND=%d" % emit_cond,))
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond,), includes=_INCLUDES)
 
 
 def _launch(xk, fk, nk, xi, inv_s, ghat, out, iters, sens, est=None, *, order: int,

@@ -237,11 +237,11 @@ def sharded_fit_pallas(mesh, xk, fk, nk, xi, fi_init=None, *, dimension: int,
 
     Keeps the JAX package's name (its body runs the Pallas kernel); here
     each shard runs :func:`wlsqm_tpu_torch.ops.fit_kernel.fit_kernel` (the
-    moment kernel) where it covers the configuration, else
-    :func:`wlsqm_tpu_torch.ops.fit_rows.fit_rows` (knowns, dims 1 and 3),
-    on its own cases; on CPU devices their plain versions.  Shards may be
-    any size.  Returns fi as a list of shards, each the one-device
-    kernel's bits for its cases.
+    moment kernel: dims 1-3, knowns) where it covers the configuration, as
+    ``fit_pallas(assembly="auto")`` takes the moment body, else
+    :func:`wlsqm_tpu_torch.ops.fit_rows.fit_rows`, on its own cases; on CPU
+    devices their plain versions.  Shards may be any size.  Returns fi as a
+    list of shards, each the one-device kernel's bits for its cases.
     """
     mesh = _mesh(mesh)
     rs = fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None else refine_steps
@@ -252,12 +252,13 @@ def sharded_fit_pallas(mesh, xk, fk, nk, xi, fi_init=None, *, dimension: int,
     parts = [_shards(mesh, a, dt) for a, dt in (
         (xk, config.DTYPE), (fk, config.DTYPE), (nk, torch.int32), (xi, config.DTYPE))]
     fi0 = ([None] * len(mesh) if fi_init is None else _shards(mesh, fi_init))
-    kw = dict(dimension=dimension, order=order, weighting=weighting, refine_steps=rs)
+    kw = dict(dimension=dimension, order=order, weighting=weighting, knowns=knowns,
+              refine_steps=rs)
 
     def local(xk_, fk_, nk_, xi_, fi0_):
         if moments:
-            return fit_kernel.fit_kernel(xk_, fk_, nk_, xi_, **kw)
-        return fit_rows.fit_rows(xk_, fk_, nk_, xi_, fi0_, knowns=knowns, **kw)[0]
+            return fit_kernel.fit_kernel(xk_, fk_, nk_, xi_, fi0_, **kw)
+        return fit_rows.fit_rows(xk_, fk_, nk_, xi_, fi0_, **kw)[0]
 
     return _run(mesh, local, list(zip(*parts, fi0)))
 

@@ -2,10 +2,10 @@
 managed one.
 
 Port of :mod:`wlsqm_tpu.warmup`.  The JAX package pre-compiles its Pallas
-kernels per static configuration.  Here the kernels are five nvcc libraries
-built at a kernel's first use (:mod:`wlsqm_tpu_torch.native`: each fit
-kernel without and with its conditioning key, and the gather), 30-70 s of
-nvcc together (and the host k-d tree, a few seconds of g++), after which a configuration's first launch costs only the
+kernels per static configuration.  Here the kernels are nine nvcc libraries
+built at a kernel's first use (:mod:`wlsqm_tpu_torch.native`: the moment
+kernel's per dimension and the rows kernel's, each without and with its
+conditioning key, and the gather), one to two minutes of nvcc together (and the host k-d tree, a few seconds of g++), after which a configuration's first launch costs only the
 loading of its instance.  :func:`warmup` builds them all (one compiler run
 each, started together), then runs each configuration through ``plan_fit_many``
 + ``fit_many(plan=)`` and launches the configuration's kernel body once
@@ -31,6 +31,7 @@ built: the configurations run the kernels' plain versions.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import time
 
 import numpy as np
@@ -39,8 +40,7 @@ import torch
 __all__ = ["warmup", "launch_counts", "DEFAULT_CONFIGS"]
 
 #: the JAX package's benchmark-suite configurations (headline, iterative,
-#: sens, 3D); the last asks for the moment body in 3D, which this package
-#: does not have (the rows body serves 3D), so it warms the rows body
+#: sens, 3D, and the moment body in 3D)
 DEFAULT_CONFIGS = (
     dict(dimension=2, order=4, K=30),
     dict(dimension=2, order=4, K=30, iterative=True),
@@ -62,18 +62,18 @@ def _representative_cloud(rng, B, K, dimension):
 
 
 def build_all() -> dict:
-    """Build (or load) the five nvcc libraries and the host k-d tree, one
+    """Build (or load) the nine nvcc libraries and the host k-d tree, one
     compiler run each, started together.  Returns {library: its
     :class:`wlsqm_tpu_torch.native.Library`} (the tree None where there is
     no g++); a failed build raises."""
     from wlsqm_tpu_torch import native
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
-    jobs = {"fit_moment": lambda: fit_kernel.load(False),
-            "fit_moment_cond": lambda: fit_kernel.load(True),
-            "fit_rows": lambda: fit_rows.load(False),
-            "fit_rows_cond": lambda: fit_rows.load(True),
-            "gather": gather.load, "kdtree": native.load}
+    jobs = {"fit_moment_d%d%s" % (d, "_cond" if c else ""):
+            functools.partial(fit_kernel.load, d, c) for d in (1, 2, 3) for c in (False, True)}
+    jobs.update({"fit_rows": lambda: fit_rows.load(False),
+                 "fit_rows_cond": lambda: fit_rows.load(True),
+                 "gather": gather.load, "kdtree": native.load})
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
         return {name: f.result() for name, f in futures.items()}
@@ -81,13 +81,13 @@ def build_all() -> dict:
 
 def launch_counts() -> dict:
     """The kernels' launch counters, by kernel (the fit kernels' launches
-    with the key apart): ``fit_moment_2d``, ``fit_rows``,
-    ``cond_estimate@fit_moment_2d``, ``cond_estimate@fit_rows``,
+    with the key apart): ``fit_moment``, ``fit_rows``,
+    ``cond_estimate@fit_moment``, ``cond_estimate@fit_rows``,
     ``gather_rows``."""
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows, gather
 
-    return {"fit_moment_2d": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
-            "cond_estimate@fit_moment_2d": fit_kernel.COND_LAUNCHES,
+    return {"fit_moment": fit_kernel.LAUNCHES, "fit_rows": fit_rows.LAUNCHES,
+            "cond_estimate@fit_moment": fit_kernel.COND_LAUNCHES,
             "cond_estimate@fit_rows": fit_rows.COND_LAUNCHES,
             "gather_rows": gather.LAUNCHES}
 
@@ -157,10 +157,11 @@ def warmup(configs=DEFAULT_CONFIGS, *, verbose: bool = False, device=None) -> li
 
         want = cfg.get("assembly")
         want = None if want in (None, "auto") else want
-        assembly = (api._assembly(dimension, order, knowns, weighting, do_sens, iterative,
-                                  want)
-                    or api._assembly(dimension, order, knowns, weighting, do_sens,
-                                     iterative))
+        # an explicit body is forced, as fit_pallas(assembly=) is; else the
+        # body the certified route would take
+        assembly = (api._assembly(dimension, order, knowns, weighting, do_sens, want,
+                                  forced=want is not None)
+                    or api._assembly(dimension, order, knowns, weighting, do_sens))
         plan = cfg.get("plan")
         explicit = any(cfg.get(k) is not None for k in ("precision", "assembly",
                                                         "refine_steps"))
@@ -172,17 +173,15 @@ def warmup(configs=DEFAULT_CONFIGS, *, verbose: bool = False, device=None) -> li
         rs = fit_kernel.DEFAULT_REFINE_STEPS if rs is None else int(rs)
 
         def body(emit_cond):
+            fi0 = t["xk"].new_zeros((B, defs.number_of_dofs(dimension, order)))
+            kw = dict(dimension=dimension, order=order, weighting=weighting, knowns=knowns,
+                      refine_steps=rs, max_iter=max_iter if iterative else 0,
+                      emit_cond=emit_cond)
             if assembly == "moments":
-                fit_kernel.fit_kernel(t["xk"], t["fk"], t["nk"], t["xi"], dimension=dimension,
-                                      order=order, weighting=weighting, refine_steps=rs,
-                                      emit_cond=emit_cond)
+                fit_kernel.fit_kernel(t["xk"], t["fk"], t["nk"], t["xi"], fi0, **kw)
             elif assembly == "rows":
-                fi0 = t["xk"].new_zeros((B, defs.number_of_dofs(dimension, order)))
-                fit_rows.fit_rows(t["xk"], t["fk"], t["nk"], t["xi"], fi0,
-                                  dimension=dimension, order=order, weighting=weighting,
-                                  knowns=knowns, refine_steps=rs, do_sens=do_sens,
-                                  max_iter=max_iter if iterative else 0,
-                                  emit_cond=emit_cond)
+                fit_rows.fit_rows(t["xk"], t["fk"], t["nk"], t["xi"], fi0, do_sens=do_sens,
+                                  **kw)
 
         def run():
             if plan is not None:
