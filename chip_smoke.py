@@ -58,7 +58,11 @@ time the designs that the kernels were chosen from; ``measure_moment_units``
 ties the moment body's calibration units to its arithmetic, and
 ``measure_auto_route`` times the certified route against another checkout;
 ``measure_engine_batch_invariance`` finds where the f64 engine's bits depend
-on the batch they are computed in.
+on the batch they are computed in; ``measure_moment_phases`` splits a moment
+kernel case's cycles by phase (a build with its phase clock),
+``measure_moment_paths`` times the dim3 and iterative launches against
+another checkout and compares their bits, and ``measure_warp_residency``
+times the moment kernel's warp body at other counts of resident cases.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -390,11 +394,24 @@ def phase_build():
     brx = {name: _indirect_branches(lib.path) for name, lib in libs.items()
            if name.startswith("fit_moment")}
     print(json.dumps({"fit_moment_indirect_branches": brx}), flush=True)
-    if sum(len(per) for per in brx.values()) != 2 * (10 + 20 + 10):
-        raise RuntimeError("phase_build found %s moment instances, not 80" % (
+    if sum(len(per) for per in brx.values()) != 2 * (10 + 30 + 10):
+        raise RuntimeError("phase_build found %s moment instances, not 100" % (
             {k: len(v) for k, v in brx.items()},))
     if any(n for per in brx.values() for n in per.values()):
         raise RuntimeError("fit_moment has indirect branches (BRX): %s" % (brx,))
+    # the 2D ALGO_ITERATIVE instances (without knowns) spill no more than the
+    # basic ones may (phase_headline holds those), without and with the key
+    iterative = {name: {k: v for k, v in _ptxas_summary(libs[name].log).items()
+                        if re.fullmatch(r"fit_moment_thread<2,\d,\d,2>", k)}
+                 for name in ("fit_moment_d2", "fit_moment_d2_cond")}
+    worst = max(max(v.get("spill_stores", 0), v.get("spill_loads", 0))
+                for per in iterative.values() for v in per.values())
+    print(json.dumps({"fit_moment_iterative_2d_ptxas": iterative,
+                      "fit_moment_iterative_2d_worst_spill_bytes": worst,
+                      "limit": MOMENT_SPILL_BYTES}), flush=True)
+    if len(iterative["fit_moment_d2"]) != 10 or worst > MOMENT_SPILL_BYTES:
+        raise RuntimeError("the 2D ALGO_ITERATIVE fit_moment instances spill %d bytes (> %d), "
+                           "or are not 10: %s" % (worst, MOMENT_SPILL_BYTES, iterative))
 
 
 def _indirect_branches(path):
@@ -982,7 +999,8 @@ def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}), flush=True)
     return {"launches": launches, "ms": med["launch_2^18"], "plain_ms": med["plain_2^18"],
             "library_ms": med["library_lstsq_2^18"], "launch_ms_full": med["launch_" + tag],
-            "route_ms_full": med["route_" + tag], **bounds["2^18"]}
+            "route_ms_full": med["route_" + tag], "bound_ms_full": bounds[tag]["bound_ms"],
+            "bound_by_full": bounds[tag]["bound_by"], **bounds["2^18"]}
 
 
 def phase_iterative(dev, wtt):
@@ -1043,6 +1061,11 @@ def phase_iterative(dev, wtt):
                       max_iter=MAX_ITER, its=its,
                       route=lambda: wtt.fit_many(xk, fk, xi, plan=plan, iterative=True,
                                                  max_iter=MAX_ITER, **kw))
+    print(json.dumps({"path": "iterative_launch", "B": B_MAIN,
+                      "instance": "fit_moment_thread<2,4,2,2> (ALGO_ITERATIVE, no knowns)",
+                      "launch_ms": t["launch_ms_full"], "bound_ms": t["bound_ms_full"],
+                      "bound_by": t["bound_by_full"],
+                      "launch_vs_bound": t["bound_ms_full"] / t["launch_ms_full"]}), flush=True)
     return t
 
 
@@ -1093,6 +1116,15 @@ def phase_dim3(dev, wtt):
                        route=lambda: wtt.fit_many(xk, fk, xi, backend="kernel", **kw))
     k2 = _rows_times(dev, wtt, "dim3_rows", data, plan=rows_plan, dim=3, do_sens=False,
                      launches=0)
+    print(json.dumps({"path": "dim3_launch", "B": B_ROWS,
+                      "fit_moment_warp_launch_ms": k1["launch_ms_full"],
+                      "bound_ms": k1["bound_ms_full"], "bound_by": k1["bound_by_full"],
+                      "launch_vs_bound": k1["bound_ms_full"] / k1["launch_ms_full"],
+                      "fit_rows_launch_ms_same_cloud": k2["launch_ms_full"]}), flush=True)
+    if k1["launch_ms_full"] >= k2["launch_ms_full"]:
+        raise RuntimeError("dim3: the moment kernel's warp body (%.2f ms) is not ahead of the "
+                           "rows kernel on the same cloud (%.2f ms)"
+                           % (k1["launch_ms_full"], k2["launch_ms_full"]))
     return k1, k2
 
 
@@ -2825,6 +2857,132 @@ def measure_moment_units():
     return table
 
 
+
+#: the phase clock's counters (csrc/fit_moment.cu, -DWLSQM_PHASE_CLOCK=1)
+MOMENT_CLOCK_PHASES = ("staging", "scale_normaliser", "assembly", "matrix_build", "cholesky",
+                       "key", "first_solve", "refine_sweeps", "trip1_residual",
+                       "trip2_residual", "trip3_residual", "trip1_sweep", "trip2_sweep",
+                       "trip3_sweep", "store", "total")
+
+
+def _moment_phase_lib(dim, emit_cond):
+    """The moment kernel built with its phase clock (-DWLSQM_PHASE_CLOCK=1):
+    a measurement library that no route loads."""
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return native.build(
+        "fit_moment_d%d%s_phase" % (dim, "_cond" if emit_cond else ""), [fit_kernel._SRC],
+        {fit_kernel._HEADER: fit_kernel.tables_header()},
+        {fit_kernel._ENTRY: (i32, [vp] * 8 + [i64, i32, i32, i32, i32, i64, i64, i32, i32, i32,
+                                               vp]),
+         "wlsqm_moment_phase_buffer": (i32, [vp])},
+        defines=("WLSQM_EMIT_COND=%d" % emit_cond, "WLSQM_MOMENT_DIM=%d" % dim,
+                 "WLSQM_PHASE_CLOCK=1"), includes=fit_kernel._INCLUDES)
+
+
+def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
+    """One configuration through the phase-clock library: its launch time
+    (median of REPS) beside the shipped library's, and per phase the mean
+    clock64 cycles a case spent there and its share of the whole fit; the
+    trip phases also per case that ran them."""
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    xk, fk, nk, xi = data
+    B, Kn, _ = xk.shape
+    NO = defs.number_of_dofs(dim, ORDER)
+    dev = xk.device
+    out = torch.empty((B, NO), dtype=torch.float64, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev) if max_iter else None
+    est = torch.empty((B,), dtype=torch.float64, device=dev) if emit_cond else None
+    clocks = torch.zeros((B, len(MOMENT_CLOCK_PHASES)), dtype=torch.int64, device=dev)
+    if lib.lib.wlsqm_moment_phase_buffer(clocks.data_ptr()) != 0:
+        raise RuntimeError("phase clock: the buffer was not set")
+    W, RS = 2, fit_kernel.DEFAULT_REFINE_STEPS
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def go():
+        status = lib.lib.wlsqm_fit_moment(
+            xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None, out.data_ptr(),
+            ptr(iters), ptr(est), B, Kn, dim, ORDER, W, 0, 0, RS, max_iter, int(max_iter > 0),
+            torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise RuntimeError("phase-clock launch failed: CUDA error %d" % status)
+
+    clock_ms = _time_ms(go)
+    shipped_ms = _time_ms(lambda: fit_kernel._launch(
+        xk, fk, nk, xi, torch.empty_like(out), None if est is None else torch.empty_like(est),
+        iters=None if iters is None else torch.empty_like(iters), order=ORDER, weighting=W,
+        refine_steps=RS, max_iter=max_iter))
+    clocks.zero_()
+    go()
+    torch.cuda.synchronize()
+    ref = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=ORDER, weighting=W,
+                                max_iter=max_iter, emit_cond=emit_cond)
+    fi_ref = ref if not (max_iter or emit_cond) else ref[0]
+    c = clocks.double()
+    mean = c.mean(0)
+    total = mean[-1].item()
+    ran = (c > 0).double().sum(0).clamp_min(1.0)
+    return {"B": B, "K": Kn, "fi_bits_equal_shipped": _same_bits(out, fi_ref),
+            "launch_ms_clock_build": clock_ms[0],
+            "launch_ms_shipped": shipped_ms[0],
+            "cycles_per_case": {n: round(mean[i].item(), 1)
+                                for i, n in enumerate(MOMENT_CLOCK_PHASES)},
+            "share": {n: round(mean[i].item() / total, 4)
+                      for i, n in enumerate(MOMENT_CLOCK_PHASES[:-1])},
+            "cycles_per_case_that_ran_it": {n: round((c[:, i].sum() / ran[i]).item(), 1)
+                                            for i, n in enumerate(MOMENT_CLOCK_PHASES)
+                                            if "trip" in n},
+            "counts": (None if iters is None else
+                       torch.bincount(iters.long(), minlength=max_iter + 1).tolist())}
+
+
+def measure_moment_phases():
+    """Where a moment-kernel case spends its time, run by hand, not by main():
+    the kernel built with its phase clock (-DWLSQM_PHASE_CLOCK=1, each case's
+    clock64() cycles per phase: staging, scale, assembly, matrix build,
+    Cholesky, key, first solve, sweeps, each ALGO_ITERATIVE trip's residual
+    pass and sweep, store) on the smoke's paths: headline (2D basic, 2^23),
+    iterative (max_iter = 3, 2^23, without and with the key) and dim3 (3D
+    order 4, K = 48, the warp body, 2^21, without and with the key).  Its
+    fi is held to the shipped library's bits; its launch is timed beside
+    the shipped one's (what the clock reads costs).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_moment_phases()"
+    """
+    dev = torch.device("cuda")
+    combos = ((2, False), (2, True), (3, False), (3, True))
+    with concurrent.futures.ThreadPoolExecutor(len(combos)) as pool:
+        libs = dict(zip(combos, pool.map(lambda a: _moment_phase_lib(*a), combos)))
+    for (dim, cond), lib in libs.items():
+        print(json.dumps({"library": os.path.basename(os.path.dirname(lib.path)),
+                          "nvcc_s": lib.build_seconds, "ptxas": _ptxas_summary(lib.log)}),
+              flush=True)
+    runs = (("headline", 2, False, 0, B_MAIN, 42, K),
+            ("iterative", 2, False, MAX_ITER, B_MAIN, 45, K),
+            ("iterative_key", 2, True, MAX_ITER, B_MAIN, 45, K),
+            ("dim3", 3, False, 0, B_ROWS, 44, K_DIM3),
+            ("dim3_key", 3, True, 0, B_ROWS, 44, K_DIM3))
+    table = {}
+    for name, dim, cond, mi, B, seed, k in runs:
+        data = _cloud(B, torch.Generator(device=dev).manual_seed(seed), dev, dim=dim, K=k)
+        table[name] = _moment_phase_split(libs[(dim, cond)], data, dim=dim, max_iter=mi,
+                                          emit_cond=cond)
+        print(json.dumps({name: table[name]}), flush=True)
+        del data
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"moment_phases": table, "card": smi.splitlines()[0]}), flush=True)
+    return table
+
 def _auto_route_times():
     """fit_many(backend="auto") and fit_many(plan=) on phase_certified's
     cloud (B_CERT cases; the plan from its first B_PLAN), median and the
@@ -2905,6 +3063,137 @@ def measure_headline_route(other_root):
     """
     return _other_this_this_other(other_root, "_headline_route_times")
 
+
+
+def _moment_path_times():
+    """The moment kernel's launches on the dim3 path (phase_dim3's cloud,
+    B_ROWS, the warp body) and the iterative path (phase_iterative's,
+    B_MAIN, max_iter = MAX_ITER, the thread body's ALGO_ITERATIVE
+    instance): median and the REPS times after one warm-up, and a SHA-256 of
+    fi's and the counts' bytes, through whichever wlsqm_tpu_torch is first on
+    sys.path; fi's first B_ENGINE rows are saved beside this file (under
+    build/chip_smoke/, by package) for measure_moment_paths to compare.  The
+    iterative launch also at max_iter = 0, 1, 2 on the same instance (ext=2:
+    the one with ALGO_ITERATIVE; a package without it takes its one with
+    knowns and ALGO_ITERATIVE), so each trip's cost is a difference of
+    launch times."""
+    import hashlib
+
+    import wlsqm_tpu_torch as wtt
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    dev = torch.device("cuda")
+    out = {"package": os.path.dirname(os.path.abspath(wtt.__file__))}
+    for name, dim, B, seed, k, mi in (("dim3", 3, B_ROWS, 44, K_DIM3, 0),
+                                      ("iterative", 2, B_MAIN, 45, K, MAX_ITER)):
+        xk, fk, nk, xi = _cloud(B, torch.Generator(device=dev).manual_seed(seed), dev, dim=dim,
+                                K=k)
+        fi = torch.empty((B, defs.number_of_dofs(dim, ORDER)), dtype=torch.float64, device=dev)
+        its = torch.empty((B,), dtype=torch.int32, device=dev) if mi else None
+        ms = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, fi, iters=its, order=ORDER,
+                                                 weighting=wtt.WEIGHT_CENTER, refine_steps=1,
+                                                 max_iter=mi))
+        torch.cuda.synchronize()
+        by_trips = {}
+        if mi:
+            for m in range(mi):
+                by_trips[m] = _time_ms(lambda: fit_kernel._launch(
+                    xk, fk, nk, xi, fi.clone(), iters=its.clone() if m else None, order=ORDER,
+                    weighting=wtt.WEIGHT_CENTER, refine_steps=1, max_iter=m, ext=2))[0]
+            by_trips[mi] = ms[0]
+        keep = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+        os.makedirs(keep, exist_ok=True)
+        sample = os.path.join(keep, "paths_%s_%s.pt" % (
+            hashlib.sha256(out["package"].encode()).hexdigest()[:12], name))
+        torch.save(fi[:B_ENGINE].cpu(), sample)
+        out[name] = {"launch_ms": ms, "fi_sample": sample, "launch_ms_by_max_iter": by_trips,
+                     "fi_sha256": hashlib.sha256(fi.cpu().numpy().tobytes()).hexdigest(),
+                     "counts_sha256": None if its is None else hashlib.sha256(
+                         its.cpu().numpy().tobytes()).hexdigest()}
+        del xk, fk, nk, xi, fi, its
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_moment_paths(other_root):
+    """The dim3 and iterative launches of this checkout against another one
+    (the parent commit, unpacked by ``git archive`` into a git-ignored
+    directory), run by hand, not by main(): other, this, this, other, each in
+    a process of its own (_moment_path_times), and whether fi and the counts
+    are the same bits in all four.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_moment_paths('build/parent')"
+    """
+    runs = _other_this_this_other(other_root, "_moment_path_times")
+    same = {p: len({(r[p]["fi_sha256"], r[p]["counts_sha256"]) for r in runs}) == 1
+            for p in ("dim3", "iterative")}
+    rel = {}
+    for p in ("dim3", "iterative"):
+        a, b = (torch.load(runs[i][p]["fi_sample"]) for i in (0, 1))
+        rel[p] = _rel(b, a)
+        for r in runs:
+            if os.path.exists(r[p]["fi_sample"]):
+                os.remove(r[p]["fi_sample"])
+    print(json.dumps({"moment_paths_same_bits_as_other": same,
+                      "fi_rel_to_other_first_%d_cases" % B_ENGINE: rel,
+                      "launch_ms_median": {p: [r[p]["launch_ms"][0] for r in runs]
+                                           for p in ("dim3", "iterative")},
+                      "iterative_launch_ms_by_max_iter": [r["iterative"]["launch_ms_by_max_iter"]
+                                                          for r in runs]}), flush=True)
+    return runs, same
+
+
+def measure_warp_residency(counts=(12, 16, 20, 24)):
+    """The moment kernel's warp body (dim3 path: 3D order 4, K = 48, CENTER,
+    B_ROWS) built with each count of resident cases an SM in its launch
+    bounds (-DWLSQM_WARP_MIN_BLOCKS; the shipped source says 16), run by
+    hand, not by main(): each build's registers and spills, and its launch
+    (median of REPS, in turns forward then backward) with fi held to the
+    shipped build's bits.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_warp_residency()"
+    """
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+    def build(nb):
+        return native.build(
+            "fit_moment_d3_warp%d" % nb, [fit_kernel._SRC],
+            {fit_kernel._HEADER: fit_kernel.tables_header()},
+            {fit_kernel._ENTRY: (i32, [vp] * 8 + [i64, i32, i32, i32, i32, i64, i64, i32, i32,
+                                                   i32, vp])},
+            defines=("WLSQM_EMIT_COND=0", "WLSQM_MOMENT_DIM=3",
+                     "WLSQM_WARP_MIN_BLOCKS=%d" % nb), includes=fit_kernel._INCLUDES)
+
+    dev = torch.device("cuda")
+    with concurrent.futures.ThreadPoolExecutor(len(counts)) as pool:
+        libs = dict(zip(counts, pool.map(build, counts)))
+    xk, fk, nk, xi = _cloud(B_ROWS, torch.Generator(device=dev).manual_seed(44), dev, dim=3,
+                            K=K_DIM3)
+    ref = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=3, order=ORDER, weighting=2)
+    out = torch.empty_like(ref)
+    table = {nb: {"ptxas": {k: v for k, v in _ptxas_summary(lib.log).items()
+                            if k.startswith("fit_moment_warp<3,4")}, "launch_ms": []}
+             for nb, lib in libs.items()}
+    for nb in list(counts) + list(counts)[::-1]:
+        def go(lib=libs[nb].lib):
+            status = lib.wlsqm_fit_moment(
+                xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None, out.data_ptr(),
+                None, None, B_ROWS, K_DIM3, 3, ORDER, 2, 0, 0, 1, 0, 0,
+                torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError("warp body (%d resident) failed: CUDA error %d" % (nb, status))
+        table[nb]["launch_ms"].append(_time_ms(go)[0])
+        table[nb]["same_bits_as_shipped"] = _same_bits(out, ref)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"warp_residency": table, "card": smi.splitlines()[0]}), flush=True)
+    return table
 
 def measure_engine_batch_invariance():
     """Where the f64 engine's results depend on the batch they are computed

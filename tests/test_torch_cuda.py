@@ -1072,14 +1072,15 @@ def test_moment_kernel_knowns_and_iterative_match_plain(dev, dim):
 
 
 def test_moment_ext_instance_is_the_basic_instance(dev):
-    """In 2D the instance compiled with knowns and ALGO_ITERATIVE gives, with
-    neither asked, the bits of the basic instance (the headline's), with and
-    without the key; with max_iter = 0 fit_kernel is the basic path."""
+    """In 2D the instance compiled with knowns (and ALGO_ITERATIVE) and the
+    one compiled with ALGO_ITERATIVE alone give, with neither asked, the bits
+    of the basic instance (the headline's), with and without the key; with
+    max_iter = 0 fit_kernel is the basic path."""
     for order in range(5):
         xk, fk, nk, xi = _cloud(dev, 8192, 30, order, seed=200 + order)
         NO = wtt.number_of_dofs(2, order)
         outs = []
-        for ext in (False, True):
+        for ext in (0, 1, 2):
             out = torch.empty((8192, NO), dtype=torch.float64, device=dev)
             est = torch.empty((8192,), dtype=torch.float64, device=dev)
             fit_kernel._launch(xk, fk, nk, xi, out, order=order, weighting=wtt.WEIGHT_CENTER,
@@ -1088,11 +1089,92 @@ def test_moment_ext_instance_is_the_basic_instance(dev):
                                weighting=wtt.WEIGHT_CENTER, refine_steps=1, ext=ext)
             outs += [out, est]
         torch.cuda.synchronize()
-        assert torch.equal(_bits(outs[0]), _bits(outs[2])), order
-        assert torch.equal(_bits(outs[1]), _bits(outs[3])), order
+        for other in (2, 4):
+            assert torch.equal(_bits(outs[0]), _bits(outs[other])), order
+            assert torch.equal(_bits(outs[1]), _bits(outs[other + 1])), order
         basic = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=order,
                                       weighting=wtt.WEIGHT_CENTER, max_iter=0)
         assert torch.equal(_bits(basic), _bits(outs[0]))
+
+
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
+def test_moment_iterative_instance_matches_plain(dev, order):
+    """The 2D ALGO_ITERATIVE instance (the iterative path's; its residual
+    pass goes by the warp, lanes over a case's neighbours), both weightings,
+    max_iter 1 and 3, ragged nk with NaN padding and a batch that ends
+    inside a warp: fi within PARITY of the plain version; the counts in
+    [1, max_iter], >= 50% equal to the plain version's and >= 80% within one,
+    pooled (the ties of exact stagnation, as the module docstring says); fi
+    and the counts the same bits with the key, and the same bits as the
+    instance with knowns computes them (which this call does not need)."""
+    NO = wtt.number_of_dofs(2, order)
+    equal = within = total = 0
+    for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+        for mi in (1, 3):
+            B = 3000 + 7 * order + mi   # the last warp holds fewer than 32 cases
+            xk, fk, nk, xi = _cloud(dev, B, 30, order, seed=400 + 10 * order + mi)
+            kw = dict(order=order, weighting=w, refine_steps=1, max_iter=mi)
+            outs = {}
+            for ext, cond in ((2, False), (2, True), (1, False)):
+                fi = torch.empty((B, NO), dtype=torch.float64, device=dev)
+                its = torch.empty((B,), dtype=torch.int32, device=dev)
+                est = torch.empty((B,), dtype=torch.float64, device=dev) if cond else None
+                fit_kernel._launch(xk, fk, nk, xi, fi, est, iters=its, ext=ext, **kw)
+                outs[(ext, cond)] = (fi, its)
+            torch.cuda.synchronize()
+            fi, its = outs[(2, False)]
+            for other in ((2, True), (1, False)):
+                assert torch.equal(_bits(fi), _bits(outs[other][0])), (order, w, mi, other)
+                assert torch.equal(its, outs[other][1]), (order, w, mi, other)
+            assert fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=2, order=order, weighting=w,
+                                         max_iter=mi)[1].equal(its)
+            fi_p, it_p = fit_kernel.fit_moments_plain(xk, fk, nk, xi, dimension=2, order=order,
+                                                      weighting=w, max_iter=mi)
+            assert torch.isfinite(fi).all()
+            assert _rel(fi, fi_p) <= PARITY, (order, w, mi)
+            assert 1 <= int(its.min()) and int(its.max()) <= mi
+            equal += int((its == it_p).sum())
+            within += int(((its - it_p).abs() <= 1).sum())
+            total += B
+    assert equal / total >= 0.5 and within / total >= 0.8, (equal / total, within / total)
+
+
+@pytest.mark.parametrize("order,K", [(3, 30), (3, 48), (3, 130), (4, 48), (4, 53), (4, 130),
+                                     (4, 152), (4, 160)])
+def test_moment_warp_body_matches_plain(dev, order, K):
+    """The moment kernel's warp body (3D orders 3 and 4; chunks of 16
+    neighbours, so K = 48 is three, K = 130 and up many, and 152 and 160 lie
+    past the thread body's slab edge), both weightings, knowns {0, the
+    value, the highest DOF}, basic and max_iter = 3, ragged nk >= 1.5 NO
+    (or K) with NaN in the padded slots: fi within PARITY of the plain
+    version; the known DOFs fi_init's bits; fi and the counts the same bits
+    with and without the key, and twice; the key within 1e-6 of the plain
+    version's."""
+    NO = wtt.number_of_dofs(3, order)
+    for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+        xk, fk, nk, xi = _cloud(dev, 2048, K, order, seed=500 + 3 * K + order, dim=3)
+        assert bool(torch.isnan(xk).any()) or K <= (3 * NO) // 2
+        fi0 = torch.randn((2048, NO), dtype=torch.float64, device=dev)
+        for kn in (0, 1, 1 << (NO - 1)):
+            for mi in (0, 3):
+                kw = dict(dimension=3, order=order, weighting=w, knowns=kn, max_iter=mi)
+                case = (order, K, w, kn, mi)
+                got = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, **kw)
+                again = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, **kw)
+                key = fit_kernel.fit_kernel(xk, fk, nk, xi, fi0, emit_cond=True, **kw)
+                ref = fit_kernel.fit_moments_plain(xk, fk, nk, xi, fi0, emit_cond=True, **kw)
+                torch.cuda.synchronize()
+                fi = got[0] if mi else got
+                assert torch.isfinite(fi).all(), case
+                assert _rel(fi, ref[0]) <= PARITY, case
+                KN = fit_kernel.known_dofs(kn, 3, order)
+                assert torch.equal(_bits(fi[:, KN]), _bits(fi0[:, KN])), case
+                for other in (again[0] if mi else again, key[0]):
+                    assert torch.equal(_bits(fi), _bits(other)), case
+                if mi:
+                    assert torch.equal(got[1], key[1]) and torch.equal(got[1], again[1]), case
+                    assert 1 <= int(got[1].min()) and int(got[1].max()) <= mi, case
+                assert ((key[-1] - ref[-1]).abs() / ref[-1]).max().item() <= 1e-6, case
 
 
 def test_moment_iterative_counts_against_the_jax_engine(dev, capsys):

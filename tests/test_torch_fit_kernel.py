@@ -439,3 +439,66 @@ def test_store_descale_is_the_wrapper_descale_bit_for_bit():
         a = ys * fit_kernel._store_scale(e, 2, order)
         b = ys * fit_kernel._dof_scale(e, 2, order)
         assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.parametrize("order", [3, 4])
+def test_warp_triangle_table_is_the_moment_slots(order):
+    """The warp body's generated ``tri_at`` table: one entry per packed lower
+    entry (i, m), m <= i, in packed order, naming its row, its column and
+    the lattice index of the moment e_i + e_m (moment_lattice); the slot
+    table it reads in the sweep is symmetric (it reads slot(m, j) for
+    A[j, m]); the header carries the same values."""
+    import re
+
+    from wlsqm_tpu_torch.fitter import tables
+
+    NO = defs.number_of_dofs(3, order)
+    exp = tables.EXPONENTS[3][:NO]
+    _, _, index = fit_kernel.moment_lattice(3, 2 * order)
+    tri = fit_kernel.warp_triangle(3, order)
+    assert len(tri) == NO * (NO + 1) // 2
+    for idx, v in enumerate(tri):
+        i, m, slot = v & 0xFF, (v >> 8) & 0xFF, v >> 16
+        assert m <= i < NO and idx == i * (i + 1) // 2 + m
+        assert slot == index[tuple(int(a) for a in exp[i] + exp[m])]
+    slots = fit_kernel.moment_slots(3, order)
+    assert np.array_equal(slots, slots.T)
+    header = fit_kernel.tables_header()
+    block = header[header.index("struct MomentTables<3, %d>" % order):]
+    body = re.search(r"unsigned tri_at\(int i\) \{\s*static const unsigned v\[\] = \{([^}]*)\}",
+                     block)
+    assert [int(t) for t in body.group(1).split(",")] == tri
+
+
+def test_warp_body_pair_rows_and_product_map():
+    """The warp body's assembly forms the fragment of product row p from the
+    ladder rows ``pab_at(p)`` names, a | b << 4 for the p-th (x, y) pair of
+    the 3D lattice by degree (the rows the moment product's map was made
+    for); the tiles pad the pairs to NPP, a multiple of 8, with (0, 0), and
+    the map drops those rows and the columns past 3 ORDER + 1, and past the
+    first TJ1 row tiles every product of columns 8-15 (which the kernel does
+    not form); the header carries the same values."""
+    import re
+
+    header = fit_kernel.tables_header()
+    for order in (3, 4):
+        block = header[header.index("struct MomentTables<3, %d>" % order):]
+        npp = int(re.search(r"NPP = (\d+);", block).group(1))
+        pairs = fit_kernel._warp_pairs(order)
+        rows = fit_kernel._warp_pair_rows(order)
+        assert len(rows) == npp and npp % 8 == 0 and 0 <= npp - len(pairs) < 8
+        assert [(v & 15, v >> 4) for v in rows[:len(pairs)]] == pairs
+        assert all(v == 0 for v in rows[len(pairs):])
+        assert sorted(pairs) == sorted((a, b) for a in range(2 * order + 1)
+                                       for b in range(2 * order + 1) if a + b <= 2 * order)
+        pmap = fit_kernel._warp_product_map(order)
+        assert all(pmap[p * 16 + c] == 255 for p in range(len(pairs), npp) for c in range(16))
+        assert all(pmap[p * 16 + c] == 255 for p in range(npp)
+                   for c in range(3 * order + 2, 16))
+        tj1 = int(re.search(r"TJ1 = (\d+);", block).group(1))
+        assert tj1 == fit_kernel._warp_rhs_tiles(order) == 2
+        assert all(pmap[p * 16 + c] == 255 for p in range(8 * tj1, npp) for c in range(8, 16))
+        assert all(a + b > order for a, b in pairs[8 * tj1:])
+        body = re.search(r"int pab_at\(int i\) \{\s*static const unsigned char v\[\] = "
+                         r"\{([^}]*)\}", block)
+        assert [int(t) for t in body.group(1).split(",")] == rows

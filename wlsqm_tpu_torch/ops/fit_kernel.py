@@ -173,19 +173,44 @@ def _switch(name: str, arg: str, values) -> list[str]:
             "  }"]
 
 
-def _array(name: str, values) -> list[str]:
+def _array(name: str, values, ctype: str = "unsigned char",
+           rtype: str = "int") -> list[str]:
     """A device array of small integers (read at run-time indices)."""
-    return ["  static __device__ __forceinline__ int %s(int i) {" % name,
-            "    static const unsigned char v[] = {%s};"
-            % ", ".join(str(int(v)) for v in values),
+    return ["  static __device__ __forceinline__ %s %s(int i) {" % (rtype, name),
+            "    static const %s v[] = {%s};"
+            % (ctype, ", ".join(str(int(v)) for v in values)),
             "    return v[i];",
             "  }"]
 
 
 def _warp_pairs(order: int) -> list[tuple[int, int]]:
     """The (x, y) exponent pairs of the 3D moment lattice, the rows of the
-    warp body's moment product."""
-    return [(a, b) for a in range(2 * order + 1) for b in range(2 * order + 1 - a)]
+    warp body's moment product, by degree a + b: those of degree <= order,
+    the only ones whose products reach the RHS columns or the z power 2
+    order, come first and fill the first :func:`_warp_rhs_tiles` tiles."""
+    return sorted(((a, b) for a in range(2 * order + 1) for b in range(2 * order + 1 - a)),
+                  key=lambda ab: (ab[0] + ab[1], ab))
+
+
+def _warp_rhs_tiles(order: int) -> int:
+    """How many 8-row tiles of pairs the product's second column tile
+    (columns 8-15: w dz^c for c >= 8, then w f dz^c) must run for: the
+    tiles that hold a pair of degree <= order; the map drops every product
+    of that column tile past them (checked here)."""
+    pairs = _warp_pairs(order)
+    tiles = -(-sum(a + b <= order for a, b in pairs) // 8)
+    pmap = _warp_product_map(order)
+    if any(pmap[p * 16 + c] != 255 for p in range(8 * tiles, len(pairs)) for c in range(8, 16)):
+        raise AssertionError("a product past the RHS tiles is kept")
+    return tiles
+
+
+def _warp_pair_rows(order: int) -> list[int]:
+    """For each row p of the warp body's moment product, padded to a
+    multiple of 8: a | b << 4 for its (x, y) pair (a, b), the ladder rows
+    its lanes multiply; 0 for the padding (products the map drops)."""
+    pairs = _warp_pairs(order)
+    return [a | b << 4 for a, b in pairs] + [0] * (-(-len(pairs) // 8) * 8 - len(pairs))
 
 
 def _warp_product_map(order: int) -> list[int]:
@@ -211,6 +236,15 @@ def _warp_product_map(order: int) -> list[int]:
     return out
 
 
+def warp_triangle(dimension: int, order: int) -> list[int]:
+    """For each entry (i, m), m <= i, of the packed lower normal matrix, in
+    packed order (row i at i (i + 1) / 2): i | m << 8 | slot(m, i) << 16,
+    the row, the column and the moment the warp body reads for it."""
+    slots = moment_slots(dimension, order)
+    NO = len(slots)
+    return [i | m << 8 | int(slots[m, i]) << 16 for i in range(NO) for m in range(i + 1)]
+
+
 def tables_header() -> str:
     """C++ header with the kernel's loop tables, one struct per (dim, order).
 
@@ -224,12 +258,15 @@ def tables_header() -> str:
     the thread body's unrolled loops every argument is a compile-time
     constant, so each lookup folds away and the per-case arrays stay in
     registers.  The warp body (3D) indexes its tables at run time, so its
-    instances also get device arrays (``slot_at``, ``deg_at``, ``fact_at``):
-    a switch on a run-time index would be left as a jump table.  Its
+    instances also get device arrays (``slot_at``, ``deg_at``, ``fact_at``,
+    and ``tri_at``, :func:`warp_triangle`, which its lanes read in packed
+    order): a switch on a run-time index would be left as a jump table.  Its
     moment sums are one matrix product, rows the (x, y) exponent pairs
-    (``pa``, ``pb``; NPP of them, padded to a multiple of 8), columns the
-    z powers of w and then of w f; ``pc_at(p * 16 + col)`` says which
-    moment (below NM) or RHS entry (NM + DOF) each product is, 255 none.
+    (``pab_at``, :func:`_warp_pair_rows`; NPP of them, padded to a multiple
+    of 8, by degree, so the second column tile runs for the first ``TJ1``
+    row tiles only, :func:`_warp_rhs_tiles`), columns the z powers of w and
+    then of w f; ``pc_at(p * 16 + col)`` says which moment (below NM) or RHS
+    entry (NM + DOF) each product is, 255 none.
     """
     out = ["// Generated by wlsqm_tpu_torch.ops.fit_kernel.tables_header() from",
            "// moment_lattice() and dof_chain(); the build writes it, do not edit.",
@@ -276,11 +313,12 @@ def tables_header() -> str:
                     "  }"]
             if warp:
                 pairs = _warp_pairs(order)
-                out += ["  static constexpr int NPP = %d;" % (-(-len(pairs) // 8) * 8)]
-                out += _switch("pa", "p", [a for a, _ in pairs])
-                out += _switch("pb", "p", [b for _, b in pairs])
+                out += ["  static constexpr int NPP = %d;" % (-(-len(pairs) // 8) * 8),
+                        "  static constexpr int TJ1 = %d;" % _warp_rhs_tiles(order)]
                 out += _array("pc_at", _warp_product_map(order))
+                out += _array("pab_at", _warp_pair_rows(order))
                 out += _array("slot_at", slots.reshape(-1))
+                out += _array("tri_at", warp_triangle(dim, order), "unsigned", "unsigned")
                 out += _array("deg_at", [int(row.sum()) for row in exp])
                 out += _array("fact_at", facts)
             out += ["};", ""]
@@ -599,7 +637,7 @@ def _check(tensors, name: str) -> None:
 
 def _launch(xk, fk, nk, xi, out, est=None, *, gi=None, iters=None, order: int,
             weighting: int, knowns: int = 0, refine_steps: int, max_iter: int = 0,
-            ext: bool | None = None) -> None:
+            ext: int | None = None) -> None:
     """Launch the kernel on the current stream: out = fi (the scale, the
     known values' scale and the de-scale happen in the kernel; known DOFs
     get gi's bits, or 0 where gi is None), est (B,) = the key with its
@@ -607,12 +645,14 @@ def _launch(xk, fk, nk, xi, out, est=None, *, gi=None, iters=None, order: int,
     ALGO_ITERATIVE counts when ``max_iter > 0``.  gi (B, >=NO) f64 with unit
     column stride, or None.
 
-    ``ext`` picks the 2D instance compiled with knowns and ALGO_ITERATIVE
-    (default: where the call has either); the 2D basic instance is compiled
-    without them.  It exists for one card test, which holds the two 2D
-    instances to the same bits on a call that asks for neither: no knowns
-    mask or ``max_iter`` reaches the extended instance without running
-    what it adds.  Checks device, dtype, shape and contiguity, and raises on
+    ``ext`` picks the 2D thread body's instance: 1 (or True) the one
+    compiled with knowns (and ALGO_ITERATIVE), 2 the one with
+    ALGO_ITERATIVE alone; by default the call's own (knowns: 1; else
+    ``max_iter > 0``: 2; else the basic instance, compiled without either).
+    It exists for card tests that hold the 2D instances to the same bits on
+    calls that ask less than an instance adds: no knowns mask or
+    ``max_iter`` reaches those instances otherwise without running what
+    they add.  Checks device, dtype, shape and contiguity, and raises on
     a refused launch (the C entry returns ``cudaGetLastError()``).  Does not
     synchronise.
     """
@@ -645,7 +685,7 @@ def _launch(xk, fk, nk, xi, out, est=None, *, gi=None, iters=None, order: int,
     if B == 0:
         return
     if ext is None:
-        ext = has_known or max_iter > 0
+        ext = 1 if has_known else 2 if max_iter > 0 else 0
 
     def ptr(t):
         return None if t is None else t.data_ptr()
