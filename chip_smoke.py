@@ -47,7 +47,18 @@ then drives the port's paths through its public routes:
   oracle, after ``calibrate_device`` has measured the card's units anew and
   held the shipped record to them; then the moment kernel's new certified
   configurations (1D order 4 and 2D order 4 ALGO_ITERATIVE, 2D order 4 with
-  the value known) against the same oracle.
+  the value known) against the same oracle;
+* the examples — the Euler flow step of ``wlsqm_tpu_torch.examples.
+  euler_flow`` at n = 2^22, K = 24, order 3, 8 flux fields (three
+  ``gather_rows`` launches and three multi-field solves a step; its
+  set-up, ms per step and split, density error and peak memory beside the
+  heat step's figures) and the example's own run; the adjoint recovery of
+  ``adjoint_data_recovery`` (a rows launch with sens a step) on its own grid
+  and at B = 2^20 against the engine's gradient; and the other examples
+  (``gradient_stencil_design``, ``response_surface``, ``wlsqm_tour``,
+  ``expertsolver_example``, ``distributed_pipeline``,
+  ``jit_plan_sharding``, ``drivers_benchmark``) at their own sizes on the
+  card.
 
 Each phase prints one line; the line before the last is the card's name and
 power limit, the last ``{"ok": true, "device": {...}}``.  Any failed build,
@@ -143,6 +154,9 @@ N_IBVP = 1 << 22        # the IBVP cloud (the gather gate row's 20,480 points, g
 K_IBVP = 28             # neighbours per case, self included (the gate row's)
 STEPS = 32              # steps per timed IBVP run (the gate row's)
 DT_NU = 1e-5            # the gate row's dt * nu
+N_EULER_SIDE = 2048     # the Euler example's cloud grown to nside^2 = 2^22 points
+EULER_STEPS = 4         # SSP-RK3 steps per timed Euler run
+ADJ_SIDE = 1024         # the adjoint example's grid grown to 1024 x 1024 = 2^20
 EX2 = np.array([0, 1, 0, 2, 1, 0])   # 2D order-2 DOF exponents (F X Y X2 XY Y2)
 EY2 = np.array([0, 0, 1, 0, 1, 2])
 
@@ -1526,6 +1540,7 @@ def phase_ibvp(dev, wtt, pts, idx_np, plan, setup):
         raise RuntimeError("IBVP DOF parity vs SVD (scaled): %s > %.0e" % (parity, PARITY))
     return {"launches": launches, "ms": launch_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound, "ms_F3": launch3_ms,
+            "step_ms_F1": ms1 / STEPS, "step_ms_F3": ms3 / STEPS,
             "library_ms_F3": library3_ms, "bound_ms_F3": bound3["bound_ms"],
             "launches_F3": launches3}
 
@@ -1542,6 +1557,236 @@ def phase_heat_example(dev):
     print(json.dumps({"heat_example": res}), flush=True)
     if not res["device"].startswith("cuda") or res["gather_launches"] != 2 * res["steps"]:
         raise RuntimeError("the heat example did not run its gathers on the card")
+
+
+# -- the examples: the Euler flow step, the adjoint recovery, the rest --------------
+
+def phase_euler(dev, wtt, smi, heat):
+    """The Euler example's flow step at full width: nside = N_EULER_SIDE
+    (n = 2^22), K = 24, order 3, 8 flux fields (the example's cloud recipe
+    grown; a step that does not fit in device memory fails).  Set-up
+    (cloud and Morton order, the boundary band's periodic kNN on the native
+    tree, the window plan, ``prepare``) timed on the host; the main path,
+    EULER_STEPS SSP-RK3 steps (3 gather_rows launches and 3 multi-field
+    solves a step), counted; ms per step (median of REPS runs of
+    EULER_STEPS steps, CUDA events) beside the heat step's figures of this
+    run; the split into flux, gather, solve and the RK update; the gather
+    launch at these shapes (64-byte rows: the word instance) bit for bit
+    against its plain version, against its bound and index_select; the density
+    error against the exact vortex at t = EULER_STEPS dt; peak memory.  Then
+    three steps at the example's nside 48 on the card against the same
+    steps on the CPU (1e-10 relative to max(|U|, 1)), and the example's own
+    run to t = 1 on the card.  Returns the launches of the path."""
+    from wlsqm_tpu_torch.examples import euler_flow as ef
+    from wlsqm_tpu_torch.ops import gather
+
+    line = {"path": "euler", "device": smi, "k": ef.K, "order": ef.ORDER, "fields": 8}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nside = N_EULER_SIDE
+    flow = ef.setup(nside, ef.K, device=dev)
+    U = flow.initial()
+    dt = ef.cfl_dt(nside)
+    _zero_launches()
+    for _ in range(EULER_STEPS):
+        U = flow.step(U, dt)
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    err = ef.density_error(flow, U, EULER_STEPS * dt)
+    line.update(n=len(flow.pts), nside=nside, dt=dt, steps=EULER_STEPS,
+                setup_s=flow.setup_s, band=flow.band, coverage=flow.plan.coverage,
+                bad_blocks=len(flow.plan.bad_blocks), nblk=flow.plan.nblk,
+                prepared_gb=sum(t.numel() * t.element_size() for t in (
+                    flow.prep.c, flow.prep.w, *flow.prep.fac, flow.prep.row_scale,
+                    flow.prep.col_scale)) / 1e9,
+                launches=launches, density_max_error=float(err.max()),
+                density_rms_error=float(np.sqrt((err ** 2).mean())),
+                finite=bool(torch.isfinite(U).all()))
+    U0 = flow.initial()
+
+    def run():
+        v = U0
+        for _ in range(EULER_STEPS):
+            v = flow.step(v, dt)
+        return v
+
+    ms, ms_t = _time_ms(run)
+    line["ms_per_step"] = ms / EULER_STEPS
+    line["ms_per_run_of_%d" % EULER_STEPS] = ms_t
+
+    def split(v, n=2):
+        """Per step, the median over n steps of each part's CUDA-event time
+        summed over the three stages."""
+        parts = {"flux": [], "gather": [], "solve": [], "update": []}
+        for _ in range(n):
+            acc = dict.fromkeys(parts, 0.0)
+            stages = []
+            for c0, c1 in ((0.0, 1.0), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0)):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                w = stages[-1] if stages else v
+                ev[0].record()
+                fl = ef.flux_fields(w)
+                ev[1].record()
+                fk = flow.gather(fl)
+                ev[2].record()
+                r = flow.divergence(fk)
+                ev[3].record()
+                stages.append(c0 * v + c1 * (w + dt * r))     # the step's RK combination
+                ev[4].record()
+                ev[4].synchronize()
+                for i, k in enumerate(parts):
+                    acc[k] += ev[i].elapsed_time(ev[i + 1])
+                del fl, fk, r
+            v = stages[-1]
+            for k in parts:
+                parts[k].append(acc[k])
+        return {k: statistics.median(t) for k, t in parts.items()}
+
+    line["split_ms_per_step"] = split(U0)
+    fl = ef.flux_fields(U0)
+    flat = flow.own.reshape(-1)
+    words = fl.contiguous().view(torch.int32)
+    out = torch.empty((flat.numel(), words.shape[1]), dtype=torch.int32, device=dev)
+    launch_ms, launch_t = _time_ms(lambda: gather._launch([words], flat, [out]))
+    flat_long = flat.long()
+    library_ms, library_t = _time_ms(lambda: torch.index_select(fl, 0, flat_long))
+    plain_ms, plain_t = _time_ms(lambda: gather.gather_rows_plain(fl, flow.own))
+    # the word instance at the main path's shapes, bit for bit against u[idx]
+    words_equal = torch.equal(out, gather.gather_rows_plain(fl, flow.own).reshape(
+        flat.numel(), -1).view(torch.int32))
+    bound = _bound((flat, out, fl), 0.0)
+    line["gather"] = {"launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound": bound, "launch_t": launch_t, "index_select_t": library_t,
+                      "bit_equal_to_plain": words_equal}
+    line["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    del out, flat_long, fl, words, flat, U, U0, flow
+    torch.cuda.empty_cache()
+    line["heat_step_ms_this_run"] = {"F1": heat["step_ms_F1"], "F3": heat["step_ms_F3"],
+                                     "n": N_IBVP, "K": K_IBVP, "order": 2}
+
+    # the example's nside on the card against the CPU, and the example itself
+    small = ef.cfl_dt(ef.NSIDE)
+    Us = []
+    for d in ("cpu", dev):
+        f = ef.setup(ef.NSIDE, ef.K, device=d)
+        v = f.initial()
+        for _ in range(3):
+            v = f.step(v, small)
+        Us.append(v.cpu())
+    line["nside48_card_vs_cpu"] = _rel(Us[1], Us[0])
+    t0 = time.perf_counter()
+    res = ef.run()
+    res["wall_s"] = time.perf_counter() - t0
+    line["example"] = res
+    line["tol"] = PARITY
+    print(json.dumps(line), flush=True)
+    if launches != _launches(gather=3 * EULER_STEPS):
+        raise RuntimeError("the Euler path's launches: %s (want %d gathers)"
+                           % (launches, 3 * EULER_STEPS))
+    if not words_equal:
+        raise RuntimeError("the gather's word instance differs from u[idx] at n = %d, K = %d"
+                           % (line["n"], ef.K))
+    if not line["finite"] or line["density_max_error"] >= ef.TOL:
+        raise RuntimeError("the Euler step at n = %d drifted: %.3e"
+                           % (line["n"], line["density_max_error"]))
+    if line["nside48_card_vs_cpu"] > PARITY:
+        raise RuntimeError("the Euler step on the card is %.3e off the CPU's"
+                           % line["nside48_card_vs_cpu"])
+    if not res["device"].startswith("cuda") or res["gather_launches"] != 3 * res["steps"]:
+        raise RuntimeError("the Euler example did not run its gathers on the card")
+    return launches
+
+
+def phase_adjoint(dev, wtt, smi):
+    """The adjoint example on the card: its own run (32 x 32 grid, 60
+    steps, one rows-kernel launch with sens a step, the bar final < 0.6
+    base), then a 1024 x 1024 grid (B = 2^20, K = 12, neighbours from the
+    native host tree): one loss-and-gradient step counted (one rows launch),
+    its gradient held to the f64 engine's autograd gradient on the same
+    inputs (1e-10 of its largest entry), and ms per loss-and-gradient step
+    (median of REPS, CUDA events).  Returns the launches of the path."""
+    from wlsqm_tpu_torch.examples import adjoint_data_recovery as ad
+    from wlsqm_tpu_torch.fitter import engine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    line = {"path": "adjoint", "device": smi}
+    t0 = time.perf_counter()
+    before = _kernel_launches()["fit_rows"]
+    res = ad.run()
+    line["example"] = dict(res, wall_s=time.perf_counter() - t0,
+                           rows_launches=_kernel_launches()["fit_rows"] - before)
+    t0 = time.perf_counter()
+    p = ad.problem(ADJ_SIDE, device=dev, dense=False)
+    line["setup_s"] = time.perf_counter() - t0
+    B = len(p.pts)
+    _zero_launches()
+    _, grad = ad.loss_and_grad(p, p.u_obs)
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    u = p.u_obs.clone().requires_grad_(True)
+    fi = engine.fit_batch(p.xk, u[p.idx], p.nk, p.xi, p.xk.new_zeros((B, 6)),
+                          torch.full((B,), 2, dtype=torch.int32, device=dev),
+                          torch.zeros(B, dtype=torch.int64, device=dev),
+                          torch.full((B,), wtt.WEIGHT_CENTER, dtype=torch.int32, device=dev),
+                          dimension=2, NO=6)[0]
+    (ref,) = torch.autograd.grad(ad.loss_of(p, fi[:, wtt.i2_X2] + fi[:, wtt.i2_Y2], u), u)
+    del fi, u
+    step_ms, step_t = _time_ms(lambda: ad.loss_and_grad(p, p.u_obs))
+    line.update(B=B, k=ad.K, launches=launches, grad_vs_engine=_grad_rel(grad, ref),
+                ms_per_loss_and_grad=step_ms, loss_and_grad_t=step_t,
+                peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3), tol=PARITY)
+    print(json.dumps(line), flush=True)
+    ex = line["example"]
+    if not ex["device"].startswith("cuda") or ex["rows_launches"] != ad.STEPS:
+        raise RuntimeError("the adjoint example did not run the rows kernel each step")
+    if launches != _launches(rows=1):
+        raise RuntimeError("the adjoint step at 2^20 launches %s" % (launches,))
+    if line["grad_vs_engine"] > PARITY:
+        raise RuntimeError("the adjoint gradient at 2^20 is %.3e off the engine's"
+                           % line["grad_vs_engine"])
+    return launches
+
+
+#: examples 3-8 of the port, run on the card at their own sizes
+EXAMPLES = ("gradient_stencil_design", "response_surface", "wlsqm_tour",
+            "expertsolver_example", "distributed_pipeline", "jit_plan_sharding",
+            "drivers_benchmark")
+
+
+def _summary(res):
+    """An example's result with its arrays left out."""
+    return {k: v for k, v in res.items() if not isinstance(v, (np.ndarray, dict, list))
+            or k in ("rows", "tour_routing")}
+
+
+def phase_examples(dev, smi):
+    """The rest of the port's examples on the card, each at its own size:
+    ``run()`` (on the card: no ``device`` given) must not raise and must
+    report a CUDA device; each one's kernel launches and wall seconds.
+    Returns the launches of the path (all of them)."""
+    import importlib
+
+    line = {"path": "examples", "device": smi}
+    _zero_launches()
+    for name in EXAMPLES:
+        mod = importlib.import_module("wlsqm_tpu_torch.examples." + name)
+        before = _kernel_launches()
+        t0 = time.perf_counter()
+        res = mod.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = _kernel_launches()
+        line[name] = dict(_summary(res), wall_s=wall,
+                          launches={k: after[k] - before[k] for k in after})
+        if not str(res["device"]).startswith("cuda"):
+            raise RuntimeError("example %s ran on %s" % (name, res["device"]))
+    launches = _kernel_launches()
+    line["launches"] = launches
+    print(json.dumps(line, default=str), flush=True)
+    if not launches["fit_moment"] or not launches["fit_rows"]:
+        raise RuntimeError("the examples did not reach both fit kernels: %s" % (launches,))
+    return launches
 
 
 # -- the compat surface: ExpertSolver and the fit_* entries ------------------------
@@ -3771,6 +4016,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_heat_example(dev)
     torch.cuda.empty_cache()
+    euler = phase_euler(dev, wtt, smi.splitlines()[0], ibvp)
+    torch.cuda.empty_cache()
+    adjoint = phase_adjoint(dev, wtt, smi.splitlines()[0])
+    torch.cuda.empty_cache()
+    examples = phase_examples(dev, smi.splitlines()[0])
+    torch.cuda.empty_cache()
     expert = phase_expert(dev, wtt, smi.splitlines()[0])
     torch.cuda.empty_cache()
     compat = phase_compat(dev, wtt, smi.splitlines()[0])
@@ -3791,7 +4042,8 @@ def main() -> int:
                "iterative": _launches(moment=iterative["launches"]),
                "dim3": _launches(moment=dim3["launches"]),
                "expert": expert, **compat, "grad": grad, "stream": stream_launches,
-               "sharded": sharded, "warmup": warm}
+               "sharded": sharded, "warmup": warm, "euler": euler, "adjoint": adjoint,
+               "examples": examples}
 
     def entry(name, source, replaces, abs_err, rel_err, t, config, batch=B_PLAIN, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

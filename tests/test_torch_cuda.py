@@ -752,6 +752,41 @@ def test_heat_example_on_the_card(dev):
     assert res["max_error"] < ibvp_heat.TOL and max(res["field_max_errors"]) < ibvp_heat.TOL
 
 
+def test_euler_step_on_the_card_is_the_cpu_step(dev):
+    """Three SSP-RK3 steps of the Euler example at nside 48: on the card
+    (the gather kernel, 8 fields a stage, and the engine's multi-field
+    solve) within 1e-10 of the same steps with device="cpu", relative to
+    max(|U|, 1); nine gather launches."""
+    from wlsqm_tpu_torch.examples import euler_flow as ef
+
+    dt = ef.cfl_dt(ef.NSIDE)
+    out = []
+    for device in ("cpu", dev):
+        flow = ef.setup(ef.NSIDE, ef.K, device=device)
+        before = gather.LAUNCHES
+        U = flow.initial()
+        for _ in range(3):
+            U = flow.step(U, dt)
+        out.append(U.cpu())
+    assert gather.LAUNCHES == before + 9
+    assert _rel(out[1], out[0]) <= PARITY
+
+
+def test_adjoint_gradient_on_the_card_is_the_cpus(dev):
+    """The adjoint example's first loss gradient: through the rows kernel's
+    do_sens launch on the card against its plain version on the CPU,
+    within 1e-10 of its largest entry; one launch."""
+    from wlsqm_tpu_torch.examples import adjoint_data_recovery as ad
+
+    grads = []
+    for device in ("cpu", dev):
+        p = ad.problem(device=device)
+        before = fit_rows.LAUNCHES
+        grads.append(ad.loss_and_grad(p, p.u_obs)[1].cpu())
+    assert fit_rows.LAUNCHES == before + 1
+    assert (grads[1] - grads[0]).abs().max() <= PARITY * grads[0].abs().max()
+
+
 # ---------------------------------------------------------------------------
 # The compat surface on the card: ExpertSolver and the fit_* entries
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ XLA:CPU, in f32-pair arithmetic — at that test's f32-grade 5e-6
 by tests/test_torch_cuda.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,10 +221,10 @@ def test_plain_iterative_counts_against_the_jax_engines():
     stored counts, on the seeded clouds of tests/iterative_counts.py (the
     first 256 cases of each grid configuration, knowns masks and initial
     DOFs included), pooled: at least half equal (ROADMAP C2's bar), and at
-    least 85% within one, under C2's 90%: measured 0.889 here (the rows
-    kernel's plain version 0.902).  The DOFs hold 1e-10 of the rows body's.
+    least 88% within one, under C2's 90%: measured 0.889 here.  The DOFs
+    hold 1e-10 of the rows body's.
 
-    Why the bar is lower, witnessed here: the moment body's corrective
+    Why the bar is under C2's, witnessed here: the moment body's corrective
     refit is a refinement step on the moment store (pallas_fit.py
     l.817-885), and its counts are bimodal.  It gives 2 on 5.1% of the
     cases where the engine gives 2 on 25.7% (asserted: under half the
@@ -234,13 +236,20 @@ def test_plain_iterative_counts_against_the_jax_engines():
     Which end a case takes follows the size of the system: one trip on
     59-100% of the cases with NO <= 4, three on 81-89% at 2D order 4, more
     than the engine's 63-73% there (asserted), which is the iterative
-    path's configuration (97.6% three trips on the card)."""
+    path's configuration (97.6% three trips on the card).
+
+    The rows body does not share that shape on these cases (asserted): it
+    gives 2 on 22.3% (engine 25.7%), its one-trip stops are exact fixed
+    points on 29% (the moment body's 68%), and it holds 0.908 within one.
+    So the lean is the moment body's, not these clouds'; that it is the
+    moment design's and not the port's is
+    test_the_count_lean_is_the_jax_moment_kernels'."""
     import iterative_counts
 
     from wlsqm_tpu_torch.ops import fit_rows
 
     stored = iterative_counts.load()
-    got, ref, fixed, o4 = [], [], [], []
+    got, ref, fixed, o4, rows, fixed_r = [], [], [], [], [], []
     n = 256
     for key, dim, order, w, B, Kc, seed in iterative_counts.configs():
         if not key.startswith("grid_"):
@@ -249,22 +258,133 @@ def test_plain_iterative_counts_against_the_jax_engines():
         t = [torch.as_tensor(a[:n]) for a in (xk, fk, nk, xi, fi0)]
         kw = dict(dimension=dim, order=order, weighting=w, knowns=kn)
         fi, it = fit_kernel.fit_moments_plain(*t, max_iter=iterative_counts.MAX_ITER, **kw)
-        fi_r, _, _ = fit_rows.fit_rows_plain(*t, max_iter=iterative_counts.MAX_ITER, **kw)
+        fi_r, it_r, _ = fit_rows.fit_rows_plain(*t, max_iter=iterative_counts.MAX_ITER, **kw)
         assert rel_err(fi.numpy(), fi_r.numpy()) <= PARITY, key
         f0 = fit_kernel.fit_moments_plain(*t, **kw)
         f1, _ = fit_kernel.fit_moments_plain(*t, max_iter=1, **kw)
         fixed.append((f0.view(torch.int64) == f1.view(torch.int64)).all(1).numpy())
+        r0 = fit_rows.fit_rows_plain(*t, **kw)[0]
+        r1 = fit_rows.fit_rows_plain(*t, max_iter=1, **kw)[0]
+        fixed_r.append((r0.view(torch.int64) == r1.view(torch.int64)).all(1).numpy())
+        rows.append(it_r.numpy())
         got.append(it.numpy())
         ref.append(stored[key][:n])
         if (dim, order) == (2, 4):
             o4.append((float((got[-1] == 3).mean()), float((ref[-1] == 3).mean())))
     equal, within, _ = iterative_counts.shares(got, ref)
-    assert equal >= 0.5 and within >= 0.85, (equal, within)
+    assert equal >= 0.5 and within >= 0.88, (equal, within)
     g, r, f = (np.concatenate(a) for a in (got, ref, fixed))
     assert float((g == 1).mean()) > float((r == 1).mean())
     assert float((g == 2).mean()) < 0.5 * float((r == 2).mean())
     assert float(f[g == 1].mean()) >= 0.6
     assert all(mine > theirs for mine, theirs in o4), o4
+    gr, fr = np.concatenate(rows), np.concatenate(fixed_r)
+    assert iterative_counts.shares(rows, ref)[1] >= 0.9
+    assert float((gr == 2).mean()) > 0.75 * float((r == 2).mean())
+    assert float(fr[gr == 1].mean()) < 0.5 * float(f[g == 1].mean())
+
+
+#: grid configurations of tests/iterative_counts.py where the f64 engine stops
+#: after two trips on more than half of the cases (CENTER, orders 1-2)
+C6_WITNESS = ("grid_d1_o1_w2", "grid_d1_o2_w2", "grid_d2_o1_w2")
+
+
+def test_the_count_lean_is_the_jax_moment_kernels():
+    """ROADMAP C6 on the stored clouds: the moment body's bimodal counts
+    are the moment design's, which the JAX package's moment kernel shares.
+    Witness: that kernel (``fit_pallas(assembly="moments")``, run
+    interpreted on the CPU; here a witness of its counts, not an oracle of
+    its values) on the first 1,024 cases of each C6_WITNESS cloud, pooled:
+    it gives 2 on 5.8% of the cases where the f64 engine gives 2 on 54.0%
+    and the port's moment body on 8.3% (asserted: both under a quarter of
+    the engine's share), the port's rows body on 44.4% (asserted: over
+    three quarters); within one of the engine the JAX moment kernel holds
+    0.807, the port's moment body 0.826 and its rows body 0.897 (asserted:
+    the port's moment body no lower than the JAX kernel's share less three
+    binomial standard deviations)."""
+    import iterative_counts
+
+    from wlsqm_tpu.ops import pallas_fit
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    stored = iterative_counts.load()
+    cfg = {c[0]: c for c in iterative_counts.configs()}
+    n = 1024
+    got = {"jax": [], "moments": [], "rows": [], "engine": []}
+    for key in C6_WITNESS:
+        _, dim, order, w, B, Kc, seed = cfg[key]
+        arrs = [a[:n] for a in iterative_counts.cloud(dim, order, B, Kc, seed)[:5]]
+        kn = iterative_counts.cloud(dim, order, B, Kc, seed)[5]
+        kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
+                  max_iter=iterative_counts.MAX_ITER)
+        out = pallas_fit.fit_pallas(*(jnp.asarray(a) for a in arrs), interpret=True,
+                                    assembly="moments", **kw)
+        t = [torch.as_tensor(a) for a in arrs]
+        got["jax"].append(np.asarray(out[1]))
+        got["moments"].append(fit_kernel.fit_moments_plain(*t, **kw)[1].numpy())
+        got["rows"].append(fit_rows.fit_rows_plain(*t, **kw)[1].numpy())
+        got["engine"].append(stored[key][:n])
+    c = {k: np.concatenate(v) for k, v in got.items()}
+    two = {k: float((v == 2).mean()) for k, v in c.items()}
+    pm1 = {k: float((np.abs(v - c["engine"]) <= 1).mean()) for k, v in c.items()}
+    assert two["jax"] < 0.25 * two["engine"] and two["moments"] < 0.25 * two["engine"], two
+    assert two["rows"] > 0.75 * two["engine"], two
+    sigma = (pm1["jax"] * (1 - pm1["jax"]) / len(c["engine"])) ** 0.5
+    assert pm1["moments"] >= pm1["jax"] - 3 * sigma, pm1
+
+
+#: the JAX moment kernel's within-one share against the f64 engine on the TPU
+#: (benchmarks/r5_iter_moment.json ``moments_count_agree_pm1``, 2,048 cases)
+R5_MOMENT_PM1 = 0.986
+
+
+@functools.cache
+def _r5_cases():
+    """The configuration of benchmarks/run_r5_iter_moment.py (2D, order 4,
+    K = 30, WEIGHT_CENTER, xi = 0, xk uniform in [-1, 1]^2, fk = sin(3x)
+    cos(2y) + 0.01 N(0, 1), max_iter 3) on two seeded NumPy batches of
+    1,024, with the JAX f64 engine's counts."""
+    out = []
+    for seed in (5, 6):
+        rng = np.random.default_rng(seed)
+        B, K = 1024, 30
+        xk = rng.uniform(-1, 1, (B, K, 2))
+        fk = np.sin(3 * xk[..., 0]) * np.cos(2 * xk[..., -1]) + 0.01 * rng.standard_normal((B, K))
+        nk, xi = np.full(B, K, np.int32), np.zeros((B, 2))
+        _, _, it, _ = jengine.fit_batch(
+            *(jnp.asarray(a) for a in (xk, fk, nk, xi)), jnp.zeros((B, 15)),
+            jnp.full((B,), 4, jnp.int32), jnp.zeros((B,), jnp.int64),
+            jnp.full((B,), defs.WEIGHT_CENTER, jnp.int32), dimension=2, NO=15,
+            iterative=True, max_iter=3, precision="f64")
+        out.append(([torch.as_tensor(a) for a in (xk, fk, nk, xi)], np.asarray(it)))
+    return out
+
+
+@pytest.mark.parametrize("refine_steps", [1, 2])
+def test_iterative_counts_on_the_reference_configuration(refine_steps):
+    """ROADMAP C6, measured: on the configuration where the JAX moment
+    kernel agreed within one with the f64 engine on 98.6% of 2,048 cases
+    (on the TPU, refine_steps 2), the port's plain moment body agrees on
+    98.1% (refine_steps 1, the port's default) and 98.3% (2) of 2,048, and
+    the rows body on 97.5% and 97.3%: within three binomial standard
+    deviations of the reference's share (0.0078 at 2,048 cases): here the
+    port's moment body is where the reference's kernel is, and the second
+    sweep buys nothing worth a change of K1's bits (the lean on the stored
+    clouds is the moment design's: test_the_count_lean_is_the_jax_moment_kernels).  Asserted: the moment
+    body within 3 sigma of 0.986 at both settings, the rows body at 0.97."""
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    kw = dict(dimension=2, order=4, weighting=defs.WEIGHT_CENTER, max_iter=3,
+              refine_steps=refine_steps)
+    shares = {}
+    for name, fn in (("moments", fit_kernel.fit_moments_plain),
+                     ("rows", fit_rows.fit_rows_plain)):
+        within = [np.abs(fn(*t, **kw)[1].numpy() - it) <= 1 for t, it in _r5_cases()]
+        shares[name] = float(np.concatenate(within).mean())
+    n = sum(len(it) for _, it in _r5_cases())
+    sigma = (R5_MOMENT_PM1 * (1 - R5_MOMENT_PM1) / n) ** 0.5
+    assert shares["moments"] >= R5_MOMENT_PM1 - 3 * sigma, shares
+    assert shares["rows"] >= 0.97, shares
 
 
 def test_fit_kernel_outputs_in_fit_pallas_order():

@@ -39,8 +39,10 @@ This package never imports JAX.  It mirrors the layout of ``wlsqm_tpu``:
   ``.npz`` file in the JAX package's layout; :mod:`~wlsqm_tpu_torch.utils.profiling`
   — a synchronising timer and a ``torch.profiler`` trace;
 * :mod:`~wlsqm_tpu_torch.warmup` — build the kernels and warm the routes;
-* :mod:`~wlsqm_tpu_torch.examples.ibvp_heat` — the heat-equation time
-  stepper.
+* :mod:`~wlsqm_tpu_torch.examples` — a counterpart of each of the JAX
+  package's examples (the heat and Euler time steppers, the adjoint
+  recovery, stencil design, the response surface, the tour, ExpertSolver,
+  the sharded pipeline, plan replay, the drivers benchmark).
 
 The CUDA sources are in ``csrc/``, built with nvcc at first use by
 :mod:`~wlsqm_tpu_torch.native`.  Without ``device=``, the entry points

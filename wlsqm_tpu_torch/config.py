@@ -23,6 +23,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def default_dtype() -> torch.dtype:
+    """The floating dtype of every fit: ``torch.float64`` (the JAX package's
+    ``default_dtype``, which is float64 unless x64 is off; here it is always
+    on)."""
+    return DTYPE
+
+
 def default_device() -> torch.device:
     """The device used when a caller passes none: the CUDA card.
 

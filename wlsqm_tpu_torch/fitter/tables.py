@@ -102,3 +102,9 @@ def diff_projection(dimension: int, diff: int) -> np.ndarray:
             if t is not None:
                 P[t, s] = 1.0
     return P
+
+
+@lru_cache(maxsize=None)
+def derivative_order(dimension: int, diff: int) -> int:
+    """Total derivative order of the DOF index ``diff`` (0 for F)."""
+    return int(DEGREE[dimension][diff])

@@ -58,6 +58,11 @@ def solve_factored(fac, b: torch.Tensor, solver: str = SOLVER_CHOLESKY) -> torch
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
+def solve(A: torch.Tensor, b: torch.Tensor, solver: str = SOLVER_CHOLESKY) -> torch.Tensor:
+    """One-shot batched solve (factor + back-substitute)."""
+    return solve_factored(factor(A, solver), b, solver)
+
+
 def cond_2norm(A: torch.Tensor) -> torch.Tensor:
     """Batched 2-norm condition number via singular values
     (reference: wlsqm/fitter/impl.pyx:661-682, via dgesvd)."""
