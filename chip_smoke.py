@@ -73,7 +73,11 @@ on the batch they are computed in; ``measure_moment_phases`` splits a moment
 kernel case's cycles by phase (a build with its phase clock),
 ``measure_moment_paths`` times the dim3 and iterative launches against
 another checkout and compares their bits, and ``measure_warp_residency``
-times the moment kernel's warp body at other counts of resident cases.
+times the moment kernel's warp body at other counts of resident cases;
+``measure_rows_phases`` splits a rows-kernel case's cycles by phase (both
+bodies), ``measure_rows_variants`` times the rows thread body's builds, and
+``measure_rows_paths`` and ``measure_gather_paths`` time the rows and gather
+launches against another checkout (the rows outputs' bits compared).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -606,8 +610,10 @@ def phase_rows_vs_plain(dev, wtt):
     """The rows kernel against its plain version over dims 1-3, orders 0-4,
     both weightings: with sens, with a random knowns mask (and sens), and
     with max_iter 3 (and the mask); both bodies (the thread body below
-    fit_rows.WARP_MIN_NO, the warp body from it) at the grid's K, and the
-    warp body's configurations again at K_WIDE.
+    fit_rows.WARP_MIN_NO, the warp body from it) at the grid's K and again at
+    K_WIDE (with sens the thread body stages its offsets and weights in
+    shared memory at the grid's K in 1D and 2D, nothing at 3D's K = 56 and at
+    K_WIDE: fit_rows.thread_layout), ragged nk with NaN in the padded slots.
 
     Counts: exact-stagnation ties follow the last bit of the residual norms,
     which FMA contraction and the summation order move, so they are held
@@ -636,7 +642,7 @@ def phase_rows_vs_plain(dev, wtt):
     per = {}
     grid = [(dim, order, K_GRID[dim], B_CHECK if order == ORDER and dim > 1 else B_GRID)
             for dim in (1, 2, 3) for order in range(ORDER + 1)]
-    grid += [(dim, order, K_WIDE, B_GRID) for dim, order in _warp_configs()]
+    grid += [(dim, order, K_WIDE, B_GRID) for dim in (1, 2, 3) for order in range(ORDER + 1)]
     for dim, order, Kg, B in grid:
         NO = defs.number_of_dofs(dim, order)
         for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
@@ -1266,8 +1272,11 @@ def phase_gather_vs_plain(dev, ibvp_idx, ibvp_plan):
     """The gather kernel against u[idx], bit for bit (torch.equal on integer
     views): f64 with F = 1 and 3, f32, int32, int64, the f32 pair; float
     payloads carry NaN, ±0 and ±inf; a ragged tail (B = 16·m + 7); a plan
-    with overflow blocks; every vector instance on an odd row count, with u
-    aligned and one element off; and the 2^22 IBVP indices."""
+    with overflow blocks; every row width of 1-20 words (f32 F = 1-20, f64
+    F = 1-10: the vector instances, a template of the width or the run-time
+    width) on an odd row count, with u aligned and one element off, and the
+    same rows into an output one word off its 16-byte alignment (the word
+    instance); and the 2^22 IBVP indices."""
     from wlsqm_tpu_torch.ops import gather
 
     rng = np.random.default_rng(2029)
@@ -1318,25 +1327,39 @@ def phase_gather_vs_plain(dev, ibvp_idx, ibvp_plan):
                 and torch.equal(_bits(glo), _bits(lo[idx.long()]))):
             raise RuntimeError("gather pair kernel differs: %s" % set_name)
         checked.append("%s_pair_f32_F2" % set_name)
-    # every instance of the vector plan, an odd number of rows (a ragged
-    # last group), and u viewed one element off its allocation, so that it
-    # is not 16-byte aligned and the 16-byte loads are not taken
+    # every row width of 1-20 words, an odd number of rows (a ragged last
+    # vector), and u viewed one element off its allocation, so that it is
+    # not 16-byte aligned and the 16-byte loads are not taken; then the same
+    # rows into an output one word off 16-byte alignment: the word instance
     idx_np = _local_idx(rng, n, 16 * 2048 + 5, 7)              # 229,411 rows
     idx, plan = torch.as_tensor(idx_np.astype(np.int32), device=dev), gather.plan_window_gather(
         idx_np, n)
+    flat = idx.reshape(-1)
     instances = {}
-    for dtype, F in ((torch.float64, 1), (torch.float64, 2), (torch.float64, 3),
-                     (torch.float32, 1), (torch.float32, 3), (torch.int32, 1),
-                     (torch.int64, 1)):
+    widths = ([(torch.float32, F) for F in range(1, 21)]
+              + [(torch.float64, F) for F in range(1, 11)] + [(torch.int32, 1), (torch.int64, 1)])
+    for dtype, F in widths:
         base = payload(((n + 1) * F,), dtype)
         for off in (0, 1):
             u = base[off:off + n * F]
             u = u.view(n, F) if F > 1 else u
             name = "odd_rows_%s_F%d_offset%d" % (str(dtype)[6:], F, off)
             instances[name] = gather._vector_plan(u.element_size() * F, u.data_ptr(), 1 << 20)
-            if off and instances[name] == 16:
-                raise RuntimeError("a misaligned view took the 16-byte loads: %s" % name)
+            if instances[name] is None or (off and instances[name] == 16):
+                raise RuntimeError("the vector plan of %s: %s" % (name, instances[name]))
             check(name, u, idx, plan)
+            words = (u[:, None] if F == 1 else u).contiguous().view(torch.int32)
+            W = words.shape[1]
+            buf = torch.zeros(flat.numel() * W + 1, dtype=torch.int32, device=dev)
+            out = buf[1:].view(-1, W)
+            if gather._vector_plan(4 * W, words.data_ptr(), out.data_ptr()) is not None:
+                raise RuntimeError("an output off 16-byte alignment took a vector instance")
+            gather._launch([words], flat, [out])
+            torch.cuda.synchronize()
+            ref = gather.gather_rows_plain(u, idx).reshape(flat.numel(), -1)
+            if not torch.equal(out, ref.contiguous().view(torch.int32)):
+                raise RuntimeError("the word instance differs from u[idx]: %s" % name)
+            checked.append(name + "_out_offset1")
     idx = torch.as_tensor(ibvp_idx, device=dev)
     for F in (1, 3):
         u = torch.randn((N_IBVP, F) if F > 1 else (N_IBVP,), generator=gen,
@@ -1571,12 +1594,14 @@ def phase_euler(dev, wtt, smi, heat):
     solves a step), counted; ms per step (median of REPS runs of
     EULER_STEPS steps, CUDA events) beside the heat step's figures of this
     run; the split into flux, gather, solve and the RK update; the gather
-    launch at these shapes (64-byte rows: the word instance) bit for bit
-    against its plain version, against its bound and index_select; the density
+    launch at these shapes (64-byte rows: the vector instance of 16 words in
+    16-byte pieces) bit for bit against its plain version, against its bound
+    and index_select, beside the word instance these rows took before; the density
     error against the exact vortex at t = EULER_STEPS dt; peak memory.  Then
     three steps at the example's nside 48 on the card against the same
     steps on the CPU (1e-10 relative to max(|U|, 1)), and the example's own
-    run to t = 1 on the card.  Returns the launches of the path."""
+    run to t = 1 on the card.  Returns the launches of the path and the
+    gather's figures."""
     from wlsqm_tpu_torch.examples import euler_flow as ef
     from wlsqm_tpu_torch.ops import gather
 
@@ -1647,17 +1672,31 @@ def phase_euler(dev, wtt, smi, heat):
     flat = flow.own.reshape(-1)
     words = fl.contiguous().view(torch.int32)
     out = torch.empty((flat.numel(), words.shape[1]), dtype=torch.int32, device=dev)
+    instance = gather._vector_plan(4 * words.shape[1], words.data_ptr(), out.data_ptr())
     launch_ms, launch_t = _time_ms(lambda: gather._launch([words], flat, [out]))
+    ref = gather.gather_rows_plain(fl, flow.own).reshape(flat.numel(), -1).view(torch.int32)
+    # the main path's instance at its shapes, bit for bit against u[idx]
+    bits_equal = torch.equal(out, ref)
+
+    def word_instance():     # the instance these rows took before, for the record
+        status = gather.load().lib.wlsqm_gather_words(
+            words.data_ptr(), None, flat.data_ptr(), out.data_ptr(), None, words.shape[0],
+            flat.numel(), words.shape[1], 0, torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise RuntimeError("the word instance failed: CUDA error %d" % status)
+
+    out.zero_()
+    words_ms, words_t = _time_ms(word_instance)
+    bits_equal = bits_equal and torch.equal(out, ref)
+    del ref
     flat_long = flat.long()
     library_ms, library_t = _time_ms(lambda: torch.index_select(fl, 0, flat_long))
     plain_ms, plain_t = _time_ms(lambda: gather.gather_rows_plain(fl, flow.own))
-    # the word instance at the main path's shapes, bit for bit against u[idx]
-    words_equal = torch.equal(out, gather.gather_rows_plain(fl, flow.own).reshape(
-        flat.numel(), -1).view(torch.int32))
     bound = _bound((flat, out, fl), 0.0)
     line["gather"] = {"launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound": bound, "launch_t": launch_t, "index_select_t": library_t,
-                      "bit_equal_to_plain": words_equal}
+                      "vector_plan_load_bytes": instance, "word_instance_ms": words_ms,
+                      "word_instance_t": words_t, "bit_equal_to_plain": bits_equal}
     line["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
     del out, flat_long, fl, words, flat, U, U0, flow
     torch.cuda.empty_cache()
@@ -1683,9 +1722,9 @@ def phase_euler(dev, wtt, smi, heat):
     if launches != _launches(gather=3 * EULER_STEPS):
         raise RuntimeError("the Euler path's launches: %s (want %d gathers)"
                            % (launches, 3 * EULER_STEPS))
-    if not words_equal:
-        raise RuntimeError("the gather's word instance differs from u[idx] at n = %d, K = %d"
-                           % (line["n"], ef.K))
+    if not bits_equal or instance != 16:
+        raise RuntimeError("the gather at n = %d, K = %d: bits equal %s, instance %s"
+                           % (line["n"], ef.K, bits_equal, instance))
     if not line["finite"] or line["density_max_error"] >= ef.TOL:
         raise RuntimeError("the Euler step at n = %d drifted: %.3e"
                            % (line["n"], line["density_max_error"]))
@@ -1694,7 +1733,7 @@ def phase_euler(dev, wtt, smi, heat):
                            % line["nside48_card_vs_cpu"])
     if not res["device"].startswith("cuda") or res["gather_launches"] != 3 * res["steps"]:
         raise RuntimeError("the Euler example did not run its gathers on the card")
-    return launches
+    return launches, line["gather"]
 
 
 def phase_adjoint(dev, wtt, smi):
@@ -1704,7 +1743,10 @@ def phase_adjoint(dev, wtt, smi):
     native host tree): one loss-and-gradient step counted (one rows launch),
     its gradient held to the f64 engine's autograd gradient on the same
     inputs (1e-10 of its largest entry), and ms per loss-and-gradient step
-    (median of REPS, CUDA events).  Returns the launches of the path."""
+    (median of REPS, CUDA events); then the step's rows launch alone beside
+    its bound, the wrapper, the plain version and the library yardstick
+    (_adjoint_rows_times).  Returns the launches of the path and the
+    launch's figures."""
     from wlsqm_tpu_torch.examples import adjoint_data_recovery as ad
     from wlsqm_tpu_torch.fitter import engine
 
@@ -1736,6 +1778,8 @@ def phase_adjoint(dev, wtt, smi):
     line.update(B=B, k=ad.K, launches=launches, grad_vs_engine=_grad_rel(grad, ref),
                 ms_per_loss_and_grad=step_ms, loss_and_grad_t=step_t,
                 peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3), tol=PARITY)
+    rows = _adjoint_rows_times((p.xk, p.u_obs[p.idx], p.nk, p.xi))
+    line["rows_launch"] = rows
     print(json.dumps(line), flush=True)
     ex = line["example"]
     if not ex["device"].startswith("cuda") or ex["rows_launches"] != ad.STEPS:
@@ -1745,7 +1789,7 @@ def phase_adjoint(dev, wtt, smi):
     if line["grad_vs_engine"] > PARITY:
         raise RuntimeError("the adjoint gradient at 2^20 is %.3e off the engine's"
                            % line["grad_vs_engine"])
-    return launches
+    return launches, rows
 
 
 #: examples 3-8 of the port, run on the card at their own sizes
@@ -2790,6 +2834,31 @@ vec16_evict_last(const uint32_t* __restrict__ u, const int32_t* __restrict__ idx
   }
   __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
 }
+// one thread per row of W = 4 NV words (W a run time argument, NV <= MAXV):
+// all of its 16-byte loads in flight, then its 16-byte streaming stores
+template <int MAXV>
+__global__ void __launch_bounds__(kThreads)
+gather_row_thread(const uint32_t* __restrict__ u, const int32_t* __restrict__ idx,
+                  uint32_t* __restrict__ out, int64_t n, int64_t rows, int W) {
+  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const int nv = W / 4;
+  const uint4* src = reinterpret_cast<const uint4*>(u + clamp_row(__ldg(idx + r), n) * W);
+  uint4* dst = reinterpret_cast<uint4*>(out + r * W);
+  uint4 x[MAXV];
+#pragma unroll
+  for (int q = 0; q < MAXV; ++q)
+    if (q < nv) x[q] = __ldg(src + q);
+#pragma unroll
+  for (int q = 0; q < MAXV; ++q)
+    if (q < nv) __stcs(dst + q, x[q]);
+}
+Call one_plane(const void* u, const void* idx, void* out, int64_t n, int64_t rows, int words,
+               void* st) {
+  return Call{(const uint32_t*)u, nullptr, (const int32_t*)idx, (uint32_t*)out, nullptr, n,
+              rows, words, (cudaStream_t)st};
+}
+int widest(int words) { return (4 * words) %% 16 == 0 ? 16 : (4 * words) %% 8 == 0 ? 8 : 4; }
 template <int W, bool E>
 int run(const void* u, const void* idx, void* out, int64_t n, int64_t rows, void* st) {
   const unsigned grid = (unsigned)((rows / 2 + kThreads - 1) / kThreads);
@@ -2806,9 +2875,35 @@ int run_vec(const void* u, const void* idx, void* out, int64_t n, int64_t rows, 
 }
 }  // namespace
 // variant 0: row groups; 1: row groups with evict_last on the u loads;
-// 2: 16-byte vectors with evict_last on the u loads
+// 2: 16-byte vectors with evict_last on the u loads; 3: the run-time-width
+// vectors (gather_vecs) at any width, with the widest pieces the row allows;
+// 4: the compile-time-width vectors (gather_vec16) at 8, 10 and 16 words;
+// 5: one thread a row (rows of 4-32 words, a multiple of 4)
 extern "C" int gather_variant(int variant, const void* u, const void* idx, void* out,
                               int64_t n, int64_t rows, int words, void* st) {
+  const Call c = one_plane(u, idx, out, n, rows, words, st);
+  if (variant == 3) {
+    switch (widest(words)) {
+      case 16: launch_vecs<16>(c); break;
+      case 8: launch_vecs<8>(c); break;
+      default: launch_vecs<4>(c);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (variant == 4) {
+    if (words == 8) launch_vec<8, 16>(c);
+    else if (words == 10) launch_vec<10, 8>(c);
+    else if (words == 16) launch_vec<16, 16>(c);
+    else return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  if (variant == 5) {
+    if (words %% 4 || words > 32) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((rows + kThreads - 1) / kThreads);
+    gather_row_thread<8><<<grid, kThreads, 0, (cudaStream_t)st>>>(
+        (const uint32_t*)u, (const int32_t*)idx, (uint32_t*)out, n, rows, words);
+    return (int)cudaGetLastError();
+  }
   if (variant == 2) return words == 2 ? run_vec<2>(u, idx, out, n, rows, st)
                                       : run_vec<6>(u, idx, out, n, rows, st);
   if (words == 2) return variant ? run<2, true>(u, idx, out, n, rows, st)
@@ -2822,21 +2917,27 @@ extern "C" int gather_variant(int variant, const void* u, const void* idx, void*
 
 def measure_gather_variants():
     """The designs the gather kernel was chosen from, run by hand, not by
-    main(): at the IBVP shapes (n = 2^22, K = 28, f64, F = 1 and 3), the
-    shipped kernel's two instances -- the word copy (PR 3's design, now the
-    generic instance, with a runtime row width) and the 16-byte vectors --
-    against the row-group
-    design (a thread per two rows, 16-byte stores), each without and with an
-    L2 evict_last hint on the u loads (built here from gather.cu plus the
-    variants), and torch.index_select, in turns, each checked against u[idx]
-    (the IBVP row counts are even and whole 16-byte vectors).
+    main(), built here from gather.cu plus the variants, each checked bit for
+    bit against u[idx], in turns (forward, then backward), beside
+    torch.index_select:
+
+    * at the IBVP shapes (n = 2^22, K = 28, f64, F = 1 and 3): the word
+      instance (PR 3's design), the shipped 16-byte vectors (a template per
+      width), the row-group design (a thread per two rows, 16-byte stores)
+      and the vectors, each without and with an L2 evict_last hint on the u
+      loads, and the run-time-width vectors;
+    * at the Euler step's shapes (its 2^22-point cloud, K = 24, f64, F = 8,
+      4 and 5: rows of 64, 32 and 40 bytes): the word instance, the shipped
+      instance (the run-time-width vectors, which _vector_plan picks), the
+      same vectors with the width a template, and one thread a row with all
+      of its 16-byte loads in flight (widths a multiple of 4 words).
 
         python3 -c "import chip_smoke; chip_smoke.measure_gather_variants()"
     """
     import ctypes
-    import os
 
     from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.examples import euler_flow as ef
     from wlsqm_tpu_torch.ops import gather
 
     dev = torch.device("cuda")
@@ -2849,19 +2950,19 @@ def measure_gather_variants():
     lib = native.build("gather_variants", [src], {}, {
         "gather_variant": (i32, [i32, vp, vp, vp, i64, i64, i32, vp]),
         gather._ENTRY: (i32, [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])}).lib
-    _, idx_np, _, _ = ibvp_setup()
-    flat = torch.as_tensor(idx_np, device=dev).reshape(-1)
-    flat_long, rows = flat.long(), flat.numel()
-    out = {}
-    for F in (1, 3):
-        u = torch.randn((N_IBVP, F), dtype=torch.float64, device=dev)
+
+    def measure(idx_np, n, F, names):
+        flat = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32),
+                               device=dev).reshape(-1)
+        flat_long, rows = flat.long(), flat.numel()
+        u = torch.randn((n, F), dtype=torch.float64, device=dev)
         words, W = u.view(torch.int32), 2 * F
         dst = torch.empty((rows, W), dtype=torch.int32, device=dev)
 
         def entry(load_bytes):
             def go():
                 status = getattr(lib, gather._ENTRY)(
-                    words.data_ptr(), None, flat.data_ptr(), dst.data_ptr(), None, N_IBVP,
+                    words.data_ptr(), None, flat.data_ptr(), dst.data_ptr(), None, n,
                     rows, W, load_bytes, torch.cuda.current_stream().cuda_stream)
                 if status != 0:
                     raise RuntimeError("gather launch failed: CUDA error %d" % status)
@@ -2870,14 +2971,18 @@ def measure_gather_variants():
         def variant(v):
             def go():
                 status = lib.gather_variant(v, words.data_ptr(), flat.data_ptr(), dst.data_ptr(),
-                                            N_IBVP, rows, W, torch.cuda.current_stream().cuda_stream)
+                                            n, rows, W, torch.cuda.current_stream().cuda_stream)
                 if status != 0:
                     raise RuntimeError("gather variant failed: CUDA error %d" % status)
             return go
 
-        runs = [("words", entry(0)), ("vec16", entry(8)), ("vec16_evict_last", variant(2)),
-                ("row_groups", variant(0)), ("row_groups_evict_last", variant(1))]
-        times = {name: [] for name, _ in runs}
+        shipped = gather._vector_plan(4 * W, words.data_ptr(), dst.data_ptr()) or 0
+        every = {"words": entry(0), "shipped": entry(shipped), "vec16_evict_last": variant(2),
+                 "row_groups": variant(0), "row_groups_evict_last": variant(1),
+                 "runtime_width": variant(3), "template_width": variant(4),
+                 "row_thread": variant(5)}
+        runs = [(name, every[name]) for name in names]
+        times = {name: [] for name in names}
         times["index_select"] = []
         ref = u[flat_long].view(torch.int32).reshape(rows, W)
         for name, fn in runs + runs[::-1]:
@@ -2885,15 +2990,32 @@ def measure_gather_variants():
             times[name].append(_time_ms(fn)[0])
             torch.cuda.synchronize()
             if not torch.equal(dst, ref):
-                raise RuntimeError("gather variant %s differs from u[idx]" % name)
+                raise RuntimeError("gather variant %s differs from u[idx] at F = %d" % (name, F))
         for _ in range(2):
             times["index_select"].append(_time_ms(lambda: torch.index_select(u, 0, flat_long))[0])
-        out["F%d" % F] = {**times, "bound_ms": _bound((flat, dst, u), 0.0)["bound_ms"]}
-        del u, words, dst, ref
+        res = {**times, "shipped_load_bytes": shipped,
+               "bound_ms": _bound((flat, dst, u), 0.0)["bound_ms"]}
+        print(json.dumps({"F%d_K%d" % (F, idx_np.shape[1]): res}), flush=True)
+        return res
+
+    out = {}
+    _, idx_np, _, _ = ibvp_setup()
+    for F in (1, 3):
+        out["ibvp_F%d" % F] = measure(idx_np, N_IBVP, F, (
+            "words", "shipped", "vec16_evict_last", "row_groups", "row_groups_evict_last",
+            "runtime_width"))
+    del idx_np
+    pts = ef.cloud(N_EULER_SIDE)
+    _, own, _ = ef.periodic_neighbours(pts, ef.K)
+    for F in (8, 4, 5):
+        names = ("words", "shipped", "template_width") + (("row_thread",) if F % 2 == 0 else ())
+        out["euler_F%d" % F] = measure(own, len(pts), F, names)
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"gather_variants_ms_median_of_5_twice": out, "card": smi.splitlines()[0],
-                      "n": N_IBVP, "K": K_IBVP}), flush=True)
+                      "ibvp": {"n": N_IBVP, "K": K_IBVP},
+                      "euler": {"n": len(pts), "K": ef.K}}), flush=True)
     return out
 
 
@@ -3227,6 +3349,432 @@ def measure_moment_phases():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"moment_phases": table, "card": smi.splitlines()[0]}), flush=True)
     return table
+
+#: the rows kernel's phase clock counters (csrc/fit_rows.cu, -DWLSQM_PHASE_CLOCK=1)
+ROWS_CLOCK_PHASES = ("staging_center", "assembly", "jacobi_cholesky", "key", "solve_refine",
+                     "iterative", "sens", "stores", "total")
+
+
+def _rows_phase_lib():
+    """The rows kernel built with its phase clock (-DWLSQM_PHASE_CLOCK=1):
+    a measurement library that no route loads."""
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return native.build(
+        "fit_rows_phase", [fit_rows._SRC], {fit_rows._HEADER: fit_rows.tables_header()},
+        {fit_rows._ENTRY: (i32, [vp] * 10 + [i64, i32, i32, i32, i32, i64, i32, i32, vp]),
+         "wlsqm_rows_phase_buffer": (i32, [vp])},
+        defines=("WLSQM_EMIT_COND=0", "WLSQM_PHASE_CLOCK=1"), includes=fit_rows._INCLUDES)
+
+
+def _rows_phase_split(lib, data, *, dim, order, do_sens):
+    """One CENTER configuration through the rows kernel's phase-clock
+    library: its launch (median of REPS) beside the shipped library's, fi
+    and sens held to the shipped bits, and per phase the mean clock64
+    cycles a case spent there and its share of the whole fit."""
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    xk, fk, nk, xi = data
+    B, Kn, _ = xk.shape
+    NO = defs.number_of_dofs(dim, order)
+    dev = xk.device
+    W, RS = defs.WEIGHT_CENTER, fit_rows.DEFAULT_REFINE_STEPS
+    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+    out, ref = (torch.empty((B, NO), dtype=torch.float64, device=dev) for _ in range(2))
+    sens, sref = ((torch.empty((B, Kn, NO), dtype=torch.float64, device=dev) if do_sens
+                   else None) for _ in range(2))
+    clocks = torch.zeros((B, len(ROWS_CLOCK_PHASES)), dtype=torch.int64, device=dev)
+    if lib.lib.wlsqm_rows_phase_buffer(clocks.data_ptr()) != 0:
+        raise RuntimeError("phase clock: the buffer was not set")
+
+    def go():
+        status = lib.lib.wlsqm_fit_rows(
+            xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), inv_s.data_ptr(), None,
+            out.data_ptr(), None, None if sens is None else sens.data_ptr(), None, B, Kn, dim,
+            order, W, 0, RS, 0, torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise RuntimeError("phase-clock launch failed: CUDA error %d" % status)
+
+    def shipped():
+        fit_rows._launch(xk, fk, nk, xi, inv_s, None, ref, None, sref, order=order, weighting=W,
+                         knowns=0, refine_steps=RS, max_iter=0)
+
+    clock_ms, shipped_ms = _time_ms(go), _time_ms(shipped)
+    clocks.zero_()
+    go()
+    torch.cuda.synchronize()
+    c = clocks.double()
+    mean = c.mean(0)
+    total = mean[-1].item()
+    return {"B": B, "K": Kn, "dim": dim, "order": order, "NO": NO, "do_sens": do_sens,
+            "body": "warp" if fit_rows.warp_body(dim, order) else "thread",
+            "bits_equal_shipped": _same_bits(out, ref) and (
+                sens is None or _same_bits(sens, sref)),
+            "launch_ms_clock_build": clock_ms[0], "launch_ms_shipped": shipped_ms[0],
+            "cycles_per_case": {n: round(mean[i].item(), 1)
+                                for i, n in enumerate(ROWS_CLOCK_PHASES)},
+            "share": {n: round(mean[i].item() / total, 4)
+                      for i, n in enumerate(ROWS_CLOCK_PHASES[:-1])}}
+
+
+def _adjoint_cloud(dev):
+    """The adjoint example's neighbourhoods grown to ADJ_SIDE^2 = 2^20
+    cases (K = 12, the native host tree) and its data u_obs[idx]: the rows
+    launch of its loss-and-gradient step."""
+    from wlsqm_tpu_torch.examples import adjoint_data_recovery as ad
+
+    p = ad.problem(ADJ_SIDE, device=dev, dense=False)
+    return p, (p.xk, p.u_obs[p.idx], p.nk, p.xi)
+
+
+def _adjoint_rows_times(data):
+    """The adjoint step's rows launch (2D, order 2, K = 12, CENTER, do_sens,
+    the default refine_steps: the thread body) alone, median of REPS: its
+    bound (_bound, _rows_flops), the fit_rows wrapper and the
+    fit_rows_diffable forward around it (their time beyond the launch: the
+    wrapper's _prescale, _dof_scale and de-scale), the plain version and the
+    K2 row's library yardstick (torch.linalg.lstsq on the sqrt(w)-weighted
+    basis with [sqrt(w) fk, diag(sqrt(w))], basis build excluded)."""
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    xk, fk, nk, xi = data
+    B, Kn, dim = xk.shape
+    order, W, RS = 2, defs.WEIGHT_CENTER, fit_rows.DEFAULT_REFINE_STEPS
+    NO = defs.number_of_dofs(dim, order)
+    dev = xk.device
+    _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+    out = torch.empty((B, NO), dtype=torch.float64, device=dev)
+    sens = torch.empty((B, Kn, NO), dtype=torch.float64, device=dev)
+    args = (xk, fk, nk, xi, inv_s, None, out, None, sens)
+    bound = _bound(args, _rows_flops(dim, order, True, nk.long(), RS, True, 0, 0))
+    kw = dict(dimension=dim, order=order, weighting=W)
+    times = {
+        "launch": _time_ms(lambda: fit_rows._launch(*args, order=order, weighting=W, knowns=0,
+                                                    refine_steps=RS, max_iter=0)),
+        "fit_rows_wrapper": _time_ms(lambda: fit_rows.fit_rows(xk, fk, nk, xi, do_sens=True,
+                                                               **kw)),
+        "fit_rows_diffable_forward": _time_ms(lambda: fit_rows.fit_rows_diffable(
+            xk, fk, nk, xi, **kw)),
+        "plain": _time_ms(lambda: fit_rows.fit_rows_plain(xk, fk, nk, xi, do_sens=True, **kw))}
+    A, sw, fkm = _weighted_basis(xk, fk, nk, xi, dim, order, W)
+    rhs = torch.cat([(sw * fkm)[..., None], torch.diag_embed(sw)], dim=2)
+    times["library_lstsq"] = _time_ms(lambda: torch.linalg.lstsq(A, rhs))
+    del A, rhs, sw, fkm
+    med = {k: v[0] for k, v in times.items()}
+    return {"B": B, "K": Kn, "dim": dim, "order": order, "do_sens": True, "refine_steps": RS,
+            "ms": {k: v[1] for k, v in times.items()}, "median_ms": med,
+            "beyond_launch_ms": med["fit_rows_wrapper"] - med["launch"],
+            "bound": bound, "launch_share_of_bound": bound["bound_ms"] / med["launch"],
+            "library": "torch.linalg.lstsq on the prebuilt sqrt(w)-weighted basis "
+                       "(basis build excluded)"}
+
+
+def measure_rows_phases():
+    """Where a rows-kernel case spends its time, run by hand, not by main():
+    the kernel built with its phase clock (-DWLSQM_PHASE_CLOCK=1, each case's
+    clock64() cycles per phase: staging and the CENTER pass, assembly, Jacobi
+    and Cholesky, key, solve and sweeps, ALGO_ITERATIVE, the sens loop,
+    stores) on the adjoint step's launch (the thread body: 2D order 2,
+    K = 12, do_sens, 2^20 cases of the example's grid) and on the sens path
+    (the warp body: 2D order 4, K = 30, do_sens, 2^21, phase_sens's cloud);
+    then the adjoint launch alone against its bound, the wrapper, the plain
+    version and the library yardstick (_adjoint_rows_times).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_rows_phases()"
+    """
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    dev = torch.device("cuda")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # the shipped library beside it
+        lib, _ = pool.map(lambda f: f(), (_rows_phase_lib, fit_rows.load))
+    print(json.dumps({"library": os.path.basename(os.path.dirname(lib.path)),
+                      "nvcc_s": lib.build_seconds, "ptxas": _ptxas_summary(lib.log)}), flush=True)
+    table = {}
+    _, adj = _adjoint_cloud(dev)
+    table["adjoint_thread"] = _rows_phase_split(lib, adj, dim=2, order=2, do_sens=True)
+    print(json.dumps({"adjoint_thread": table["adjoint_thread"]}), flush=True)
+    table["adjoint_rows_launch"] = _adjoint_rows_times(adj)
+    print(json.dumps({"adjoint_rows_launch": table["adjoint_rows_launch"]}), flush=True)
+    del adj
+    torch.cuda.empty_cache()
+    sens = _cloud(B_ROWS, torch.Generator(device=dev).manual_seed(43), dev)
+    table["sens_warp"] = _rows_phase_split(lib, sens, dim=2, order=ORDER, do_sens=True)
+    print(json.dumps({"sens_warp": table["sens_warp"]}), flush=True)
+    del sens
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"rows_phases": table, "card": smi.splitlines()[0]}), flush=True)
+    return table
+
+
+#: the thread body's builds that measure_rows_variants times, by name: -D
+#: options of csrc/fit_rows.cu against its shipped values (WLSQM_ROWS_CASES
+#: 64, WLSQM_ROWS_SMEM_BUDGET 128 KB, WLSQM_ROWS_SENS_COLS 2), each held to
+#: the shipped build's bits
+ROWS_VARIANTS = {
+    "shipped": (),
+    "budget_25k": ("WLSQM_ROWS_SMEM_BUDGET=25600",),
+    "budget_64k": ("WLSQM_ROWS_SMEM_BUDGET=65536",),
+    "nothing_staged": ("WLSQM_ROWS_SMEM_BUDGET=8192",),
+    "one_sens_col": ("WLSQM_ROWS_SENS_COLS=1",),
+    "four_sens_cols": ("WLSQM_ROWS_SENS_COLS=4",),
+    "nothing_staged_one_sens_col": ("WLSQM_ROWS_SMEM_BUDGET=8192", "WLSQM_ROWS_SENS_COLS=1"),
+    "cases_128_budget_128k": ("WLSQM_ROWS_CASES=128", "WLSQM_ROWS_SMEM_BUDGET=131072"),
+}
+
+
+def measure_rows_variants(variants=ROWS_VARIANTS):
+    """The rows kernel's thread body built with other shared-memory budgets
+    (whether fit_rows.thread_layout stages a K), block sizes and sens columns
+    side by side (ROWS_VARIANTS), run by hand, not by main(): each build's
+    registers, and its launch with sens (median of REPS, in turns forward then
+    backward) on the adjoint step's cloud (2D order 2, K = 12, 2^20), on 2D
+    order 3 at K = 30 and on 3D order 2 at K = 48 (2^18 each), its outputs
+    held to the shipped build's bits.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_rows_variants()"
+    """
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    dev = torch.device("cuda")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    sig = {fit_rows._ENTRY: (i32, [vp] * 10 + [i64, i32, i32, i32, i32, i64, i32, i32, vp])}
+
+    def build(v):
+        return native.build("fit_rows_variant_" + v, [fit_rows._SRC],
+                            {fit_rows._HEADER: fit_rows.tables_header()}, sig,
+                            defines=("WLSQM_EMIT_COND=0", *variants[v]),
+                            includes=fit_rows._INCLUDES)
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(build, variants)))
+    for v, lib in libs.items():
+        print(json.dumps({"variant": v, "nvcc_s": lib.build_seconds,
+                          "ptxas": {k: r for k, r in _ptxas_summary(lib.log).items()
+                                    if k.startswith("fit_rows_thread<2,")}}), flush=True)
+    _, adj = _adjoint_cloud(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    runs = {"adjoint_2^20": (adj, 2, 2),
+            "d2_order3_K30_2^18": (_cloud(B_PLAIN, gen, dev, dim=2, K=K, order=3), 2, 3),
+            "d3_order2_K48_2^18": (_cloud(B_PLAIN, gen, dev, dim=3, K=K_DIM3, order=2), 3, 2)}
+    table = {}
+    for name, (data, dim, order) in runs.items():
+        xk, fk, nk, xi = data
+        B, Kn, _ = xk.shape
+        NO = fit_rows.defs.number_of_dofs(dim, order)
+        _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+        outs = {v: (torch.empty((B, NO), dtype=torch.float64, device=dev),
+                    torch.empty((B, Kn, NO), dtype=torch.float64, device=dev)) for v in libs}
+
+        def launch(v):
+            fi, sens = outs[v]
+
+            def go():
+                status = libs[v].lib.wlsqm_fit_rows(
+                    xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), inv_s.data_ptr(),
+                    None, fi.data_ptr(), None, sens.data_ptr(), None, B, Kn, dim, order,
+                    2, 0, fit_rows.DEFAULT_REFINE_STEPS, 0, torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError("variant %s launch failed: CUDA error %d" % (v, status))
+            return go
+
+        times = {v: [] for v in libs}
+        for v in list(libs) + list(libs)[::-1]:
+            times[v].append(_time_ms(launch(v))[0])
+        torch.cuda.synchronize()
+        first = outs[next(iter(variants))]
+        table[name] = {v: {
+            "ms": times[v], "bits_equal_first": _same_bits(outs[v][0], first[0])
+            and _same_bits(outs[v][1], first[1])} for v in libs}
+        print(json.dumps({name: table[name]}), flush=True)
+        del outs, data, xk, fk, nk, xi, inv_s
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"rows_variants": table, "card": smi.splitlines()[0]}), flush=True)
+    if not all(r["bits_equal_first"] for t in table.values() for r in t.values()):
+        raise RuntimeError("a rows-kernel variant changed the bits: %s" % table)
+    return table
+
+
+def _rows_path_times():
+    """The rows kernel's launches through whichever wlsqm_tpu_torch is first
+    on sys.path: the adjoint step's (the thread body, 2^20, with sens) and
+    the sens path's and the dim3 cloud's (the warp body, 2^21), median and
+    the REPS times after one warm-up, each with a SHA-256 of its outputs'
+    bytes; the thread body's launch at ROWS_THREAD_CONFIGS (B_PLAIN cases,
+    CENTER, without and with sens); and a SHA-256 of every thread-body output (fi, the counts, sens,
+    the key) over the thread-body grid: dims 1-3, orders with NO < 11, both
+    weightings, K for each shared-memory layout of thread_layout (K_GRID,
+    12 and 60), with sens and a random knowns mask, with max_iter 3, and
+    with the key, ragged nk with NaN padding."""
+    import hashlib
+
+    import wlsqm_tpu_torch as wtt
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    dev = torch.device("cuda")
+    out = {"package": os.path.dirname(os.path.abspath(wtt.__file__))}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # both libraries at once
+        list(pool.map(fit_rows.load, (False, True)))
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            if t is not None:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    _, adj = _adjoint_cloud(dev)
+    clouds = {"adjoint": (adj, 2, 2),
+              "sens": (_cloud(B_ROWS, torch.Generator(device=dev).manual_seed(43), dev), 2, ORDER),
+              "dim3": (_cloud(B_ROWS, torch.Generator(device=dev).manual_seed(44), dev, dim=3,
+                              K=K_DIM3), 3, ORDER)}
+    for name, (data, dim, order) in clouds.items():
+        xk, fk, nk, xi = data
+        B, Kn, _ = xk.shape
+        NO = defs.number_of_dofs(dim, order)
+        _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+        fi = torch.empty((B, NO), dtype=torch.float64, device=dev)
+        sens = (torch.empty((B, Kn, NO), dtype=torch.float64, device=dev) if name != "dim3"
+                else None)
+        ms = _time_ms(lambda: fit_rows._launch(xk, fk, nk, xi, inv_s, None, fi, None, sens,
+                                               order=order, weighting=wtt.WEIGHT_CENTER,
+                                               knowns=0, refine_steps=1, max_iter=0))
+        torch.cuda.synchronize()
+        out[name] = {"launch_ms": ms, "sha256": sha(fi, sens)}
+        del xk, fk, nk, xi, inv_s, fi, sens, data
+        clouds[name] = None
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    times = {}
+    for dim, order, Kc in ROWS_THREAD_CONFIGS:
+        xk, fk, nk, xi = _cloud(B_PLAIN, gen, dev, dim=dim, K=Kc, order=order)
+        NO = defs.number_of_dofs(dim, order)
+        _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
+        fi = torch.empty((B_PLAIN, NO), dtype=torch.float64, device=dev)
+        sens = torch.empty((B_PLAIN, Kc, NO), dtype=torch.float64, device=dev)
+        for with_sens in (False, True):
+            times["d%d_o%d_K%d%s" % (dim, order, Kc, "_sens" if with_sens else "")] = _time_ms(
+                lambda: fit_rows._launch(xk, fk, nk, xi, inv_s, None, fi, None,
+                                         sens if with_sens else None, order=order,
+                                         weighting=wtt.WEIGHT_CENTER, knowns=0, refine_steps=1,
+                                         max_iter=0))[0]
+    out["thread_configs_ms"] = times
+    cpu_gen = torch.Generator().manual_seed(2031)
+    grid = {}
+    for dim in (1, 2, 3):
+        for order in range(ORDER + 1):
+            if fit_rows.warp_body(dim, order):
+                continue
+            NO = defs.number_of_dofs(dim, order)
+            for Kg in sorted({K_GRID[dim], max(12, 2 * NO), 60}):
+                for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+                    xk, fk, nk, xi = _cloud(8191, gen, dev, dim=dim, K=Kg, order=order,
+                                            ragged=True, offset=True,
+                                            lo=2 * NO if dim == 1 else None)
+                    fi0 = torch.randn((8191, NO), generator=gen, device=dev, dtype=torch.float64)
+                    kn = int(torch.randint(0, 1 << NO, (1,), generator=cpu_gen))
+                    res = []
+                    for knowns, do_sens, mi, cond in ((0, True, 0, False), (kn, True, 0, False),
+                                                      (kn, False, 3, False), (kn, True, 0, True),
+                                                      (0, False, 3, True)):
+                        res += fit_rows.fit_rows(xk, fk, nk, xi, fi0, dimension=dim, order=order,
+                                                 weighting=w, knowns=knowns, do_sens=do_sens,
+                                                 max_iter=mi, emit_cond=cond)
+                    grid["d%d_o%d_K%d_w%d" % (dim, order, Kg, w)] = sha(*res)
+    out["thread_grid_sha256"] = grid
+    return out
+
+
+def _gather_path_times():
+    """The gather kernel's launches through whichever wlsqm_tpu_torch is
+    first on sys.path: the IBVP step's (n = 2^22, K = 28, f64, F = 1 and 3)
+    and the Euler step's (its 2^22-point cloud, K = 24, F = 8 f64), median and
+    the REPS times after one warm-up, each with whether it is u[idx] bit for
+    bit."""
+    import wlsqm_tpu_torch as wtt
+    from wlsqm_tpu_torch.examples import euler_flow as ef
+    from wlsqm_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    out = {"package": os.path.dirname(os.path.abspath(wtt.__file__))}
+    _, ibvp_idx, _, _ = ibvp_setup()
+    pts = ef.cloud(N_EULER_SIDE)
+    _, own, _ = ef.periodic_neighbours(pts, ef.K)
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    for name, idx_np, n, F in (("ibvp_F1", ibvp_idx, N_IBVP, 1), ("ibvp_F3", ibvp_idx, N_IBVP, 3),
+                               ("euler_F8", own, len(pts), 8)):
+        flat = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32), device=dev).reshape(-1)
+        u = torch.randn((n, F), generator=gen, dtype=torch.float64, device=dev)
+        words = u.view(torch.int32)
+        dst = torch.empty((flat.numel(), words.shape[1]), dtype=torch.int32, device=dev)
+        ms = _time_ms(lambda: gather._launch([words], flat, [dst]))
+        torch.cuda.synchronize()
+        out[name] = {"launch_ms": ms, "bit_equal": torch.equal(
+            dst, u[flat.long()].view(torch.int32).reshape(flat.numel(), -1))}
+        del flat, u, words, dst
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_gather_paths(other_root):
+    """The gather kernel's IBVP and Euler launches of this checkout against
+    another one (the parent commit, unpacked by ``git archive`` into a
+    git-ignored directory), run by hand, not by main(): other, this, this,
+    other, each in a process of its own (_gather_path_times).
+
+        python3 -c "import chip_smoke; chip_smoke.measure_gather_paths('build/parent')"
+    """
+    runs = _other_this_this_other(other_root, "_gather_path_times")
+    paths = ("ibvp_F1", "ibvp_F3", "euler_F8")
+    print(json.dumps({"gather_paths_bit_equal": {p: all(r[p]["bit_equal"] for r in runs)
+                                                 for p in paths},
+                      "launch_ms_median": {p: [r[p]["launch_ms"][0] for r in runs]
+                                           for p in paths}}), flush=True)
+    return runs
+
+
+#: thread-body configurations (dim, order, K) that measure_rows_paths times:
+#: the rows cut's NO = 10 pair (measure_rows_cut), 1D order 4, and 2D order 2
+#: at the headline's K (nothing staged)
+ROWS_THREAD_CONFIGS = ((2, 3, K), (3, 2, K_DIM3), (1, 4, K_GRID[1]), (2, 2, K))
+
+
+def measure_rows_paths(other_root):
+    """The rows kernel's launches of this checkout against another one (the
+    parent commit, unpacked by ``git archive`` into a git-ignored
+    directory), run by hand, not by main(): other, this, this, other, each
+    in a process of its own (_rows_path_times), and whether the outputs are
+    the same bits in all four, path by path and over the thread-body grid.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_rows_paths('build/parent')"
+    """
+    runs = _other_this_this_other(other_root, "_rows_path_times")
+    paths = ("adjoint", "sens", "dim3")
+    same = {p: len({r[p]["sha256"] for r in runs}) == 1 for p in paths}
+    grid = runs[0]["thread_grid_sha256"]
+    same["thread_grid"] = all(r["thread_grid_sha256"] == grid for r in runs)
+    differ = sorted(k for k in grid if any(r["thread_grid_sha256"][k] != grid[k] for r in runs))
+    print(json.dumps({"rows_paths_same_bits_as_other": same, "thread_grid_configs": len(grid),
+                      "thread_grid_differ": differ,
+                      "launch_ms_median": {p: [r[p]["launch_ms"][0] for r in runs]
+                                           for p in paths},
+                      "thread_configs_ms": {c: [r["thread_configs_ms"][c] for r in runs]
+                                            for c in runs[0]["thread_configs_ms"]}}), flush=True)
+    return runs, same
+
 
 def _auto_route_times():
     """fit_many(backend="auto") and fit_many(plan=) on phase_certified's
@@ -4016,9 +4564,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_heat_example(dev)
     torch.cuda.empty_cache()
-    euler = phase_euler(dev, wtt, smi.splitlines()[0], ibvp)
+    euler, euler_gather = phase_euler(dev, wtt, smi.splitlines()[0], ibvp)
     torch.cuda.empty_cache()
-    adjoint = phase_adjoint(dev, wtt, smi.splitlines()[0])
+    adjoint, adjoint_rows = phase_adjoint(dev, wtt, smi.splitlines()[0])
     torch.cuda.empty_cache()
     examples = phase_examples(dev, smi.splitlines()[0])
     torch.cuda.empty_cache()
@@ -4076,12 +4624,27 @@ def main() -> int:
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
               "sens: 2D order 4 K=30 CENTER do_sens (warp body)",
               launches_by_path={p: n["fit_rows"] for p, n in by_path.items()}),
+        entry("fit_rows@adjoint", "wlsqm_tpu_torch/csrc/fit_rows.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel,
+              {"launches": adjoint["fit_rows"], "ms": adjoint_rows["median_ms"]["launch"],
+               "plain_ms": adjoint_rows["median_ms"]["plain"],
+               "library_ms": adjoint_rows["median_ms"]["library_lstsq"],
+               **adjoint_rows["bound"]},
+              "adjoint step: 2D order 2 K=12 CENTER do_sens (the thread body), its "
+              "1024 x 1024 grid; wrapper_ms: fit_rows around the launch",
+              batch=adjoint_rows["B"],
+              wrapper_ms=adjoint_rows["median_ms"]["fit_rows_wrapper"]),
         entry("gather_rows", "wlsqm_tpu_torch/csrc/gather.cu",
               "wlsqm_tpu/ops/gather.py:168", g_abs, 0.0, ibvp,
               "IBVP step: n=2^22, K=28, f64, F=1 (ms_F3, library_ms_F3, bound_ms_F3: "
-              "F=3); launches over %d steps, library torch.index_select" % STEPS,
+              "F=3); launches over %d steps, library torch.index_select; *_euler: the "
+              "Euler step's gather, n=2^22, K=24, F=8 f64 (word_instance_ms_euler: the "
+              "word instance on the same rows)" % STEPS,
               batch=N_IBVP, **{k: ibvp[k] for k in ("ms_F3", "library_ms_F3", "bound_ms_F3",
                                                     "launches_F3")},
+              ms_euler=euler_gather["launch_ms"], bound_ms_euler=euler_gather["bound"]["bound_ms"],
+              library_ms_euler=euler_gather["library_ms"],
+              word_instance_ms_euler=euler_gather["word_instance_ms"],
               launches_by_path={p: n["gather_rows"] for p, n in by_path.items()}),
         *(entry("cond_estimate@" + kernel, "wlsqm_tpu_torch/csrc/%s.cu" % src,
                 "wlsqm_tpu/ops/pallas_fit.py:382", t["max_abs_err"], t["max_rel_err"],

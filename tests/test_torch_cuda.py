@@ -262,6 +262,52 @@ def test_rows_kernel_matches_plain(dev, dim):
     assert equal / total >= 0.5 and within / total >= 0.8 and apart / total <= 0.1
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_rows_thread_body_layouts_match_plain(dev, dim):
+    """Every thread-body (dim, order) at the largest K whose offsets are
+    staged (fit_rows.thread_layout) and one past it (nothing staged), ragged
+    nk with NaN padding, both weightings, a random knowns mask and max_iter
+    3: with sens (the staged instance where the layout stages) fi and sens
+    against the plain version (1e-10), and fi and the counts bit for bit
+    those of the same launch without sens (the instance that stages
+    nothing; the sens loop runs after both are written)."""
+    g = torch.Generator().manual_seed(100 + dim)
+    edge = max(K for K in range(1, 200) if fit_rows.thread_layout(dim, K))
+    for order in range(5):
+        if fit_rows.warp_body(dim, order):
+            continue
+        NO = wtt.number_of_dofs(dim, order)
+        for K in (edge, edge + 1):
+            for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+                xk, fk, nk, xi = _cloud(dev, 1031, K, order, K + w, dim,
+                                        lo=2 * NO if dim == 1 else None)
+                fi0 = torch.randn((1031, NO), dtype=torch.float64, device=dev)
+                kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
+                kw = dict(dimension=dim, order=order, weighting=w, knowns=kn, max_iter=3)
+                got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, do_sens=True, **kw)
+                plain = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, do_sens=True, **kw)
+                torch.cuda.synchronize()
+                assert _rel(got[0], ref[0]) <= PARITY, (order, K, w)
+                assert _rel_nan(got[2], ref[2]) <= PARITY, (order, K, w)
+                assert 1 <= int(got[1].min()) and int(got[1].max()) <= 3
+                assert torch.equal(_bits(got[0]), _bits(plain[0])), (order, K, w)
+                assert torch.equal(got[1], plain[1]), (order, K, w)
+
+
+def test_rows_thread_layout_is_the_librarys(dev):
+    """fit_rows.thread_layout is the rule the library launches with."""
+    import ctypes
+
+    lib = fit_rows.load().lib
+    out = (ctypes.c_int * 3)()
+    for dim in (1, 2, 3):
+        for K in (*range(0, 90), 130, 152, 400):
+            assert lib.wlsqm_rows_thread_layout(dim, K, out) == 0
+            assert tuple(out) == (fit_rows.thread_layout(dim, K), fit_rows.THREAD_CASES,
+                                  fit_rows.THREAD_SMEM_BUDGET)
+
+
 def test_rows_cuda_call_never_runs_the_plain_version(dev, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
@@ -681,6 +727,40 @@ def test_gather_every_instance_is_bit_exact(dev, dtype, F, offset):
     ref = u[idx.long()]
     assert got.dtype == u.dtype and got.shape == ref.shape
     assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_every_width_is_bit_exact(dev, dtype):
+    """Rows of 1-20 words (f32 F = 1-20, f64 F = 1-10), an odd number of
+    output rows, u aligned and one element off, through gather_rows (the
+    vector instances: a template of the width, or the run-time width), and
+    the same rows into an output one word off its 16-byte alignment through
+    the word instance: each against u[idx] bit for bit."""
+    n, B, K = 5000, 613, 5                     # 3,065 rows: odd
+    idx = _gather_idx(dev, n, B, K, seed=11)
+    plan = gather.plan_window_gather(idx, n)
+    flat = idx.reshape(-1)
+    for F in range(1, (20 if dtype == torch.float32 else 10) + 1):
+        base = _special(torch.randn((n + 1) * F, dtype=dtype, device=dev))
+        for offset in (0, 1):
+            u = base[offset:offset + n * F].view(n, F)
+            load = gather._vector_plan(u.element_size() * F, u.data_ptr(), 1 << 20)
+            assert load is not None and (load < 16 or not offset)
+            before = gather.LAUNCHES
+            got = gather.gather_rows(u, idx, plan)
+            torch.cuda.synchronize()
+            assert gather.LAUNCHES == before + 1
+            ref = u[idx.long()]
+            assert torch.equal(_bits(got), _bits(ref)), (F, offset)
+            words = u.contiguous().view(torch.int32)
+            W = words.shape[1]
+            buf = torch.zeros(flat.numel() * W + 1, dtype=torch.int32, device=dev)
+            out = buf[1:].view(-1, W)             # 4 bytes off 16-byte alignment
+            assert gather._vector_plan(4 * W, words.data_ptr(), out.data_ptr()) is None
+            gather._launch([words], flat, [out])
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref.reshape(flat.numel(), -1).view(torch.int32)), (F,
+                                                                                       offset)
 
 
 def test_gather_pair_kernel_is_bit_exact(dev):

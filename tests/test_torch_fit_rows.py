@@ -415,6 +415,48 @@ def test_body_rule_and_shared_memory(dim, order):
             % (sizes[False, False], sizes[False, True], sizes[True, False]) in block)
 
 
+@pytest.mark.parametrize("K", [0, 1, 2, 12, 30, 31, 48, 51, 52, 63, 64, 85, 86, 130])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_thread_layout(dim, K):
+    """The thread body's shared memory a case for K neighbours: the offsets,
+    fk and weights (K (dim + 2) doubles) in an odd number of doubles when a
+    block of them fits the budget, else 0 (nothing staged)."""
+    ld = fit_rows.thread_layout(dim, K)
+    avail = fit_rows.THREAD_SMEM_BUDGET // (8 * fit_rows.THREAD_CASES) - 1
+    assert 8 * fit_rows.THREAD_CASES * ld <= fit_rows.THREAD_SMEM_BUDGET
+    assert ld == (0 if K * (dim + 2) > avail else (K * (dim + 2)) | 1)
+    assert ld % 2 == 1 or ld == 0
+
+
+def test_thread_layout_at_the_measured_configurations():
+    """The adjoint step's launch (2D, K = 12) and the rows cut's NO = 10
+    ones (2D at K = 30, 3D at K = 48) stage their offsets; the wide K
+    stages nothing."""
+    assert fit_rows.thread_layout(2, 12) == 49
+    assert fit_rows.thread_layout(2, 30) == 121
+    assert fit_rows.thread_layout(3, 48) == 241
+    assert fit_rows.thread_layout(2, 130) == fit_rows.thread_layout(3, 56) == 0
+
+
+def test_plain_matches_jax_engine_at_the_adjoint_configuration():
+    """The adjoint example's launch (2D, order 2, K = 12, CENTER, do_sens,
+    the thread body) on 1,024 cases of its grid: fi and sens of the plain
+    version against the JAX f64 engine's, 1e-10 relative to max(|ref|, 1)."""
+    from wlsqm_tpu_torch.examples import adjoint_data_recovery as ad
+
+    p = ad.problem(32, device=CPU)
+    B, order, wm = len(p.pts), 2, defs.WEIGHT_CENTER
+    fk = p.u_obs[p.idx]
+    fi, iters, sens = fit_rows.fit_rows_plain(p.xk, fk, p.nk, p.xi, dimension=2, order=order,
+                                              weighting=wm, do_sens=True)
+    case = dict(xk=p.xk.numpy(), fk=fk.numpy(), nk=p.nk.numpy(), xi=p.xi.numpy(),
+                fi0=np.zeros((B, 6)))
+    jfi, jsens, _, _ = _jax_engine(case, 2, order, 0, wm, do_sens=True)
+    assert B == 1024 and sens.shape == (B, ad.K, 6) and (iters == 0).all()
+    assert rel_err(fi.numpy(), jfi) <= PARITY
+    assert rel_err(sens.numpy(), jsens) <= PARITY
+
+
 @pytest.mark.parametrize("weighting", [defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER])
 def test_plain_matches_jax_engine_3d_order4_ragged_k53(weighting):
     """The warp body's configuration at K = 53 (no multiple of 4, above one

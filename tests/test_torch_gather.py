@@ -129,6 +129,33 @@ def test_gather_rows_matches_jax_kernel(F, dtype):
     np.testing.assert_array_equal(got.numpy().view(np.uint8), ref.view(np.uint8))
 
 
+@pytest.mark.parametrize("F", [5, 8])
+def test_gather_rows_matches_jax_kernel_on_wide_f64_rows(F):
+    """f64 rows of 5 and 8 fields (40 and 64 bytes: the Euler step's flux
+    rows are the second) on a small Morton-ordered cloud's neighbourhoods,
+    bit-exact against the interpreted TPU kernel, NaN, ±0 and ±inf
+    included."""
+    rng = np.random.default_rng(40 + F)
+    pts = rng.uniform(-1.0, 1.0, (3000, 2))
+    pts = pts[gather.morton_order(pts)]
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    idx = np.argsort(d2, axis=1)[:, :24].astype(np.int32)
+    n = len(pts)
+    u = rng.standard_normal((n, F))
+    u.reshape(-1)[::11] = np.nan
+    u.reshape(-1)[1::11] = -0.0
+    u.reshape(-1)[2::11] = np.inf
+    u.reshape(-1)[3::11] = -np.inf
+    ref = np.asarray(jgather.gather_rows(u, idx, jgather.plan_window_gather(idx, n),
+                                         interpret=True))
+    got = gather.gather_rows_plain(torch.as_tensor(u), torch.as_tensor(idx))
+    assert got.shape == ref.shape == (n, 24, F)
+    np.testing.assert_array_equal(got.numpy().view(np.uint8), ref.view(np.uint8))
+    np.testing.assert_array_equal(
+        gather.gather_rows(torch.as_tensor(u), idx, gather.plan_window_gather(idx, n))
+        .numpy().view(np.uint8), ref.view(np.uint8))
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_gather_rows_integer_payloads(dtype):
     rng = np.random.default_rng(5)
@@ -204,8 +231,19 @@ def test_validation_errors_match_jax():
     (8, 4, 0, 4),        # f32 F = 2 offset by one element
     (24, 8, 0, 8),
     (8, 0, 8, None),     # out not 16-byte aligned: the word copy
-    (20, 0, 0, None),    # five words: the word copy
-    (48, 0, 0, None),    # twelve words (f64 F = 6): the word copy
+    (20, 0, 0, 4),       # five words (f32 F = 5): the run-time width
+    (48, 0, 0, 16),      # twelve words (f64 F = 6)
+    (64, 0, 0, 16),      # f64 F = 8, the Euler step's rows: four 16-byte pieces
+    (64, 8, 0, 8),       # ... u offset by one f64 element
+    (64, 4, 0, 4),       # ... by one f32 element
+    (64, 0, 8, None),    # ... out offset by one f64 element: the word copy
+    (32, 0, 0, 16),      # f64 F = 4
+    (40, 0, 0, 8),       # f64 F = 5: 8-byte pieces
+    (40, 8, 0, 8),
+    (40, 0, 4, None),
+    (28, 0, 0, 4),       # f32 F = 7
+    (56, 0, 0, 8),       # f64 F = 7
+    (80, 0, 0, 16),      # twenty words (f32 F = 20, f64 F = 10)
     (2, 0, 0, None),     # not whole words
 ])
 def test_vector_plan(row_bytes, u_off, out_off, want):

@@ -76,17 +76,36 @@
 //     the sweeps' C (s Y) and C^T (W T) on the tensor cores, and each
 //     case's (K, NO) sens block written by consecutive lanes to
 //     consecutive addresses.
-// The thread body stays for the small systems (NO below the cut), whose
-// factor and loops fit in registers, unrolled.  The cut was timed with both
+// The thread body stays for the small systems (NO below the cut), its loops
+// unrolled.  Its launch on the adjoint step (2D order 2, K = 12, do_sens,
+// 2^20 cases: 0.99 GB moved, 0.29 ms at 3.35 TB/s) is bound in practice by
+// chains of dependent FP64 divisions and multiply-adds: per case 12 sens
+// columns, each two triangular solves of 12 divisions and a sweep through
+// the K rows (the sens loop took 76% of a case's cycles before this design
+// and 61% after; chip_smoke.measure_rows_phases).  The design before rebuilt
+// every basis row and weight (a division and a square root each) from its
+// own strided xk at every use, 144 times a refinement step of the sens loop.
+// Now, with sens, a block of 64 cases stages its xk and fk by coalesced
+// cp.async and each case writes its offsets and weights once into shared
+// memory; every pass rebuilds its rows from them with a few multiplies; and
+// at NO <= 6 the sens loop solves two columns side by side.  Keeping the
+// basis rows in shared memory too, or writing the sens blocks out through
+// it, was slower on the adjoint shapes (the shared memory cost resident
+// warps, the write-out a barrier; chip_smoke.measure_rows_variants; PERF.md).
+// The arithmetic of every output is the design before's, operation for
+// operation: fi, the counts, sens and the key are its bits
+// (chip_smoke.measure_rows_paths).  The cut was timed with both
 // bodies at NO = 10, 15 and 20 (chip_smoke.measure_rows_cut; NVIDIA H100
 // 80GB HBM3, 700 W; PERF.md): without sens the thread body is 3.4x / 2.2x
 // faster at NO = 10 (2D / 3D), the warp body 2.2x faster at NO = 15 and
 // 4.1x at NO = 20; with sens the warp body is faster from 3D NO = 10 on.
 // So WARP_MIN_NO = 11.
 //
-// Layout: thread body 128 threads per block, grid ceil(B / 128), ragged
-// tail masked; warp body 32 threads per block, grid B, dynamic shared memory
-// (above 48 KB after cudaFuncSetAttribute).  One template instance per
+// Layout: thread body kTB = 64 threads (cases) per block, grid
+// ceil(B / 64), dynamic shared memory 8 * 64 * thread_layout().ld bytes,
+// the ragged tail's threads keeping the block's barrier; warp body 32
+// threads per block, grid B, dynamic shared memory (above 48 KB after
+// cudaFuncSetAttribute).  One template instance per
 // (DIM, ORDER, WEIGHTING), 30 in all, each compiled as one body only.
 // Plain C entry point, loaded with ctypes; launches on the caller's stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
@@ -101,10 +120,48 @@
 #define WLSQM_EMIT_COND 0
 #endif
 
+#ifndef WLSQM_PHASE_CLOCK
+#define WLSQM_PHASE_CLOCK 0
+#endif
+
 namespace {
 
+// The phase clock, a measurement build only (-DWLSQM_PHASE_CLOCK=1; no route
+// loads it): each case adds the clock64() cycles of each phase of its fit to
+// its row of kPhases counters (zeroed by the caller, set by
+// wlsqm_rows_phase_buffer; the warp body's lane 0 counts for its case):
+// 0 staging and the CENTER max pass, 1 assembly (and the known DOFs' rows),
+// 2 Jacobi scale and Cholesky (the key's row sums included), 3 the key's
+// inverse norm, 4 solve and refinement sweeps, 5 ALGO_ITERATIVE, 6 the sens
+// loop less its stores, 7 stores (fi, the counts, sens), 8 the whole fit.
+// Elsewhere the marks compile to nothing.
+constexpr int kPhases = 9;
+#if WLSQM_PHASE_CLOCK
+__device__ long long* g_phase_clock;
+#define WLSQM_CLOCK_START() long long wlsqm_t0 = clock64(), wlsqm_tp = wlsqm_t0
+#define WLSQM_CLOCK(slot, cs, on)                                                    \
+  do {                                                                               \
+    const long long wlsqm_now = clock64();                                           \
+    if (on) g_phase_clock[(int64_t)(cs) * kPhases + (slot)] += wlsqm_now - wlsqm_tp; \
+    wlsqm_tp = wlsqm_now;                                                            \
+  } while (0)
+#define WLSQM_CLOCK_END(cs, on)                                                    \
+  do {                                                                             \
+    if (on) g_phase_clock[(int64_t)(cs) * kPhases + 8] = clock64() - wlsqm_t0;     \
+  } while (0)
+#else
+#define WLSQM_CLOCK_START() \
+  do {                      \
+  } while (0)
+#define WLSQM_CLOCK(slot, cs, on) \
+  do {                            \
+  } while (0)
+#define WLSQM_CLOCK_END(cs, on) \
+  do {                          \
+  } while (0)
+#endif
+
 constexpr bool kEmitCond = WLSQM_EMIT_COND != 0;  // this library writes the key
-constexpr int kThreads = 128;
 constexpr int kWeightCenter = 2;  // defs.WEIGHT_CENTER
 constexpr double kAlpha = 1e-4;   // reference: wlsqm/fitter/infra.pyx:45-46
 constexpr double kBeta = 1.0 - 1e-4;
@@ -128,6 +185,32 @@ __device__ __forceinline__ void chol_solve(const double* L, double (&x)[NO]) {
 #pragma unroll (U)
     for (int q = i + 1; q < NO; ++q) t = fma(-L[lt(q, i)], x[q], t);
     x[i] = t / L[lt(i, i)];
+  }
+}
+
+// x[p] <- (L L^T)^-1 x[p] for P right-hand sides side by side: each one's
+// arithmetic is chol_solve's, the P chains independent of each other
+template <int P, int NO, int U>
+__device__ __forceinline__ void chol_solve_n(const double* L, double (&x)[P][NO]) {
+#pragma unroll (U)
+  for (int i = 0; i < NO; ++i) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      double t = x[p][i];
+#pragma unroll (U)
+      for (int q = 0; q < i; ++q) t = fma(-L[lt(i, q)], x[p][q], t);
+      x[p][i] = t / L[lt(i, i)];
+    }
+  }
+#pragma unroll (U)
+  for (int i = NO - 1; i >= 0; --i) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      double t = x[p][i];
+#pragma unroll (U)
+      for (int q = i + 1; q < NO; ++q) t = fma(-L[lt(q, i)], x[p][q], t);
+      x[p][i] = t / L[lt(i, i)];
+    }
   }
 }
 
@@ -186,10 +269,8 @@ struct Hood {
     return s;
   }
 
-  // basis row c of neighbour k; returns its weight
-  __device__ __forceinline__ double row(int k, double (&c)[NO]) const {
-    double d[DIM];
-    offsets(k, d);
+  // the basis row c of offsets d, from per-axis power ladders
+  static __device__ __forceinline__ void basis(const double (&d)[DIM], double (&c)[NO]) {
     double p[DIM][5];
 #pragma unroll
     for (int a = 0; a < DIM; ++a) {
@@ -213,71 +294,200 @@ struct Hood {
       }
       c[j] = v;
     }
+  }
+
+  // the weight of offsets d
+  __device__ __forceinline__ double weight(const double (&d)[DIM]) const {
     if (WEIGHTING != kWeightCenter) return 1.0;
     const double t = 1.0 - sqrt(sq(d) / max_d2);
     return fma(kBeta * t, t, kAlpha);
   }
 
-  // ax = (C^T W C) sx over the valid neighbours (a sweep "through the rows")
-  __device__ __forceinline__ void matvec(int n, const double (&sx)[NO],
-                                         double (&ax)[NO]) const {
-#pragma unroll
-    for (int j = 0; j < NO; ++j) ax[j] = 0.0;
-#pragma unroll 1
-    for (int k = 0; k < n; ++k) {
-      double c[NO];
-      const double w = row(k, c);
-      double t = 0.0;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) t = fma(c[j], sx[j], t);
-      t *= w;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) ax[j] = fma(c[j], t, ax[j]);
-    }
+  // basis row c of neighbour k; returns its weight
+  __device__ __forceinline__ double row(int k, double (&c)[NO]) const {
+    double d[DIM];
+    offsets(k, d);
+    basis(d, c);
+    return weight(d);
   }
 };
 
-template <int DIM, int ORDER, int WEIGHTING>
-__global__ void __launch_bounds__(kThreads)
+// The thread body's cases a block, and the shared memory its layout may
+// take a block (both -D options of the measurement builds; ops/fit_rows
+// mirrors the shipped values).
+#ifndef WLSQM_ROWS_CASES
+#define WLSQM_ROWS_CASES 64
+#endif
+#ifndef WLSQM_ROWS_SMEM_BUDGET
+#define WLSQM_ROWS_SMEM_BUDGET (128 * 1024)
+#endif
+constexpr int kTB = WLSQM_ROWS_CASES;
+constexpr int kSmemBudget = WLSQM_ROWS_SMEM_BUDGET;
+constexpr int kPlainTB = 128;  // cases a block of the instance that stages nothing
+static_assert(kSmemBudget <= 227 * 1024, "more shared memory than a block may have");
+
+// Sens columns a thread of the thread body solves side by side where NO is
+// small (a -D option of the measurement builds): independent chains of
+// dependent divisions and multiply-adds, with one row read for all of them.
+#ifndef WLSQM_ROWS_SENS_COLS
+#define WLSQM_ROWS_SENS_COLS 2
+#endif
+__host__ __device__ constexpr int sens_cols(int no) {
+  return no <= 6 ? WLSQM_ROWS_SENS_COLS : 1;
+}
+
+// The thread body's shared memory, one case's slice of ld doubles (odd, so
+// that a warp's 32 cases read their slices without bank conflicts), for K
+// neighbours: the offsets (K, DIM), staged as xk and overwritten in place,
+// fk (K) and the weights (K), when they fit the budget (else ld = 0).  A
+// launch with sens and ld > 0 runs the staged instance; the rest run the
+// instance that stages nothing (every pass reads xk and fk from global
+// memory and rebuilds each row, the design before: without sens the few
+// passes over the rows do not repay the staging).  The basis rows are not
+// kept: each use rebuilds its row from the offsets and weight with a few
+// multiplies, and the shared memory the rows would take cost more resident
+// warps than it saved (PERF.md).
+__host__ __device__ inline int thread_layout(int dim, int K) {
+  const long long base = (long long)K * (dim + 2);
+  return base > kSmemBudget / (8 * kTB) - 1 ? 0 : (int)(base | 1);
+}
+
+// an 8-byte asynchronous copy from global to shared memory
+__device__ __forceinline__ void cp_async8(double* s, const double* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(s)),
+               "l"(g)
+               : "memory");
+}
+
+// The thread body: one case a thread.  Its arithmetic is the design
+// before's, operation for operation (so fi, the counts, sens and the key are
+// the same bits); what changed, in the STAGED instance (kTB cases a block),
+// is where each neighbour's values come from (thread_layout): the block's xk
+// and fk slabs, contiguous in global memory, are copied into shared memory
+// by coalesced 8-byte cp.async; each case then writes its offsets in place of
+// its xk and its weights there once, and every pass (assembly, sweeps, the
+// ALGO_ITERATIVE trips, the sens loop's solves and sweeps) builds its rows
+// from them.  In both instances the sens loop solves sens_cols() columns
+// side by side.
+template <int DIM, int ORDER, int WEIGHTING, bool STAGED>
+__global__ void __launch_bounds__(STAGED ? kTB : kPlainTB)
 fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
                 const int* __restrict__ nk, const double* __restrict__ xi,
                 const double* __restrict__ inv_s, const double* __restrict__ ghat,
                 double* __restrict__ fi, int* __restrict__ iters,
                 double* __restrict__ sens, double* __restrict__ est, int64_t B, int K,
-                int64_t knowns, int refine_steps, int max_iter) {
+                int64_t knowns, int refine_steps, int max_iter, int ld) {
   using H = Hood<DIM, ORDER, WEIGHTING>;
   constexpr int NO = H::NO;
   constexpr int NT = NO * (NO + 1) / 2;
   constexpr int U = NT;  // >= every trip count below: the loops unroll fully
   static_assert(!RowsTables<DIM, ORDER>::kWarp, "a warp-body instance");
-  const int64_t cs = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (cs >= B) return;
+  extern __shared__ __align__(16) double smem[];
+  constexpr int TB = STAGED ? kTB : kPlainTB;
+  const int tid = threadIdx.x;
+  const int64_t c0 = (int64_t)blockIdx.x * TB, cs = c0 + tid;
+  const bool valid = cs < B;  // the rest of the last staged block only keeps its barrier
+  if (!STAGED && !valid) return;
+  WLSQM_CLOCK_START();
 
-  const int n = min(max(nk[cs], 0), K);
-  const double* fc = fk + cs * (int64_t)K;
+  // ---- the block's slabs of xk and fk into shared memory ----
   H h;
-  h.xc = xk + cs * (int64_t)K * DIM;
+  h.xc = xk + (valid ? cs : 0) * (int64_t)K * DIM;
+  const double* fc = fk + (valid ? cs : 0) * (int64_t)K;
+  double *dv = nullptr, *wv = nullptr;  // offsets (K, DIM) and weights (K)
+  if constexpr (STAGED) {
+    double* const my = smem + (int64_t)tid * ld;
+    dv = my;
+    wv = my + K * (DIM + 1);
+    const int cnt = (int)min((int64_t)kTB, B - c0);
+    const double* gx = xk + c0 * K * DIM;
+    for (int g = tid; g < cnt * K * DIM; g += kTB)
+      cp_async8(smem + (int64_t)(g / (DIM * K)) * ld + g % (DIM * K), gx + g);
+    const double* gf = fk + c0 * K;
+    for (int g = tid; g < cnt * K; g += kTB)
+      cp_async8(smem + (int64_t)(g / K) * ld + K * DIM + g % K, gf + g);
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+    h.xc = my;
+    fc = my + K * DIM;
+    __syncthreads();
+  }
+
+  const int n = valid ? min(max(nk[cs], 0), K) : 0;
 #pragma unroll
-  for (int a = 0; a < DIM; ++a) h.x0[a] = xi[cs * DIM + a];
-  h.is = inv_s[cs];
+  for (int a = 0; a < DIM; ++a) h.x0[a] = valid ? xi[cs * DIM + a] : 0.0;
+  h.is = valid ? inv_s[cs] : 1.0;
   h.max_d2 = 1.0;
-  if (WEIGHTING == kWeightCenter) {
+  // offsets once (in place of xk when staged), and CENTER's max d^2
+  if (WEIGHTING == kWeightCenter || STAGED) {
     double m = 0.0;
 #pragma unroll 1
     for (int k = 0; k < n; ++k) {
       double d[DIM];
       h.offsets(k, d);
-      m = fmax(m, H::sq(d));
+      if constexpr (STAGED) {
+#pragma unroll
+        for (int a = 0; a < DIM; ++a) dv[k * DIM + a] = d[a];
+      }
+      if (WEIGHTING == kWeightCenter) m = fmax(m, H::sq(d));
     }
-    h.max_d2 = m > 0.0 ? m : 1.0;
+    if (WEIGHTING == kWeightCenter) h.max_d2 = m > 0.0 ? m : 1.0;
   }
+  // the weights, once
+  if constexpr (STAGED) {
+#pragma unroll 1
+    for (int k = 0; k < n; ++k) {
+      double d[DIM];
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) d[a] = dv[k * DIM + a];
+      wv[k] = h.weight(d);
+    }
+  }
+  WLSQM_CLOCK(0, cs, valid);
+
+  // basis row c of neighbour k and its weight: from the offsets and weights
+  // in shared memory, or from xk
+  auto row = [&](int k, double (&c)[NO]) -> double {
+    if constexpr (STAGED) {
+      double d[DIM];
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) d[a] = dv[k * DIM + a];
+      H::basis(d, c);
+      return wv[k];
+    } else {
+      return h.row(k, c);
+    }
+  };
+  // ax[p] = (C^T W C) sx[p] over the valid neighbours (a sweep "through the
+  // rows"), for P vectors side by side
+  auto matvec_n = [&](auto& sx, auto& ax) {
+    constexpr int P = sizeof(sx) / sizeof(sx[0]);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < NO; ++j) ax[p][j] = 0.0;
+#pragma unroll 1
+    for (int k = 0; k < n; ++k) {
+      double c[NO];
+      const double w = row(k, c);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        double t = 0.0;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) t = fma(c[j], sx[p][j], t);
+        t *= w;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) ax[p][j] = fma(c[j], t, ax[p][j]);
+      }
+    }
+  };
 
   // known DOFs (bits below NO) and their scaled values
   const int64_t km = ghat != nullptr ? knowns : 0;
   auto known = [km](int j) { return ((km >> j) & 1LL) != 0; };
   double g[NO];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) g[j] = known(j) ? ghat[cs * NO + j] : 0.0;
+  for (int j = 0; j < NO; ++j) g[j] = known(j) && valid ? ghat[cs * NO + j] : 0.0;
 
   // ---- assemble A (packed lower) and b over the valid neighbours ----
   double A[NT], b[NO];
@@ -288,7 +498,7 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll 1
   for (int k = 0; k < n; ++k) {
     double c[NO];
-    const double w = h.row(k, c);
+    const double w = row(k, c);
     double f = fc[k];
     if (km != 0) {
 #pragma unroll
@@ -314,6 +524,7 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
       if (known(i)) b[i] = 0.0;
     }
   }
+  WLSQM_CLOCK(1, cs, valid);
 
   // ---- Jacobi scale, Cholesky in place; the guard lets NaN through ----
   double s[NO];
@@ -362,8 +573,12 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
       A[lt(i, j)] = t * invd;
     }
   }
-
-  if constexpr (kEmitCond) est[cs] = ninf * sqrt(inv_frob2<NO, U>(A));
+  WLSQM_CLOCK(2, cs, valid);
+  if constexpr (kEmitCond) {
+    const double e = ninf * sqrt(inv_frob2<NO, U>(A));
+    if (valid) est[cs] = e;
+  }
+  WLSQM_CLOCK(3, cs, valid);
 
   // ---- solve in the scaled space, then sweep: y += solve(s b - s A (s y)) ----
   double y[NO];
@@ -372,19 +587,20 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   chol_solve<NO, U>(A, y);
 #pragma unroll 1
   for (int it = 0; it < refine_steps; ++it) {
-    double sx[NO], r[NO];
+    double sx[1][NO], r[1][NO];
 #pragma unroll
-    for (int j = 0; j < NO; ++j) sx[j] = y[j] * s[j];
-    h.matvec(n, sx, r);
+    for (int j = 0; j < NO; ++j) sx[0][j] = y[j] * s[j];
+    matvec_n(sx, r);
 #pragma unroll
-    for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : fma(-s[j], r[j], b[j] * s[j]);
-    chol_solve<NO, U>(A, r);
+    for (int j = 0; j < NO; ++j) r[0][j] = known(j) ? 0.0 : fma(-s[j], r[0][j], b[j] * s[j]);
+    chol_solve<NO, U>(A, r[0]);
 #pragma unroll
-    for (int j = 0; j < NO; ++j) y[j] += r[j];
+    for (int j = 0; j < NO; ++j) y[j] += r[0][j];
   }
   double xh[NO];
 #pragma unroll
   for (int j = 0; j < NO; ++j) xh[j] = known(j) ? g[j] : y[j] * s[j];
+  WLSQM_CLOCK(4, cs, valid);
 
   // ---- ALGO_ITERATIVE: corrective refits until the l-inf residual norm
   //      repeats exactly (reference: wlsqm/fitter/impl.pyx:986-1083) ----
@@ -401,7 +617,7 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll 1
       for (int k = 0; k < n; ++k) {
         double c[NO];
-        const double w = h.row(k, c);
+        const double w = row(k, c);
         double m = 0.0;
 #pragma unroll
         for (int j = 0; j < NO; ++j) m = fma(c[j], xh[j], m);
@@ -422,48 +638,80 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
       }
       prev = nrm;
     }
-    iters[cs] = itn;
+    WLSQM_CLOCK(5, cs, valid);
+    if (valid) iters[cs] = itn;
   }
 
-  double* out = fi + cs * NO;
+  if (valid) {
+    double* out = fi + cs * NO;
 #pragma unroll
-  for (int j = 0; j < NO; ++j) out[j] = xh[j];
+    for (int j = 0; j < NO; ++j) out[j] = xh[j];
+  }
+  WLSQM_CLOCK(7, cs, valid);
 
   // ---- sensitivities: one column of A^-1 C^T W per neighbour, each with
-  //      the DOFs' solve and sweeps (reference: wlsqm/fitter/impl.pyx:768-846) ----
-  if (sens == nullptr) return;
-  double* so = sens + cs * (int64_t)K * NO;
+  //      the DOFs' solve and sweeps (reference: wlsqm/fitter/impl.pyx:768-846),
+  //      P columns side by side ----
+  if (sens == nullptr) {
+    WLSQM_CLOCK_END(cs, valid);
+    return;
+  }
+  double* const so = sens + (valid ? cs : 0) * (int64_t)K * NO;
+  constexpr int P = sens_cols(NO);
 #pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    double* o = so + (int64_t)k * NO;
-    if (k >= n) {
+  for (int k = 0; k < K; k += P) {
+    // columns k .. k + P - 1 side by side; past n (or past K) a column
+    // solves zeros and is written as 0 (or not at all)
+    double bk[P][NO], yk[P][NO];
 #pragma unroll
-      for (int j = 0; j < NO; ++j) o[j] = 0.0;
-      continue;
-    }
-    double c[NO], bk[NO], yk[NO];
-    const double w = h.row(k, c);
+    for (int p = 0; p < P; ++p) {
+      double c[NO];
+      double w = 0.0;
+      if (k + p < n) {
+        w = row(k + p, c);
+      } else {
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      bk[j] = known(j) ? 0.0 : (c[j] * w) * s[j];
-      yk[j] = bk[j];
+        for (int j = 0; j < NO; ++j) c[j] = 0.0;
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        bk[p][j] = known(j) ? 0.0 : (c[j] * w) * s[j];
+        yk[p][j] = bk[p][j];
+      }
     }
-    chol_solve<NO, U>(A, yk);
+    chol_solve_n<P, NO, U>(A, yk);
 #pragma unroll 1
     for (int it = 0; it < refine_steps; ++it) {
-      double sy[NO], r[NO];
+      double sy[P][NO], r[P][NO];
 #pragma unroll
-      for (int j = 0; j < NO; ++j) sy[j] = yk[j] * s[j];
-      h.matvec(n, sy, r);
+      for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int j = 0; j < NO; ++j) r[j] = known(j) ? 0.0 : fma(-s[j], r[j], bk[j]);
-      chol_solve<NO, U>(A, r);
+        for (int j = 0; j < NO; ++j) sy[p][j] = yk[p][j] * s[j];
+      matvec_n(sy, r);
 #pragma unroll
-      for (int j = 0; j < NO; ++j) yk[j] += r[j];
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < NO; ++j) r[p][j] = known(j) ? 0.0 : fma(-s[j], r[p][j], bk[p][j]);
+      chol_solve_n<P, NO, U>(A, r);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < NO; ++j) yk[p][j] += r[p][j];
     }
+    WLSQM_CLOCK(6, cs, valid);
 #pragma unroll
-    for (int j = 0; j < NO; ++j) o[j] = yk[j] * s[j];
+    for (int p = 0; p < P; ++p) {
+      const int kk = k + p;
+      if (kk >= K) break;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const double v = kk < n ? yk[p][j] * s[j] : 0.0;
+        if (valid) __stcs(so + (int64_t)kk * NO + j, v);
+      }
+    }
+    WLSQM_CLOCK(7, cs, valid);
   }
+  WLSQM_CLOCK_END(cs, valid);
 }
 
 // ---------------------------------------------------------------------------
@@ -540,6 +788,7 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
   const int64_t cs = blockIdx.x;
   const int lane = threadIdx.x;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
+  WLSQM_CLOCK_START();
 
   const int n = min(max(nk[cs], 0), K);
   const double* fc = fk + cs * (int64_t)K;
@@ -565,6 +814,7 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
   auto known = [km](int j) { return ((km >> j) & 1LL) != 0; };
   for (int j = lane; j < NP; j += 32) gv[j] = j < NO && known(j) ? ghat[cs * NO + j] : 0.0;
   __syncwarp();
+  WLSQM_CLOCK(0, cs, lane == 0);
 
   // basis rows, weights, fkeff and fk of neighbours [k0, k0 + kKC) into
   // shared memory, one per lane; rows k >= n and the padding are exact zeros
@@ -649,6 +899,7 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
     }
     __syncwarp();
   }
+  WLSQM_CLOCK(1, cs, lane == 0);
 
   // ---- Jacobi scale ----
   for (int j = lane; j < NO; j += 32) {
@@ -674,12 +925,14 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
   // ---- Cholesky in place by panels of 8 columns (the trailing tiles on the
   //      tensor cores) ----
   chol_panels<NO>(A, rdv, lane);
+  WLSQM_CLOCK(2, cs, lane == 0);
 
   // ---- the key: ||(L L^T)^-1||_F^2 by 8 x 8 blocks of L^-1 ----
   if constexpr (kEmitCond) {
     const double f2 = warp_sum(inv_frob2_blocked<NO>(A, rdv, Y, lane));
     if (lane == 0) est[cs] = ninf * sqrt(f2);
   }
+  WLSQM_CLOCK(3, cs, lane == 0);
 
   // one sweep through the rows: out = C^T W (C x) for x in shared memory,
   // both products on the tensor cores (x as the first of 8 columns)
@@ -739,6 +992,7 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
   }
   for (int j = lane; j < NO; j += 32) xhv[j] = known(j) ? gv[j] : yv[j] * sv[j];
   __syncwarp();
+  WLSQM_CLOCK(4, cs, lane == 0);
 
   // ---- ALGO_ITERATIVE: corrective refits until the l-inf residual norm
   //      repeats exactly (reference: wlsqm/fitter/impl.pyx:986-1083) ----
@@ -793,15 +1047,20 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
       }
       prev = nrm;
     }
+    WLSQM_CLOCK(5, cs, lane == 0);
     if (lane == 0) iters[cs] = itn;
   }
 
   for (int j = lane; j < NO; j += 32) fi[cs * NO + j] = xhv[j];
+  WLSQM_CLOCK(7, cs, lane == 0);
 
   // ---- sensitivities: the K right-hand sides (W C)^T s, kKC at a time, as
   //      one multi-RHS solve with lanes over the columns; the sweeps' two
   //      products C (s Y) and C^T (W T) on the tensor cores ----
-  if (sens == nullptr) return;
+  if (sens == nullptr) {
+    WLSQM_CLOCK_END(cs, lane == 0);
+    return;
+  }
   double* const so = sens + cs * (int64_t)K * NO;
 #pragma unroll 1
   for (int c0 = 0; c0 < K; c0 += kKC) {
@@ -896,6 +1155,7 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
         __syncwarp();
       }
     }
+    WLSQM_CLOCK(6, cs, lane == 0);
     // the (ncol, NO) block of neighbours c0.., consecutive lanes on
     // consecutive addresses; neighbours k >= n get 0
     double* o = so + (int64_t)c0 * NO;
@@ -904,7 +1164,9 @@ fit_rows_warp(const double* __restrict__ xk, const double* __restrict__ fk,
       o[f] = c0 + k < n ? Y[j * kLDX + k] * sv[j] : 0.0;
     }
     __syncwarp();
+    WLSQM_CLOCK(7, cs, lane == 0);
   }
+  WLSQM_CLOCK_END(cs, lane == 0);
 }
 
 struct Args {
@@ -941,10 +1203,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                                                a.fi, a.iters, a.sens, a.est, a.B, a.K,
                                                a.knowns, a.refine_steps, a.max_iter);
   } else {
-    const unsigned grid = (unsigned)((a.B + kThreads - 1) / kThreads);
-    fit_rows_thread<DIM, ORDER, WEIGHTING><<<grid, kThreads, 0, stream>>>(
-        a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi, a.iters, a.sens, a.est, a.B,
-        a.K, a.knowns, a.refine_steps, a.max_iter);
+    const int ld = thread_layout(DIM, a.K);
+    const bool staged = a.sens != nullptr && ld > 0;
+    const int tb = staged ? kTB : kPlainTB, bytes = staged ? 8 * kTB * ld : 0;
+    auto kern = staged ? fit_rows_thread<DIM, ORDER, WEIGHTING, true>
+                       : fit_rows_thread<DIM, ORDER, WEIGHTING, false>;
+    if (bytes > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+    }
+    const int64_t grid = (a.B + tb - 1) / tb;
+    if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kern<<<(unsigned)grid, tb, bytes, stream>>>(a.xk, a.fk, a.nk, a.xi, a.inv_s, a.ghat, a.fi,
+                                                a.iters, a.sens, a.est, a.B, a.K, a.knowns,
+                                                a.refine_steps, a.max_iter, ld);
   }
   return cudaSuccess;
 }
@@ -998,3 +1271,19 @@ extern "C" int wlsqm_fit_rows(const void* xk, const void* fk, const void* nk,
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+// The thread body's layout for dim and K into out[3]: ld, cases a block,
+// the shared-memory budget a block (ops/fit_rows.thread_layout mirrors it).
+extern "C" int wlsqm_rows_thread_layout(int dim, int K, int* out) {
+  if (dim < 1 || dim > 3 || K < 0) return (int)cudaErrorInvalidValue;
+  out[0] = thread_layout(dim, K), out[1] = kTB, out[2] = kSmemBudget;
+  return (int)cudaSuccess;
+}
+
+#if WLSQM_PHASE_CLOCK
+// the phase clock's counters: (B, kPhases) int64, zeroed by the caller
+extern "C" int wlsqm_rows_phase_buffer(void* buf) {
+  long long* p = (long long*)buf;
+  return (int)cudaMemcpyToSymbol(g_phase_clock, &p, sizeof(p));
+}
+#endif

@@ -17,19 +17,26 @@
 //
 // Bound on this card (bytes): idx read once (4 B per row), out written
 // once (4 W B per row), u read once (4 W B per point).  At n = B = 2^22,
-// K = 28, f64: F = 1 1.44 GB, 0.431 ms; F = 3 3.39 GB, 1.012 ms at the
-// data-sheet 3.35 TB/s.  What the design does about it:
-//   * gather_vec16: one thread per 16-byte vector of the output, written
-//     with one streaming store (st.global.cs), so that a warp stores 512
-//     contiguous bytes and the output does not evict from the 50 MB L2 the
-//     u rows that a Morton-ordered cloud's neighbours share; the vector's
-//     LOAD-byte pieces (the widest that the row width and u's alignment
-//     allow: 8 B for f64 rows) come from their rows through the read-only
-//     path, one index load per piece (neighbouring threads' loads of one
-//     index meet in L1);
-//   * gather_words, the generic instance for what the vector one does not
-//     takes (other row widths, a misaligned out): one thread per
-//     output word, the word index fastest;
+// K = 28, f64: F = 1 1.44 GB, 0.431 ms; F = 3 3.39 GB, 1.012 ms; the Euler
+// step's rows (K = 24, F = 8 f64, 64 B) 7.11 GB, 2.12 ms at the data-sheet
+// 3.35 TB/s.  What the design does about it:
+//   * one thread per 16-byte vector of the output, written with one
+//     streaming store (st.global.cs), so that a warp stores 512 contiguous
+//     bytes and the output does not evict from the 50 MB L2 the u rows that
+//     a Morton-ordered cloud's neighbours share; the vector's LOAD-byte
+//     pieces (the widest that the row width and u's alignment allow: 8 B
+//     for f64 rows of an odd number of fields, 16 B for an even one) come
+//     from their rows through the read-only path, one index load per row a
+//     thread touches (neighbouring threads' loads of one index meet in L1).
+//     gather_vec16 has the row width as a template argument (rows of 1, 2,
+//     3, 4 or 6 words, and 8 or 16 in 16-byte pieces); gather_vecs takes
+//     any other width at run time, with one 32-bit division a thread.  On
+//     the Euler rows the two measured 2.87 and 2.97 ms, one thread a row
+//     with its four 16-byte loads in flight 4.76 ms, and the word copy that
+//     took these rows before 7.16 ms (chip_smoke.measure_gather_variants;
+//     NVIDIA H100 80GB HBM3, 700 W; PERF.md);
+//   * gather_words, for what no vector fits (an output that is not 16-byte
+//     aligned): one thread per output word, the word index fastest;
 //   * 64-bit offsets (R * W reaches 7e8 at 2^22 cases, K = 28, F = 3, f64);
 //   * indices clamped into [0, n), so a bad index never reads outside u;
 //   * the ragged last vector is copied word by word.
@@ -108,6 +115,56 @@ gather_vec16(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
   __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
 }
 
+// One thread per 16-byte vector of the output for a row width W that no
+// template above takes, W a run-time argument: the same pieces, stores and
+// ragged last vector as gather_vec16, with one division a thread (Idx: 32
+// bits when the piece count fits, else 64) and each row's index loaded once
+// a thread.
+template <int LOAD, typename Idx>
+__global__ void __launch_bounds__(kThreads)
+gather_vecs(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
+            const int32_t* __restrict__ idx, uint32_t* __restrict__ out0,
+            uint32_t* __restrict__ out1, int64_t n, int64_t rows, int W) {
+  constexpr int P = LOAD / 4;  // words per piece
+  constexpr int PV = 4 / P;    // pieces per vector
+  const int64_t total = rows * W;
+  const int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (4 * v >= total) return;
+  const uint32_t* __restrict__ u = blockIdx.y ? u1 : u0;
+  uint32_t* __restrict__ out = blockIdx.y ? out1 : out0;
+  if (4 * v + 4 > total) {  // the ragged last vector, word by word
+    for (int64_t o = 4 * v; o < total; ++o) {
+      const int64_t r = o / W;
+      __stcs(out + o, __ldg(u + clamp_row(__ldg(idx + r), n) * W + (o - r * W)));
+    }
+    return;
+  }
+  const Idx PR = (Idx)(W / P);  // pieces per row
+  const Idx p0 = (Idx)v * PV;
+  Idx r = p0 / PR, c = p0 - r * PR;
+  const uint32_t* src = u + clamp_row(__ldg(idx + r), n) * W;
+  uint32_t x[4];
+#pragma unroll
+  for (int q = 0; q < PV; ++q) {
+    if (q > 0 && c == PR) {  // the vector goes on in the next row
+      c = 0;
+      src = u + clamp_row(__ldg(idx + ++r), n) * W;
+    }
+    const uint32_t* at = src + (int64_t)c * P;
+    if constexpr (P == 4) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(at));
+      x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+    } else if constexpr (P == 2) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(at));
+      x[2 * q] = t.x, x[2 * q + 1] = t.y;
+    } else {
+      x[q] = __ldg(at);
+    }
+    ++c;
+  }
+  __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
+}
+
 struct Call {
   const uint32_t *u0, *u1;
   const int32_t* idx;
@@ -132,7 +189,22 @@ void launch_vec(const Call& c) {
                                                      c.n, c.rows);
 }
 
-// the vector instance of (words, load bytes); false: there is none
+template <int LOAD>
+void launch_vecs(const Call& c) {
+  const int64_t vecs = (c.rows * c.words + 3) / 4;
+  const dim3 grid((unsigned)((vecs + kThreads - 1) / kThreads), c.u1 ? 2 : 1);
+  if (c.rows * c.words / (LOAD / 4) < (1LL << 32))
+    gather_vecs<LOAD, uint32_t><<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0,
+                                                             c.out1, c.n, c.rows, c.words);
+  else
+    gather_vecs<LOAD, uint64_t><<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0,
+                                                             c.out1, c.n, c.rows, c.words);
+}
+
+// the vector instance of (words, load bytes): a template for rows of 1, 2,
+// 3, 4 or 6 words, and of 8 or 16 words in 16-byte pieces (f64 rows of 4 or
+// 8 fields: 3% faster than the run-time width, PERF.md), the run-time width
+// for the rest
 bool launch_vec_instance(const Call& c, int load) {
 #define WLSQM_VEC(W, L)                      \
   if (c.words == W && load == L) {           \
@@ -148,8 +220,15 @@ bool launch_vec_instance(const Call& c, int load) {
   WLSQM_VEC(4, 16)
   WLSQM_VEC(6, 4)
   WLSQM_VEC(6, 8)
+  WLSQM_VEC(8, 16)
+  WLSQM_VEC(16, 16)
 #undef WLSQM_VEC
-  return false;
+  switch (load) {
+    case 4: launch_vecs<4>(c); return true;
+    case 8: launch_vecs<8>(c); return true;
+    case 16: launch_vecs<16>(c); return true;
+    default: return false;
+  }
 }
 
 bool aligned(const void* p, int bytes) { return ((uintptr_t)p) % bytes == 0; }
@@ -158,8 +237,8 @@ bool aligned(const void* p, int bytes) { return ((uintptr_t)p) % bytes == 0; }
 
 // u0, u1: (n, words) int32 planes (u1 null for one plane); idx: (rows,)
 // int32; out0, out1: (rows, words) int32.  load_bytes 0: the word instance;
-// 4, 8 or 16: the vector instance with loads of that width, which needs
-// words in {1, 2, 3, 4, 6}, out 16-byte aligned and u aligned to the loads
+// 4, 8 or 16: the vector instance with loads of that width, which needs out
+// 16-byte aligned, u aligned to the loads and rows a whole number of loads
 // (ops/gather._vector_plan).  Returns a CUDA
 // error code; a plan that does not fit the pointers is cudaErrorInvalidValue.
 extern "C" int wlsqm_gather_words(const void* u0, const void* u1, const void* idx,

@@ -182,23 +182,21 @@ def load() -> native.Library:
                         {_ENTRY: (i32, [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])})
 
 
-#: row widths in 32-bit words that the vector instance takes
-_VECTOR_WORDS = (1, 2, 3, 4, 6)
-
-
 def _vector_plan(row_bytes: int, u_ptr: int, out_ptr: int):
     """The kernel instance for rows of ``row_bytes`` bytes: the piece width
     ``load`` (16, 8 or 4 bytes) of the vector instance, whose threads each
     write one 16-byte vector of the output from pieces of that width, or
     None for the word instance.
 
-    The vector instance needs a row of 1, 2, 3, 4 or 6 words and ``out_ptr``
-    16-byte aligned; ``load`` is the widest of 16, 8 and 4 bytes that divides
-    the row and ``u_ptr``.  Pass the OR of both planes' pointers for the pair
-    (the OR's alignment is the smaller one).  Width and alignment decide,
-    never a failure.
+    The vector instance takes rows of any whole number of words with
+    ``out_ptr`` 16-byte aligned (rows of 1, 2, 3, 4 or 6 words, and of 8 or 16
+    in 16-byte pieces, by a template of their width, the rest by one with
+    the width an argument); ``load``
+    is the widest of 16, 8 and 4 bytes that divides the row and ``u_ptr``.
+    Pass the OR of both planes' pointers for the pair (the OR's alignment is
+    the smaller one).  Width and alignment decide, never a failure.
     """
-    if row_bytes % 4 or row_bytes // 4 not in _VECTOR_WORDS or out_ptr % 16:
+    if row_bytes % 4 or row_bytes <= 0 or out_ptr % 16:
         return None
     return next(b for b in (16, 8, 4) if row_bytes % b == 0 and u_ptr % b == 0)
 
