@@ -75,8 +75,7 @@ kernel case's cycles by phase (a build with its phase clock),
 another checkout and compares their bits, and ``measure_warp_residency``
 times the moment kernel's warp body at other counts of resident cases;
 ``measure_rows_phases`` splits a rows-kernel case's cycles by phase (both
-bodies), ``measure_rows_variants`` times the rows thread body's builds, and
-``measure_rows_paths`` and ``measure_gather_paths`` time the rows and gather
+bodies), and ``measure_rows_paths`` and ``measure_gather_paths`` time the rows and gather
 launches against another checkout (the rows outputs' bits compared).
 
 Run from the repository root on a machine with one CUDA card:
@@ -143,6 +142,8 @@ K_SLAB_EDGE = (151, 152)  # moment kernel: the slabs, 64 (2K + 1 + (K | 1)) doub
 K_SLAB_EDGE_3D = (113, 114)  # ... in 3D (the thread body, orders 0-2): 64 ((3K | 1) + (K | 1))
 K_WIDE = 130            # the warp body's configurations again: five chunks of 32, the
                         # last ragged
+ROWS_STAGE_EDGE = {1: 85, 2: 63, 3: 51}  # the largest K whose offsets the rows thread body
+                        # stages with sens (csrc/fit_rows.cu thread_layout: K (dim + 2) <= 255)
 ORDER = 4
 PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), parity_check's bar
 REPS = 5                # timed repetitions after one warm-up; the median is reported
@@ -611,9 +612,10 @@ def phase_rows_vs_plain(dev, wtt):
     both weightings: with sens, with a random knowns mask (and sens), and
     with max_iter 3 (and the mask); both bodies (the thread body below
     fit_rows.WARP_MIN_NO, the warp body from it) at the grid's K and again at
-    K_WIDE (with sens the thread body stages its offsets and weights in
-    shared memory at the grid's K in 1D and 2D, nothing at 3D's K = 56 and at
-    K_WIDE: fit_rows.thread_layout), ragged nk with NaN in the padded slots.
+    K_WIDE, and the 3D thread-body orders at K_DIM3 (with sens the thread
+    body stages its offsets and weights in shared memory at the grid's K in
+    1D and 2D and at 3D's K_DIM3, nothing at 3D's K = 56 and at K_WIDE:
+    ROWS_STAGE_EDGE), ragged nk with NaN in the padded slots.
 
     Counts: exact-stagnation ties follow the last bit of the residual norms,
     which FMA contraction and the summation order move, so they are held
@@ -643,6 +645,8 @@ def phase_rows_vs_plain(dev, wtt):
     grid = [(dim, order, K_GRID[dim], B_CHECK if order == ORDER and dim > 1 else B_GRID)
             for dim in (1, 2, 3) for order in range(ORDER + 1)]
     grid += [(dim, order, K_WIDE, B_GRID) for dim in (1, 2, 3) for order in range(ORDER + 1)]
+    grid += [(3, order, K_DIM3, B_GRID) for order in range(ORDER + 1)
+             if not fit_rows.warp_body(3, order)]
     for dim, order, Kg, B in grid:
         NO = defs.number_of_dofs(dim, order)
         for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
@@ -3514,99 +3518,6 @@ def measure_rows_phases():
     return table
 
 
-#: the thread body's builds that measure_rows_variants times, by name: -D
-#: options of csrc/fit_rows.cu against its shipped values (WLSQM_ROWS_CASES
-#: 64, WLSQM_ROWS_SMEM_BUDGET 128 KB, WLSQM_ROWS_SENS_COLS 2), each held to
-#: the shipped build's bits
-ROWS_VARIANTS = {
-    "shipped": (),
-    "budget_25k": ("WLSQM_ROWS_SMEM_BUDGET=25600",),
-    "budget_64k": ("WLSQM_ROWS_SMEM_BUDGET=65536",),
-    "nothing_staged": ("WLSQM_ROWS_SMEM_BUDGET=8192",),
-    "one_sens_col": ("WLSQM_ROWS_SENS_COLS=1",),
-    "four_sens_cols": ("WLSQM_ROWS_SENS_COLS=4",),
-    "nothing_staged_one_sens_col": ("WLSQM_ROWS_SMEM_BUDGET=8192", "WLSQM_ROWS_SENS_COLS=1"),
-    "cases_128_budget_128k": ("WLSQM_ROWS_CASES=128", "WLSQM_ROWS_SMEM_BUDGET=131072"),
-}
-
-
-def measure_rows_variants(variants=ROWS_VARIANTS):
-    """The rows kernel's thread body built with other shared-memory budgets
-    (whether fit_rows.thread_layout stages a K), block sizes and sens columns
-    side by side (ROWS_VARIANTS), run by hand, not by main(): each build's
-    registers, and its launch with sens (median of REPS, in turns forward then
-    backward) on the adjoint step's cloud (2D order 2, K = 12, 2^20), on 2D
-    order 3 at K = 30 and on 3D order 2 at K = 48 (2^18 each), its outputs
-    held to the shipped build's bits.
-
-        python3 -c "import chip_smoke; chip_smoke.measure_rows_variants()"
-    """
-    import ctypes
-
-    from wlsqm_tpu_torch import native
-    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
-
-    dev = torch.device("cuda")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    sig = {fit_rows._ENTRY: (i32, [vp] * 10 + [i64, i32, i32, i32, i32, i64, i32, i32, vp])}
-
-    def build(v):
-        return native.build("fit_rows_variant_" + v, [fit_rows._SRC],
-                            {fit_rows._HEADER: fit_rows.tables_header()}, sig,
-                            defines=("WLSQM_EMIT_COND=0", *variants[v]),
-                            includes=fit_rows._INCLUDES)
-
-    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
-        libs = dict(zip(variants, pool.map(build, variants)))
-    for v, lib in libs.items():
-        print(json.dumps({"variant": v, "nvcc_s": lib.build_seconds,
-                          "ptxas": {k: r for k, r in _ptxas_summary(lib.log).items()
-                                    if k.startswith("fit_rows_thread<2,")}}), flush=True)
-    _, adj = _adjoint_cloud(dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    runs = {"adjoint_2^20": (adj, 2, 2),
-            "d2_order3_K30_2^18": (_cloud(B_PLAIN, gen, dev, dim=2, K=K, order=3), 2, 3),
-            "d3_order2_K48_2^18": (_cloud(B_PLAIN, gen, dev, dim=3, K=K_DIM3, order=2), 3, 2)}
-    table = {}
-    for name, (data, dim, order) in runs.items():
-        xk, fk, nk, xi = data
-        B, Kn, _ = xk.shape
-        NO = fit_rows.defs.number_of_dofs(dim, order)
-        _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
-        outs = {v: (torch.empty((B, NO), dtype=torch.float64, device=dev),
-                    torch.empty((B, Kn, NO), dtype=torch.float64, device=dev)) for v in libs}
-
-        def launch(v):
-            fi, sens = outs[v]
-
-            def go():
-                status = libs[v].lib.wlsqm_fit_rows(
-                    xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), inv_s.data_ptr(),
-                    None, fi.data_ptr(), None, sens.data_ptr(), None, B, Kn, dim, order,
-                    2, 0, fit_rows.DEFAULT_REFINE_STEPS, 0, torch.cuda.current_stream().cuda_stream)
-                if status != 0:
-                    raise RuntimeError("variant %s launch failed: CUDA error %d" % (v, status))
-            return go
-
-        times = {v: [] for v in libs}
-        for v in list(libs) + list(libs)[::-1]:
-            times[v].append(_time_ms(launch(v))[0])
-        torch.cuda.synchronize()
-        first = outs[next(iter(variants))]
-        table[name] = {v: {
-            "ms": times[v], "bits_equal_first": _same_bits(outs[v][0], first[0])
-            and _same_bits(outs[v][1], first[1])} for v in libs}
-        print(json.dumps({name: table[name]}), flush=True)
-        del outs, data, xk, fk, nk, xi, inv_s
-        torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"rows_variants": table, "card": smi.splitlines()[0]}), flush=True)
-    if not all(r["bits_equal_first"] for t in table.values() for r in t.values()):
-        raise RuntimeError("a rows-kernel variant changed the bits: %s" % table)
-    return table
-
-
 def _rows_path_times():
     """The rows kernel's launches through whichever wlsqm_tpu_torch is first
     on sys.path: the adjoint step's (the thread body, 2^20, with sens) and
@@ -3615,9 +3526,12 @@ def _rows_path_times():
     bytes; the thread body's launch at ROWS_THREAD_CONFIGS (B_PLAIN cases,
     CENTER, without and with sens); and a SHA-256 of every thread-body output (fi, the counts, sens,
     the key) over the thread-body grid: dims 1-3, orders with NO < 11, both
-    weightings, K for each shared-memory layout of thread_layout (K_GRID,
-    12 and 60), with sens and a random knowns mask, with max_iter 3, and
-    with the key, ragged nk with NaN padding."""
+    weightings, K for each shared-memory layout of the thread body (K_GRID,
+    12, 60, and the staging edge ROWS_STAGE_EDGE and one past it), with
+    sens and a random knowns mask, with max_iter 3, and with the key, ragged
+    nk with NaN padding; at the staging edge and one past it, the max_iter 3
+    counts against the plain version's, pooled by dim (equal, within one,
+    histogram distance)."""
     import hashlib
 
     import wlsqm_tpu_torch as wtt
@@ -3674,12 +3588,15 @@ def _rows_path_times():
     out["thread_configs_ms"] = times
     cpu_gen = torch.Generator().manual_seed(2031)
     grid = {}
+    edge_counts = {}
     for dim in (1, 2, 3):
+        edge = ROWS_STAGE_EDGE[dim]
+        tally = edge_counts["d%d_K%d_%d" % (dim, edge, edge + 1)] = [0, 0, 0, 0]
         for order in range(ORDER + 1):
             if fit_rows.warp_body(dim, order):
                 continue
             NO = defs.number_of_dofs(dim, order)
-            for Kg in sorted({K_GRID[dim], max(12, 2 * NO), 60}):
+            for Kg in sorted({K_GRID[dim], max(12, 2 * NO), 60, edge, edge + 1}):
                 for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
                     xk, fk, nk, xi = _cloud(8191, gen, dev, dim=dim, K=Kg, order=order,
                                             ragged=True, offset=True,
@@ -3690,11 +3607,26 @@ def _rows_path_times():
                     for knowns, do_sens, mi, cond in ((0, True, 0, False), (kn, True, 0, False),
                                                       (kn, False, 3, False), (kn, True, 0, True),
                                                       (0, False, 3, True)):
-                        res += fit_rows.fit_rows(xk, fk, nk, xi, fi0, dimension=dim, order=order,
-                                                 weighting=w, knowns=knowns, do_sens=do_sens,
-                                                 max_iter=mi, emit_cond=cond)
+                        r = fit_rows.fit_rows(xk, fk, nk, xi, fi0, dimension=dim, order=order,
+                                              weighting=w, knowns=knowns, do_sens=do_sens,
+                                              max_iter=mi, emit_cond=cond)
+                        res += r
+                        if mi and not cond:
+                            it = r[1]
                     grid["d%d_o%d_K%d_w%d" % (dim, order, Kg, w)] = sha(*res)
+                    if Kg in (edge, edge + 1):
+                        ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, dimension=dim,
+                                                      order=order, weighting=w, knowns=kn,
+                                                      max_iter=3)[1]
+                        hist = torch.bincount(it, minlength=4) - torch.bincount(ref, minlength=4)
+                        tally[0] += int((it == ref).sum())
+                        tally[1] += int(((it - ref).abs() <= 1).sum())
+                        tally[2] += int(hist.abs().sum()) // 2
+                        tally[3] += it.numel()
     out["thread_grid_sha256"] = grid
+    out["edge_counts_vs_plain"] = {k: {"equal": t[0] / t[3], "within_one": t[1] / t[3],
+                                       "histogram_distance": t[2] / t[3], "cases": t[3]}
+                                   for k, t in edge_counts.items()}
     return out
 
 
@@ -3771,6 +3703,7 @@ def measure_rows_paths(other_root):
                       "thread_grid_differ": differ,
                       "launch_ms_median": {p: [r[p]["launch_ms"][0] for r in runs]
                                            for p in paths},
+                      "edge_counts_vs_plain": [r["edge_counts_vs_plain"] for r in runs],
                       "thread_configs_ms": {c: [r["thread_configs_ms"][c] for r in runs]
                                             for c in runs[0]["thread_configs_ms"]}}), flush=True)
     return runs, same

@@ -262,50 +262,89 @@ def test_rows_kernel_matches_plain(dev, dim):
     assert equal / total >= 0.5 and within / total >= 0.8 and apart / total <= 0.1
 
 
+def _rows_layout(dim, K):
+    """The rows library's thread-body layout for (dim, K): the doubles a
+    case stages (0: nothing staged), cases a block, shared memory a block."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    assert fit_rows.load().lib.wlsqm_rows_thread_layout(dim, K, out) == 0
+    return tuple(out)
+
+
+def _count_tally(got, ref):
+    """ALGO_ITERATIVE counts against a reference's: (equal, within one,
+    histogram distance), each a count of cases."""
+    apart = (torch.bincount(got, minlength=4) - torch.bincount(ref, minlength=4)).abs()
+    return (int((got == ref).sum()), int(((got - ref).abs() <= 1).sum()),
+            int(apart.sum()) // 2)
+
+
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_rows_thread_body_layouts_match_plain(dev, dim):
     """Every thread-body (dim, order) at the largest K whose offsets are
-    staged (fit_rows.thread_layout) and one past it (nothing staged), ragged
-    nk with NaN padding, both weightings, a random knowns mask and max_iter
-    3: with sens (the staged instance where the layout stages) fi and sens
-    against the plain version (1e-10), and fi and the counts bit for bit
-    those of the same launch without sens (the instance that stages
-    nothing; the sens loop runs after both are written)."""
+    staged (the library's thread layout) and one past it (nothing staged),
+    ragged nk with NaN padding, both weightings, a random knowns mask and
+    max_iter 3: with sens (the staged instance where the layout stages) fi
+    and sens against the plain version (1e-10), and fi and the counts bit
+    for bit those of the same launch without sens (the instance that stages
+    nothing; the sens loop runs after both are written).
+
+    Counts against the plain version, pooled over orders and weightings at
+    each K: >= 50% equal and >= 80% within one, and a histogram distance no
+    larger than the launch without sens reads against the same plain counts.
+    That launch is the design before the staged one; at these K its distance
+    is above the 0.1 bar of test_rows_kernel_matches_plain (0.12-0.13 on an
+    H100: an open question, ROADMAP queue C), so it is the reading here."""
     g = torch.Generator().manual_seed(100 + dim)
-    edge = max(K for K in range(1, 200) if fit_rows.thread_layout(dim, K))
-    for order in range(5):
-        if fit_rows.warp_body(dim, order):
-            continue
-        NO = wtt.number_of_dofs(dim, order)
-        for K in (edge, edge + 1):
+    edge = max(K for K in range(1, 200) if _rows_layout(dim, K)[0])
+    for K in (edge, edge + 1):
+        staged_tally, unstaged_tally, total = [0, 0, 0], [0, 0, 0], 0
+        for order in range(5):
+            if fit_rows.warp_body(dim, order):
+                continue
+            NO = wtt.number_of_dofs(dim, order)
             for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
                 xk, fk, nk, xi = _cloud(dev, 1031, K, order, K + w, dim,
                                         lo=2 * NO if dim == 1 else None)
                 fi0 = torch.randn((1031, NO), dtype=torch.float64, device=dev)
                 kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
                 kw = dict(dimension=dim, order=order, weighting=w, knowns=kn, max_iter=3)
-                got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, do_sens=True, **kw)
-                plain = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                staged = fit_rows.fit_rows(xk, fk, nk, xi, fi0, do_sens=True, **kw)
+                unstaged = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
                 ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, do_sens=True, **kw)
                 torch.cuda.synchronize()
-                assert _rel(got[0], ref[0]) <= PARITY, (order, K, w)
-                assert _rel_nan(got[2], ref[2]) <= PARITY, (order, K, w)
-                assert 1 <= int(got[1].min()) and int(got[1].max()) <= 3
-                assert torch.equal(_bits(got[0]), _bits(plain[0])), (order, K, w)
-                assert torch.equal(got[1], plain[1]), (order, K, w)
+                assert _rel(staged[0], ref[0]) <= PARITY, (order, K, w)
+                assert _rel_nan(staged[2], ref[2]) <= PARITY, (order, K, w)
+                assert 1 <= int(staged[1].min()) and int(staged[1].max()) <= 3
+                assert torch.equal(_bits(staged[0]), _bits(unstaged[0])), (order, K, w)
+                assert torch.equal(staged[1], unstaged[1]), (order, K, w)
+                for tally, got in ((staged_tally, staged[1]), (unstaged_tally, unstaged[1])):
+                    for i, v in enumerate(_count_tally(got, ref[1])):
+                        tally[i] += v
+                total += ref[1].numel()
+        equal, within, apart = staged_tally
+        assert equal / total >= 0.5 and within / total >= 0.8, (K, staged_tally, total)
+        assert apart <= unstaged_tally[2], (K, staged_tally, unstaged_tally, total)
 
 
-def test_rows_thread_layout_is_the_librarys(dev):
-    """fit_rows.thread_layout is the rule the library launches with."""
-    import ctypes
-
-    lib = fit_rows.load().lib
-    out = (ctypes.c_int * 3)()
+def test_rows_thread_layout_stages_the_measured_configurations(dev):
+    """The library's thread layout: a case's offsets, fk and weights
+    (K (dim + 2) doubles) in an odd number of doubles while 64 cases of
+    them fit 128 KB, else nothing staged.  The adjoint step's launch (2D,
+    K = 12) and the rows cut's NO = 10 ones (2D at K = 30, 3D at K = 48)
+    stage; the wide K and 3D's grid K do not; the staging edges are K = 85,
+    63 and 51 in 1D, 2D and 3D."""
     for dim in (1, 2, 3):
         for K in (*range(0, 90), 130, 152, 400):
-            assert lib.wlsqm_rows_thread_layout(dim, K, out) == 0
-            assert tuple(out) == (fit_rows.thread_layout(dim, K), fit_rows.THREAD_CASES,
-                                  fit_rows.THREAD_SMEM_BUDGET)
+            ld, cases, budget = _rows_layout(dim, K)
+            assert (cases, budget) == (64, 128 * 1024)
+            assert ld == (0 if K * (dim + 2) > budget // (8 * cases) - 1 else (K * (dim + 2)) | 1)
+            assert 8 * cases * ld <= budget
+    assert [_rows_layout(*c)[0] for c in ((2, 12), (2, 30), (3, 48))] == [49, 121, 241]
+    assert _rows_layout(2, 130)[0] == _rows_layout(3, 56)[0] == 0
+    for dim, edge in ((1, 85), (2, 63), (3, 51)):
+        assert _rows_layout(dim, edge)[0] and not _rows_layout(dim, edge + 1)[0]
 
 
 def test_rows_cuda_call_never_runs_the_plain_version(dev, monkeypatch):

@@ -415,29 +415,6 @@ def test_body_rule_and_shared_memory(dim, order):
             % (sizes[False, False], sizes[False, True], sizes[True, False]) in block)
 
 
-@pytest.mark.parametrize("K", [0, 1, 2, 12, 30, 31, 48, 51, 52, 63, 64, 85, 86, 130])
-@pytest.mark.parametrize("dim", [1, 2, 3])
-def test_thread_layout(dim, K):
-    """The thread body's shared memory a case for K neighbours: the offsets,
-    fk and weights (K (dim + 2) doubles) in an odd number of doubles when a
-    block of them fits the budget, else 0 (nothing staged)."""
-    ld = fit_rows.thread_layout(dim, K)
-    avail = fit_rows.THREAD_SMEM_BUDGET // (8 * fit_rows.THREAD_CASES) - 1
-    assert 8 * fit_rows.THREAD_CASES * ld <= fit_rows.THREAD_SMEM_BUDGET
-    assert ld == (0 if K * (dim + 2) > avail else (K * (dim + 2)) | 1)
-    assert ld % 2 == 1 or ld == 0
-
-
-def test_thread_layout_at_the_measured_configurations():
-    """The adjoint step's launch (2D, K = 12) and the rows cut's NO = 10
-    ones (2D at K = 30, 3D at K = 48) stage their offsets; the wide K
-    stages nothing."""
-    assert fit_rows.thread_layout(2, 12) == 49
-    assert fit_rows.thread_layout(2, 30) == 121
-    assert fit_rows.thread_layout(3, 48) == 241
-    assert fit_rows.thread_layout(2, 130) == fit_rows.thread_layout(3, 56) == 0
-
-
 def test_plain_matches_jax_engine_at_the_adjoint_configuration():
     """The adjoint example's launch (2D, order 2, K = 12, CENTER, do_sens,
     the thread body) on 1,024 cases of its grid: fi and sens of the plain

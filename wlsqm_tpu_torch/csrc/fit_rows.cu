@@ -91,7 +91,7 @@
 // at NO <= 6 the sens loop solves two columns side by side.  Keeping the
 // basis rows in shared memory too, or writing the sens blocks out through
 // it, was slower on the adjoint shapes (the shared memory cost resident
-// warps, the write-out a barrier; chip_smoke.measure_rows_variants; PERF.md).
+// warps, the write-out a barrier; PERF.md).
 // The arithmetic of every output is the design before's, operation for
 // operation: fi, the counts, sens and the key are its bits
 // (chip_smoke.measure_rows_paths).  The cut was timed with both
@@ -313,27 +313,18 @@ struct Hood {
 };
 
 // The thread body's cases a block, and the shared memory its layout may
-// take a block (both -D options of the measurement builds; ops/fit_rows
-// mirrors the shipped values).
-#ifndef WLSQM_ROWS_CASES
-#define WLSQM_ROWS_CASES 64
-#endif
-#ifndef WLSQM_ROWS_SMEM_BUDGET
-#define WLSQM_ROWS_SMEM_BUDGET (128 * 1024)
-#endif
-constexpr int kTB = WLSQM_ROWS_CASES;
-constexpr int kSmemBudget = WLSQM_ROWS_SMEM_BUDGET;
+// take a block (measured on the H100 against 25, 64 and 8 KB budgets, 128
+// cases a block and one or four sens columns: PERF.md).
+constexpr int kTB = 64;
+constexpr int kSmemBudget = 128 * 1024;
 constexpr int kPlainTB = 128;  // cases a block of the instance that stages nothing
 static_assert(kSmemBudget <= 227 * 1024, "more shared memory than a block may have");
 
 // Sens columns a thread of the thread body solves side by side where NO is
-// small (a -D option of the measurement builds): independent chains of
-// dependent divisions and multiply-adds, with one row read for all of them.
-#ifndef WLSQM_ROWS_SENS_COLS
-#define WLSQM_ROWS_SENS_COLS 2
-#endif
+// small: independent chains of dependent divisions and multiply-adds, with
+// one row read for all of them.
 __host__ __device__ constexpr int sens_cols(int no) {
-  return no <= 6 ? WLSQM_ROWS_SENS_COLS : 1;
+  return no <= 6 ? 2 : 1;
 }
 
 // The thread body's shared memory, one case's slice of ld doubles (odd, so
@@ -1273,7 +1264,8 @@ extern "C" int wlsqm_fit_rows(const void* xk, const void* fk, const void* nk,
 }
 
 // The thread body's layout for dim and K into out[3]: ld, cases a block,
-// the shared-memory budget a block (ops/fit_rows.thread_layout mirrors it).
+// the shared-memory budget a block (the card tests read the staging edge
+// from it).
 extern "C" int wlsqm_rows_thread_layout(int dim, int K, int* out) {
   if (dim < 1 || dim > 3 || K < 0) return (int)cudaErrorInvalidValue;
   out[0] = thread_layout(dim, K), out[1] = kTB, out[2] = kSmemBudget;

@@ -29,12 +29,14 @@
 //     from their rows through the read-only path, one index load per row a
 //     thread touches (neighbouring threads' loads of one index meet in L1).
 //     gather_vec16 has the row width as a template argument (rows of 1, 2,
-//     3, 4 or 6 words, and 8 or 16 in 16-byte pieces); gather_vecs takes
-//     any other width at run time, with one 32-bit division a thread.  On
-//     the Euler rows the two measured 2.87 and 2.97 ms, one thread a row
-//     with its four 16-byte loads in flight 4.76 ms, and the word copy that
-//     took these rows before 7.16 ms (chip_smoke.measure_gather_variants;
-//     NVIDIA H100 80GB HBM3, 700 W; PERF.md);
+//     3, 4 or 6 words); gather_vecs takes any other width at run time and
+//     finds a vector's row by a multiply and a shift with a multiplier the
+//     host computes, where a 32-bit division cost it 3% on the Euler rows.
+//     On those rows the width as a template measured 2.87 ms, the run-time
+//     width with the division 2.97 ms, one thread a row with its four
+//     16-byte loads in flight 4.76 ms, and the word copy that took these
+//     rows before 7.16 ms (chip_smoke.measure_gather_variants; NVIDIA H100
+//     80GB HBM3, 700 W; PERF.md);
 //   * gather_words, for what no vector fits (an output that is not 16-byte
 //     aligned): one thread per output word, the word index fastest;
 //   * 64-bit offsets (R * W reaches 7e8 at 2^22 cases, K = 28, F = 3, f64);
@@ -115,16 +117,25 @@ gather_vec16(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
   __stcs(reinterpret_cast<uint4*>(out) + v, make_uint4(x[0], x[1], x[2], x[3]));
 }
 
+// p / d, for 32-bit p < 2^31 by a multiply and a shift with the host's
+// (mul, shift) from div_magic (Granlund and Montgomery), else by a division
+template <typename Idx>
+__device__ __forceinline__ Idx quotient(Idx p, Idx d, uint32_t mul, int shift) {
+  if constexpr (sizeof(Idx) == 4) return d == 1 ? p : __umulhi(p, mul) >> shift;
+  else return p / d;
+}
+
 // One thread per 16-byte vector of the output for a row width W that no
 // template above takes, W a run-time argument: the same pieces, stores and
-// ragged last vector as gather_vec16, with one division a thread (Idx: 32
-// bits when the piece count fits, else 64) and each row's index loaded once
-// a thread.
+// ragged last vector as gather_vec16, with the vector's first row found by
+// quotient (Idx: 32 bits when the piece count is below 2^31, else 64) and
+// each row's index loaded once a thread.
 template <int LOAD, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 gather_vecs(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
             const int32_t* __restrict__ idx, uint32_t* __restrict__ out0,
-            uint32_t* __restrict__ out1, int64_t n, int64_t rows, int W) {
+            uint32_t* __restrict__ out1, int64_t n, int64_t rows, int W, uint32_t mul,
+            int shift) {
   constexpr int P = LOAD / 4;  // words per piece
   constexpr int PV = 4 / P;    // pieces per vector
   const int64_t total = rows * W;
@@ -141,7 +152,7 @@ gather_vecs(const uint32_t* __restrict__ u0, const uint32_t* __restrict__ u1,
   }
   const Idx PR = (Idx)(W / P);  // pieces per row
   const Idx p0 = (Idx)v * PV;
-  Idx r = p0 / PR, c = p0 - r * PR;
+  Idx r = quotient(p0, PR, mul, shift), c = p0 - r * PR;
   const uint32_t* src = u + clamp_row(__ldg(idx + r), n) * W;
   uint32_t x[4];
 #pragma unroll
@@ -189,22 +200,31 @@ void launch_vec(const Call& c) {
                                                      c.n, c.rows);
 }
 
+// the multiplier and shift of quotient for a divisor d >= 2 and dividends
+// below 2^31: l = ceil(log2 d), mul = ceil(2^(31 + l) / d), shift = l - 1
+void div_magic(uint32_t d, uint32_t* mul, int* shift) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  *mul = (uint32_t)(((1ull << (31 + l)) + d - 1) / d), *shift = l - 1;
+}
+
 template <int LOAD>
 void launch_vecs(const Call& c) {
   const int64_t vecs = (c.rows * c.words + 3) / 4;
   const dim3 grid((unsigned)((vecs + kThreads - 1) / kThreads), c.u1 ? 2 : 1);
-  if (c.rows * c.words / (LOAD / 4) < (1LL << 32))
-    gather_vecs<LOAD, uint32_t><<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0,
-                                                             c.out1, c.n, c.rows, c.words);
+  uint32_t mul = 0;
+  int shift = 0;
+  div_magic((uint32_t)(c.words / (LOAD / 4)), &mul, &shift);
+  if (c.rows * c.words / (LOAD / 4) < (1LL << 31))
+    gather_vecs<LOAD, uint32_t><<<grid, kThreads, 0, c.st>>>(
+        c.u0, c.u1, c.idx, c.out0, c.out1, c.n, c.rows, c.words, mul, shift);
   else
-    gather_vecs<LOAD, uint64_t><<<grid, kThreads, 0, c.st>>>(c.u0, c.u1, c.idx, c.out0,
-                                                             c.out1, c.n, c.rows, c.words);
+    gather_vecs<LOAD, uint64_t><<<grid, kThreads, 0, c.st>>>(
+        c.u0, c.u1, c.idx, c.out0, c.out1, c.n, c.rows, c.words, mul, shift);
 }
 
 // the vector instance of (words, load bytes): a template for rows of 1, 2,
-// 3, 4 or 6 words, and of 8 or 16 words in 16-byte pieces (f64 rows of 4 or
-// 8 fields: 3% faster than the run-time width, PERF.md), the run-time width
-// for the rest
+// 3, 4 or 6 words, the run-time width for the rest
 bool launch_vec_instance(const Call& c, int load) {
 #define WLSQM_VEC(W, L)                      \
   if (c.words == W && load == L) {           \
@@ -220,8 +240,6 @@ bool launch_vec_instance(const Call& c, int load) {
   WLSQM_VEC(4, 16)
   WLSQM_VEC(6, 4)
   WLSQM_VEC(6, 8)
-  WLSQM_VEC(8, 16)
-  WLSQM_VEC(16, 16)
 #undef WLSQM_VEC
   switch (load) {
     case 4: launch_vecs<4>(c); return true;

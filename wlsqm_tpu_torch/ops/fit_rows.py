@@ -116,25 +116,6 @@ WARP_MIN_NO = 11
 _KC, _LDX = 32, 36
 
 
-#: cases a block of the thread body's staged instance, and the shared
-#: memory its layout may take a block (csrc/fit_rows.cu: kTB, kSmemBudget;
-#: measured on the H100 with chip_smoke.measure_rows_variants, PERF.md)
-THREAD_CASES = 64
-THREAD_SMEM_BUDGET = 128 * 1024
-
-
-def thread_layout(dimension: int, K: int) -> int:
-    """One case's slice of the thread body's shared memory for K neighbours,
-    in doubles: its offsets, fk and weights, K (dimension + 2) rounded up to
-    an odd number, or 0 when a block of ``THREAD_CASES`` such slices passes
-    ``THREAD_SMEM_BUDGET``.  The rule of ``csrc/fit_rows.cu:thread_layout``,
-    which the library exports (``wlsqm_rows_thread_layout``).  A launch with
-    sens and a slice runs the staged instance (``8 * THREAD_CASES * ld``
-    bytes a block); every other launch the instance that stages nothing."""
-    base = K * (dimension + 2)
-    return 0 if base > THREAD_SMEM_BUDGET // (8 * THREAD_CASES) - 1 else base | 1
-
-
 def warp_body(dimension: int, order: int) -> bool:
     """Whether the kernel instance of (dimension, order) is the warp body:
     a compile-time rule on NO, written into the generated header."""

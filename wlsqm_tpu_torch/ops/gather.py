@@ -189,10 +189,9 @@ def _vector_plan(row_bytes: int, u_ptr: int, out_ptr: int):
     None for the word instance.
 
     The vector instance takes rows of any whole number of words with
-    ``out_ptr`` 16-byte aligned (rows of 1, 2, 3, 4 or 6 words, and of 8 or 16
-    in 16-byte pieces, by a template of their width, the rest by one with
-    the width an argument); ``load``
-    is the widest of 16, 8 and 4 bytes that divides the row and ``u_ptr``.
+    ``out_ptr`` 16-byte aligned (rows of 1, 2, 3, 4 or 6 words by a
+    template of their width, the rest by one with the width an argument);
+    ``load`` is the widest of 16, 8 and 4 bytes that divides the row and ``u_ptr``.
     Pass the OR of both planes' pointers for the pair (the OR's alignment is
     the smaller one).  Width and alignment decide, never a failure.
     """
