@@ -144,6 +144,9 @@ K_WIDE = 130            # the warp body's configurations again: five chunks of 3
                         # last ragged
 ROWS_STAGE_EDGE = {1: 85, 2: 63, 3: 51}  # the largest K whose offsets the rows thread body
                         # stages with sens (csrc/fit_rows.cu thread_layout: K (dim + 2) <= 255)
+K_DIM1 = 15             # the dim1 path: the reference's configuration 3, 1D half (order 4)
+ORDER_DIM3_THREAD = 2   # the dim3_thread path: 3D order 2 at K_DIM3 (the moment thread body)
+COUNT_TIE_ULPS = 4      # a count tie: one side's norm repeats, the other's moves <= this many ulps
 ORDER = 4
 PARITY = 1e-10          # L∞ error relative to max(|ref|, 1), parity_check's bar
 REPS = 5                # timed repetitions after one warm-up; the median is reported
@@ -413,8 +416,8 @@ def phase_build():
     brx = {name: _indirect_branches(lib.path) for name, lib in libs.items()
            if name.startswith("fit_moment")}
     print(json.dumps({"fit_moment_indirect_branches": brx}), flush=True)
-    if sum(len(per) for per in brx.values()) != 2 * (10 + 30 + 10):
-        raise RuntimeError("phase_build found %s moment instances, not 100" % (
+    if sum(len(per) for per in brx.values()) != 2 * (30 + 30 + 22):
+        raise RuntimeError("phase_build found %s moment instances, not 164" % (
             {k: len(v) for k, v in brx.items()},))
     if any(n for per in brx.values() for n in per.values()):
         raise RuntimeError("fit_moment has indirect branches (BRX): %s" % (brx,))
@@ -431,6 +434,27 @@ def phase_build():
     if len(iterative["fit_moment_d2"]) != 10 or worst > MOMENT_SPILL_BYTES:
         raise RuntimeError("the 2D ALGO_ITERATIVE fit_moment instances spill %d bytes (> %d), "
                            "or are not 10: %s" % (worst, MOMENT_SPILL_BYTES, iterative))
+    # the 1D and 3D thread body's basic and ALGO_ITERATIVE instances (PR 13)
+    # beside the instance with knowns and ALGO_ITERATIVE that ran every mode
+    # before them: a basic instance spills no more than it on its (order,
+    # weighting)
+    split, worse = {}, []
+    for name in ("fit_moment_d1", "fit_moment_d1_cond", "fit_moment_d3", "fit_moment_d3_cond"):
+        per = _ptxas_summary(libs[name].log)
+        for inst, v in per.items():
+            m = re.fullmatch(r"fit_moment_thread<(\d),(\d),(\d),([012])>", inst)
+            if not m:
+                continue
+            split.setdefault(name, {})[inst] = v
+            spill = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+            merged = per["fit_moment_thread<%s,%s,%s,1>" % m.groups()[:3]]
+            if m.group(4) == "0" and spill > (merged.get("spill_stores", 0)
+                                              + merged.get("spill_loads", 0)):
+                worse.append((name, inst, v, merged))
+    print(json.dumps({"fit_moment_thread_1d_3d_ptxas": split}), flush=True)
+    if worse or sum(len(v) for v in split.values()) != 2 * (30 + 18):
+        raise RuntimeError("a 1D or 3D basic thread instance spills more than the one with "
+                           "knowns, or the instances are not 96: %s" % (worse,))
 
 
 def _indirect_branches(path):
@@ -513,6 +537,11 @@ def phase_moment_vs_plain(dev, wtt):
                 and (not mi or torch.equal(got[1], key[1]))):
             raise RuntimeError("moment kernel %s: fi differs with the key, or a known DOF "
                                "is not fi_init's bits" % name)
+        if dim != 2 and not kn and not fit_kernel.warp_body(dim, order) and \
+                not _merged_instance_bits(xk, fk, nk, xi, fi, key, order=order, weighting=w,
+                                          max_iter=mi):
+            raise RuntimeError("moment kernel %s: the basic or ALGO_ITERATIVE instance is not "
+                               "the bits of the one with knowns" % name)
         err = (fi - fr).abs().amax(1) / fr.abs().amax(1).clamp_min(1.0)
         under = (key[-1] <= edge) if dim == 1 else torch.ones_like(key[-1], dtype=torch.bool)
         rel = err[under].max().item() if bool(under.any()) else 0.0
@@ -546,6 +575,28 @@ def phase_moment_vs_plain(dev, wtt):
                       "worst_rel": worst_rel, "worst_abs": worst_abs, "tol": PARITY}),
           flush=True)
     return worst_abs, worst_rel
+
+
+def _merged_instance_bits(xk, fk, nk, xi, fi, key, *, order, weighting, max_iter):
+    """Whether the instance compiled with knowns and ALGO_ITERATIVE (ext 1:
+    the one 1D and 3D calls ran before PR 13 split them) gives, without
+    knowns, fi, the counts and the key of the call's own instance (``fi``,
+    ``key``: fit_kernel's results without and with the key) bit for bit."""
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    out = torch.empty_like(fi)
+    out_k = torch.empty_like(fi)
+    est = torch.empty_like(key[-1])
+    its = its_k = None
+    if max_iter:
+        its, its_k = torch.empty_like(key[1]), torch.empty_like(key[1])
+    kw = dict(order=order, weighting=weighting, refine_steps=fit_kernel.DEFAULT_REFINE_STEPS,
+              max_iter=max_iter, ext=1)
+    fit_kernel._launch(xk, fk, nk, xi, out, iters=its, **kw)
+    fit_kernel._launch(xk, fk, nk, xi, out_k, est, iters=its_k, **kw)
+    torch.cuda.synchronize()
+    return (_same_bits(out, fi) and _same_bits(out_k, key[0]) and _same_bits(est, key[-1])
+            and (not max_iter or (torch.equal(its, key[1]) and torch.equal(its_k, key[1]))))
 
 
 def phase_moment_scale(dev):
@@ -968,7 +1019,7 @@ def phase_sens(dev, wtt):
 
 
 def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its=None,
-                  plain_b=B_PLAIN):
+                  plain_b=B_PLAIN, order=ORDER, weighting=2):
     """The moment kernel on one path: the route, fit_kernel and the launch at
     the path's B; fit_kernel, the launch, the plain version and the library
     yardstick (torch.linalg.lstsq on the prebuilt sqrt(w)-weighted basis) at
@@ -979,9 +1030,9 @@ def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its
 
     xk, fk, nk, xi = data
     B = xk.shape[0]
-    NO = defs.number_of_dofs(dim, ORDER)
-    W, RS = wtt.WEIGHT_CENTER, fit_kernel.DEFAULT_REFINE_STEPS
-    kw = dict(dimension=dim, order=ORDER, weighting=W, max_iter=max_iter)
+    NO = defs.number_of_dofs(dim, order)
+    W, RS = weighting, fit_kernel.DEFAULT_REFINE_STEPS
+    kw = dict(dimension=dim, order=order, weighting=W, max_iter=max_iter)
     times, bounds = {}, {}
     tag = "2^%d" % int(math.log2(B))
     times["route_" + tag] = _time_ms(route)
@@ -991,9 +1042,9 @@ def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its
         b = d[0].shape[0]
         out = torch.empty((b, NO), dtype=torch.float64, device=dev)
         iters = torch.empty((b,), dtype=torch.int32, device=dev) if max_iter else None
-        flops = _moment_flops(ORDER, True, d[2].long(), RS, dim=dim, iters=it,
-                              max_iter=max_iter)
-        return ((lambda: fit_kernel._launch(*d, out, iters=iters, order=ORDER, weighting=W,
+        flops = _moment_flops(order, W == wtt.WEIGHT_CENTER, d[2].long(), RS, dim=dim,
+                              iters=it, max_iter=max_iter)
+        return ((lambda: fit_kernel._launch(*d, out, iters=iters, order=order, weighting=W,
                                             refine_steps=RS, max_iter=max_iter)),
                 _bound((*d, out, iters), flops))
 
@@ -1007,13 +1058,14 @@ def _moment_times(dev, wtt, name, data, *, dim, route, launches, max_iter=0, its
     times["launch_2^18"] = _time_ms(fn)
     del fn
     times["plain_2^18"] = _time_ms(lambda: fit_kernel.fit_moments_plain(*small, **kw))
-    A, sw, fkm = _weighted_basis(*small, dim, ORDER, W)
+    A, sw, fkm = _weighted_basis(*small, dim, order, W)
     rhs = (sw * fkm)[..., None]
     times["library_lstsq_2^18"] = _time_ms(lambda: torch.linalg.lstsq(A, rhs))
     del A, rhs, sw, fkm
     med = {k: v[0] for k, v in times.items()}
     print(json.dumps({
-        "path": name, "kernel": "fit_moment", "ms": {k: v[1] for k, v in times.items()},
+        "path": name, "kernel": "fit_moment", "dim": dim, "order": order, "weighting": W,
+        "max_iter": max_iter, "ms": {k: v[1] for k, v in times.items()},
         "fits_per_s": {k: (B if k.endswith(tag) else plain_b) / v * 1e3
                        for k, v in med.items()},
         "bound_" + tag: bounds[tag], "bound_2^18": bounds["2^18"],
@@ -1152,7 +1204,223 @@ def phase_dim3(dev, wtt):
     return k1, k2
 
 
-def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
+def _dim1_cloud(B, gen, dev, K=K_DIM1):
+    """The reference's configuration 3, 1D half (benchmarks/run_configs.py
+    l.117-128), grown to B cases: centres uniform in [-1, 1], K neighbours at
+    the centre plus U(-0.5, 0.5), fk = exp(xk)."""
+    xi = torch.rand((B, 1), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    xk = xi[:, None, :] + (torch.rand((B, K, 1), generator=gen, device=dev,
+                                      dtype=torch.float64) - 0.5)
+    fk = torch.exp(xk[..., 0])
+    nk = torch.full((B,), K, dtype=torch.int32, device=dev)
+    return xk, fk, nk, xi
+
+
+def _scipy_1d(xk, fk, xi, order):
+    """parity_check's reference in 1D, UNIFORM: per case scipy's f64
+    symmetric solve of the normal equations of the factorial-scaled monomials
+    of the offsets (NumPy in, (B, order + 1) out)."""
+    from math import factorial
+
+    import scipy.linalg
+
+    p = np.arange(order + 1)
+    invf = np.array([1.0 / factorial(int(q)) for q in p])
+    out = np.empty((xk.shape[0], order + 1))
+    for j in range(xk.shape[0]):
+        c = ((xk[j, :, 0] - xi[j, 0])[:, None] ** p) * invf
+        out[j] = scipy.linalg.solve(c.T @ c, c.T @ fk[j], assume_a="sym")
+    return out
+
+
+def _thread_ptxas(libs, pattern):
+    """The ptxas report of the moment (or rows) instances whose name matches
+    ``pattern``, by library: {library: {instance: {registers, spills}}}."""
+    return {name: {k: v for k, v in _ptxas_summary(lib.log).items() if re.fullmatch(pattern, k)}
+            for name, lib in libs.items()}
+
+
+def phase_dim1(dev, wtt):
+    """The dim1 path: the reference's configuration 3, 1D half (order 4,
+    K = 15, WEIGHT_UNIFORM; benchmarks/run_configs.py l.117-128) grown to
+    2^23 cases, through plan_fit_many + fit_many(plan=) (the certified
+    route: the moment kernel's 1D thread body with its key, the engine for
+    the tail past the key edge), then the same cloud at max_iter = 3 through
+    the route fit_1D_iterative_many takes without count fidelity
+    (fit_many(backend="auto", gate="data"): the moment kernel with its key
+    on every case, the engine again for the cases the data gate keeps off
+    it).  Each against the port's f64 engine on its first B_ENGINE cases and
+    scipy through parity_check's rule on B_SCIPY (printed); on this
+    low-frequency field every f64 normal-equation solve, scipy's and the
+    engine's included, lies 1.3-2.6e-10 from the long-double-refined oracle
+    on an H100 (ROADMAP C4: the geometry certificate keeps cases whose moment
+    fit is that far off too), so the first B_SCIPY cases are held there: the
+    route's worst error within PARITY or at most ORACLE_FACTOR times the
+    worst of the port's f64 engine on the same cases.
+    The launches (basic, with the key, with ALGO_ITERATIVE) timed beside
+    their bounds, the plain version and lstsq."""
+    from wlsqm_tpu_torch.fitter import calibration
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xk, fk, nk, xi = _dim1_cloud(B_MAIN, torch.Generator(device=dev).manual_seed(46), dev)
+    W = wtt.WEIGHT_UNIFORM
+    kw = dict(order=ORDER, weighting=W)
+    plan = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw)
+    if plan.route.assembly != "moments" or not plan.route.path.startswith("kernel"):
+        raise RuntimeError("the dim1 plan did not route to the moment kernel: %s" % (plan,))
+    itkw = dict(kw, iterative=True, max_iter=MAX_ITER, backend="auto", gate="data")
+    s = slice(0, B_ENGINE)
+    rec, fits = {}, {}
+    for name, call, ekw in (("plan", lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw), kw),
+                            ("iterative", lambda: wtt.fit_many(xk, fk, xi, nk=nk, **itkw),
+                             dict(kw, iterative=True, max_iter=MAX_ITER))):
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _kernel_launches()
+        if launches["fit_moment"] < 1 or launches["fit_rows"] or launches["gather_rows"]:
+            raise RuntimeError("the dim1 %s route launched %s, not the moment kernel"
+                               % (name, launches))
+        fi = res.fi
+        if tuple(fi.shape) != (B_MAIN, 5) or not bool(torch.isfinite(fi).all()):
+            raise RuntimeError("dim1 %s: bad DOFs, shape %s" % (name, tuple(fi.shape)))
+        eng = wtt.fit_many(xk[s], fk[s], xi[s], nk=nk[s], backend="engine", **ekw).fi
+        o = slice(0, B_SCIPY)
+        sci = torch.from_numpy(_scipy_1d(*(t[o].cpu().numpy() for t in (xk, fk, xi)), ORDER))
+        plain = fit_kernel.fit_moments_plain(xk[o], fk[o], nk[o], xi[o], dimension=1,
+                                             max_iter=ekw.get("max_iter", 0), **kw)
+        plain = plain[0] if isinstance(plain, tuple) else plain
+        e = calibration.oracle_case_errors([fi[o], eng[o], sci, plain], xk[o], fk[o], nk[o],
+                                           xi[o], None, [], W, 1, ORDER)
+        kernel = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=1, emit_cond=True,
+                                       max_iter=ekw.get("max_iter", 0), **kw)[0]
+        rec[name] = {"launches": launches, "first_call_s": round(first_s, 4),
+                     "vs_engine": _rel(fi[s], eng), "vs_scipy": _rel(fi[o], sci.to(dev)),
+                     "engine_vs_scipy": _rel(eng[o], sci.to(dev)),
+                     "vs_oracle": float(e[0].max()), "engine_vs_oracle": float(e[1].max()),
+                     "scipy_vs_oracle": float(e[2].max()), "plain_vs_oracle": float(e[3].max()),
+                     "over_parity": int((e[0] > PARITY).sum()),
+                     "held": bool(e[0].max() <= max(ORACLE_FACTOR * e[1].max(), PARITY)),
+                     "kernel_bits_share": float((_bits(fi) == _bits(kernel)).all(1)
+                                                .double().mean())}
+        if name == "iterative":
+            rec[name]["counts"] = torch.bincount(res.iterations.long(),
+                                                 minlength=MAX_ITER + 1).tolist()
+        fits[name] = launches
+        del res, fi, eng, kernel
+    print(json.dumps({"path": "dim1", "B": B_MAIN, "K": K_DIM1, "order": ORDER,
+                      "weighting": "UNIFORM", "route": plan.route.path,
+                      "split_edge": plan.route.split_edge, "tail_frac": plan.route.tail_frac,
+                      "calls": rec, "tol": PARITY, "oracle_factor": ORACLE_FACTOR,
+                      "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}),
+          flush=True)
+    if not all(r["held"] for r in rec.values()):
+        raise RuntimeError("dim1: farther from the oracle than max(%.0e, %g x the f64 "
+                           "engine's worst): %s" % (PARITY, ORACLE_FACTOR, rec))
+    data = (xk, fk, nk, xi)
+    basic = _moment_times(dev, wtt, "dim1", data, dim=1, order=ORDER, weighting=W,
+                          launches=fits["plan"],
+                          route=lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw))
+    its = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=1, max_iter=MAX_ITER, **kw)[1]
+    iterative = _moment_times(dev, wtt, "dim1_iterative", data, dim=1, order=ORDER,
+                              weighting=W, launches=fits["iterative"], max_iter=MAX_ITER,
+                              its=its, route=lambda: wtt.fit_many(xk, fk, xi, nk=nk, **itkw))
+    out = torch.empty((B_MAIN, 5), dtype=torch.float64, device=dev)
+    est = torch.empty((B_MAIN,), dtype=torch.float64, device=dev)
+    key_ms = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out, est, order=ORDER,
+                                                 weighting=W,
+                                                 refine_steps=fit_kernel.DEFAULT_REFINE_STEPS))
+    ptxas = _thread_ptxas({"fit_moment_d1": fit_kernel.load(1),
+                           "fit_moment_d1_cond": fit_kernel.load(1, True)},
+                          r"fit_moment_thread<1,4,1,\d>")
+    print(json.dumps({"path": "dim1_launch", "B": B_MAIN,
+                      "launch_ms": basic["launch_ms_full"],
+                      "launch_with_key_ms": key_ms[0], "launch_with_key_ms_times": key_ms[1],
+                      "iterative_launch_ms": iterative["launch_ms_full"],
+                      "bound_ms": basic["bound_ms_full"], "bound_by": basic["bound_by_full"],
+                      "iterative_bound_ms": iterative["bound_ms_full"],
+                      "launch_vs_bound": basic["bound_ms_full"] / basic["launch_ms_full"],
+                      "iterative_launch_vs_bound":
+                          iterative["bound_ms_full"] / iterative["launch_ms_full"],
+                      "ptxas": ptxas}), flush=True)
+    return basic, iterative, key_ms[0], _sum_launches(fits.values())
+
+
+def _sum_launches(counts):
+    out = _launches()
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return out
+
+
+def phase_dim3_thread(dev, wtt):
+    """The dim3_thread path: 3D, order 2, K = K_DIM3, CENTER, 2^21 cases,
+    through fit_many(backend="kernel") as phase_dim3 runs its order-4 fit
+    (the forced kernel takes the moment body: here its 3D thread body), held
+    to the port's engine on B_ENGINE_DIM3 cases; the rows kernel's thread
+    body, which the certified route runs for this configuration, timed beside
+    it on the same cloud through a plan that names the rows body."""
+    from wlsqm_tpu_torch.fitter import defs, ladder
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    order = ORDER_DIM3_THREAD
+    NO = defs.number_of_dofs(3, order)
+    xk, fk, nk, xi = _cloud(B_ROWS, torch.Generator(device=dev).manual_seed(47), dev, dim=3,
+                            K=K_DIM3, order=order)
+    kw = dict(order=order, weighting=wtt.WEIGHT_CENTER)
+    auto = wtt.plan_fit_many(xk[:B_PLAN], xi[:B_PLAN], **kw).route
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = wtt.fit_many(xk, fk, xi, backend="kernel", **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _kernel_launches()
+    if launches != _launches(moment=1):
+        raise RuntimeError("the dim3_thread path did not run on the moment kernel alone: %s"
+                           % (launches,))
+    fi = res.fi
+    if tuple(fi.shape) != (B_ROWS, NO) or not bool(torch.isfinite(fi).all()):
+        raise RuntimeError("dim3_thread path: bad DOFs, shape %s" % (tuple(fi.shape),))
+    s = slice(0, B_ENGINE_DIM3)
+    err = _rel(fi[s], wtt.fit_many(xk[s], fk[s], xi[s], backend="engine", **kw).fi)
+    rows_plan = wtt.FitPlan(route=ladder.Route(path="kernel", assembly="rows"))
+    rows_fi = wtt.fit_many(xk[s], fk[s], xi[s], plan=rows_plan, **kw).fi
+    print(json.dumps({"path": "dim3_thread", "B": B_ROWS, "K": K_DIM3, "order": order,
+                      "route": "kernel (backend='kernel')", "auto_plan_route": auto.path,
+                      "launches": launches, "first_call_s": round(first_s, 4),
+                      "fi_vs_engine": err, "fi_vs_rows_kernel": _rel(fi[s], rows_fi),
+                      "tol": PARITY,
+                      "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}),
+          flush=True)
+    if err > PARITY:
+        raise RuntimeError("dim3_thread path parity: %.3e > %.0e" % (err, PARITY))
+    del res, fi, rows_fi
+    data = (xk, fk, nk, xi)
+    k1 = _moment_times(dev, wtt, "dim3_thread", data, dim=3, order=order,
+                       launches=launches["fit_moment"],
+                       route=lambda: wtt.fit_many(xk, fk, xi, backend="kernel", **kw))
+    k2 = _rows_times(dev, wtt, "dim3_thread_rows", data, plan=rows_plan, dim=3, order=order,
+                     do_sens=False, launches=0)
+    ptxas = _thread_ptxas({"fit_moment_d3": fit_kernel.load(3),
+                           "fit_moment_d3_cond": fit_kernel.load(3, True)},
+                          r"fit_moment_thread<3,2,2,\d>")
+    ptxas.update(_thread_ptxas({"fit_rows": fit_rows.load()}, r"fit_rows_thread<3,2,2.*>"))
+    print(json.dumps({"path": "dim3_thread_launch", "B": B_ROWS,
+                      "fit_moment_thread_launch_ms": k1["launch_ms_full"],
+                      "bound_ms": k1["bound_ms_full"], "bound_by": k1["bound_by_full"],
+                      "launch_vs_bound": k1["bound_ms_full"] / k1["launch_ms_full"],
+                      "fit_rows_launch_ms_same_cloud": k2["launch_ms_full"],
+                      "ptxas": ptxas}), flush=True)
+    return k1, k2
+
+def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches, order=ORDER):
     """Route (``plan``, which names the rows body), fit_rows and launch at
     2^21; fit_rows, launch, plain and the library yardstick at 2^18; the
     bounds at both sizes."""
@@ -1160,9 +1428,9 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
     from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 
     xk, fk, nk, xi = data
-    NO = defs.number_of_dofs(dim, ORDER)
+    NO = defs.number_of_dofs(dim, order)
     W, RS = wtt.WEIGHT_CENTER, fit_rows.DEFAULT_REFINE_STEPS
-    kw = dict(order=ORDER, weighting=W)
+    kw = dict(order=order, weighting=W)
     times, bounds = {}, {}
     times["route_2^21"] = _time_ms(
         lambda: wtt.fit_many(xk, fk, xi, plan=plan, do_sens=do_sens, **kw))
@@ -1175,8 +1443,8 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
         out = torch.empty((B, NO), dtype=torch.float64, device=dev)
         sens = torch.empty((B, Kd, NO), dtype=torch.float64, device=dev) if do_sens else None
         args = (*d, inv_s, None, out, None, sens)
-        flops = _rows_flops(dim, ORDER, True, d[2].long(), RS, do_sens, 0, 0)
-        return (lambda: fit_rows._launch(*args, order=ORDER, weighting=W, knowns=0,
+        flops = _rows_flops(dim, order, True, d[2].long(), RS, do_sens, 0, 0)
+        return (lambda: fit_rows._launch(*args, order=order, weighting=W, knowns=0,
                                          refine_steps=RS, max_iter=0)), _bound(args, flops)
 
     fn, bounds["2^21"] = launcher(data)
@@ -1186,7 +1454,7 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
         _, _, _, inv_s = fit_kernel._prescale(xk, nk, xi)
         out = torch.empty((xk.shape[0], NO), dtype=torch.float64, device=dev)
         times["launch_no_sens_2^21"] = _time_ms(lambda: fit_rows._launch(
-            xk, fk, nk, xi, inv_s, None, out, None, None, order=ORDER, weighting=W,
+            xk, fk, nk, xi, inv_s, None, out, None, None, order=order, weighting=W,
             knowns=0, refine_steps=RS, max_iter=0))
         del out, inv_s
     s = slice(0, B_PLAIN)
@@ -1198,7 +1466,7 @@ def _rows_times(dev, wtt, name, data, *, plan, dim, do_sens, launches):
     del fn
     times["plain_2^18"] = _time_ms(lambda: fit_rows.fit_rows_plain(
         *small, dimension=dim, do_sens=do_sens, **kw))
-    A, sw, fkm = _weighted_basis(*small, dim, ORDER, W)
+    A, sw, fkm = _weighted_basis(*small, dim, order, W)
     rhs = (sw * fkm)[..., None]
     if do_sens:   # fi and sensᵀ = (CᵀWC)⁻¹CᵀW in one call: [√w·fk, diag(√w)]
         rhs = torch.cat([rhs, torch.diag_embed(sw)], dim=2)
@@ -3255,7 +3523,7 @@ def _moment_phase_lib(dim, emit_cond):
                  "WLSQM_PHASE_CLOCK=1"), includes=fit_kernel._INCLUDES)
 
 
-def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
+def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond, order=ORDER, weighting=2):
     """One configuration through the phase-clock library: its launch time
     (median of REPS) beside the shipped library's, and per phase the mean
     clock64 cycles a case spent there and its share of the whole fit; the
@@ -3265,7 +3533,7 @@ def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
 
     xk, fk, nk, xi = data
     B, Kn, _ = xk.shape
-    NO = defs.number_of_dofs(dim, ORDER)
+    NO = defs.number_of_dofs(dim, order)
     dev = xk.device
     out = torch.empty((B, NO), dtype=torch.float64, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev) if max_iter else None
@@ -3273,15 +3541,15 @@ def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
     clocks = torch.zeros((B, len(MOMENT_CLOCK_PHASES)), dtype=torch.int64, device=dev)
     if lib.lib.wlsqm_moment_phase_buffer(clocks.data_ptr()) != 0:
         raise RuntimeError("phase clock: the buffer was not set")
-    W, RS = 2, fit_kernel.DEFAULT_REFINE_STEPS
+    W, RS = weighting, fit_kernel.DEFAULT_REFINE_STEPS
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    def go():
+    def go():   # ext 0: the call's own instance, as fit_kernel._launch picks it
         status = lib.lib.wlsqm_fit_moment(
             xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None, out.data_ptr(),
-            ptr(iters), ptr(est), B, Kn, dim, ORDER, W, 0, 0, RS, max_iter, int(max_iter > 0),
+            ptr(iters), ptr(est), B, Kn, dim, order, W, 0, 0, RS, max_iter, 0,
             torch.cuda.current_stream().cuda_stream)
         if status != 0:
             raise RuntimeError("phase-clock launch failed: CUDA error %d" % status)
@@ -3289,12 +3557,12 @@ def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
     clock_ms = _time_ms(go)
     shipped_ms = _time_ms(lambda: fit_kernel._launch(
         xk, fk, nk, xi, torch.empty_like(out), None if est is None else torch.empty_like(est),
-        iters=None if iters is None else torch.empty_like(iters), order=ORDER, weighting=W,
+        iters=None if iters is None else torch.empty_like(iters), order=order, weighting=W,
         refine_steps=RS, max_iter=max_iter))
     clocks.zero_()
     go()
     torch.cuda.synchronize()
-    ref = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=ORDER, weighting=W,
+    ref = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=dim, order=order, weighting=W,
                                 max_iter=max_iter, emit_cond=emit_cond)
     fi_ref = ref if not (max_iter or emit_cond) else ref[0]
     c = clocks.double()
@@ -3315,37 +3583,50 @@ def _moment_phase_split(lib, data, *, dim, max_iter, emit_cond):
                        torch.bincount(iters.long(), minlength=max_iter + 1).tolist())}
 
 
-def measure_moment_phases():
+def measure_moment_phases(paths=None):
     """Where a moment-kernel case spends its time, run by hand, not by main():
     the kernel built with its phase clock (-DWLSQM_PHASE_CLOCK=1, each case's
     clock64() cycles per phase: staging, scale, assembly, matrix build,
     Cholesky, key, first solve, sweeps, each ALGO_ITERATIVE trip's residual
     pass and sweep, store) on the smoke's paths: headline (2D basic, 2^23),
-    iterative (max_iter = 3, 2^23, without and with the key) and dim3 (3D
-    order 4, K = 48, the warp body, 2^21, without and with the key).  Its
-    fi is held to the shipped library's bits; its launch is timed beside
-    the shipped one's (what the clock reads costs).
+    iterative (max_iter = 3, 2^23, without and with the key), dim3 (3D
+    order 4, K = 48, the warp body, 2^21, without and with the key), dim1
+    (phase_dim1's cloud, 1D order 4, K = 15, UNIFORM, 2^23: basic, with the
+    key, and max_iter = 3) and dim3_thread (3D order 2, K = 48, CENTER, the
+    thread body, 2^21, without and with the key); ``paths``, a tuple of
+    those names (their ``_key`` twins run with them), or all.  Its fi is
+    held to the shipped library's bits; its launch is timed beside the
+    shipped one's (what the clock reads costs).
 
         python3 -c "import chip_smoke; chip_smoke.measure_moment_phases()"
     """
     dev = torch.device("cuda")
-    combos = ((2, False), (2, True), (3, False), (3, True))
+    runs = (("headline", 2, False, 0, B_MAIN, 42, K, ORDER, 2),
+            ("iterative", 2, False, MAX_ITER, B_MAIN, 45, K, ORDER, 2),
+            ("iterative_key", 2, True, MAX_ITER, B_MAIN, 45, K, ORDER, 2),
+            ("dim3", 3, False, 0, B_ROWS, 44, K_DIM3, ORDER, 2),
+            ("dim3_key", 3, True, 0, B_ROWS, 44, K_DIM3, ORDER, 2),
+            ("dim1", 1, False, 0, B_MAIN, 46, K_DIM1, ORDER, 1),
+            ("dim1_key", 1, True, 0, B_MAIN, 46, K_DIM1, ORDER, 1),
+            ("dim1_iterative", 1, False, MAX_ITER, B_MAIN, 46, K_DIM1, ORDER, 1),
+            ("dim3_thread", 3, False, 0, B_ROWS, 47, K_DIM3, ORDER_DIM3_THREAD, 2),
+            ("dim3_thread_key", 3, True, 0, B_ROWS, 47, K_DIM3, ORDER_DIM3_THREAD, 2))
+    if paths is not None:
+        runs = tuple(r for r in runs if r[0] in paths or r[0].removesuffix("_key") in paths)
+    combos = sorted({(r[1], r[2]) for r in runs})
     with concurrent.futures.ThreadPoolExecutor(len(combos)) as pool:
         libs = dict(zip(combos, pool.map(lambda a: _moment_phase_lib(*a), combos)))
     for (dim, cond), lib in libs.items():
         print(json.dumps({"library": os.path.basename(os.path.dirname(lib.path)),
                           "nvcc_s": lib.build_seconds, "ptxas": _ptxas_summary(lib.log)}),
               flush=True)
-    runs = (("headline", 2, False, 0, B_MAIN, 42, K),
-            ("iterative", 2, False, MAX_ITER, B_MAIN, 45, K),
-            ("iterative_key", 2, True, MAX_ITER, B_MAIN, 45, K),
-            ("dim3", 3, False, 0, B_ROWS, 44, K_DIM3),
-            ("dim3_key", 3, True, 0, B_ROWS, 44, K_DIM3))
     table = {}
-    for name, dim, cond, mi, B, seed, k in runs:
-        data = _cloud(B, torch.Generator(device=dev).manual_seed(seed), dev, dim=dim, K=k)
+    for name, dim, cond, mi, B, seed, k, order, w in runs:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        data = (_dim1_cloud(B, gen, dev, K=k) if dim == 1 else
+                _cloud(B, gen, dev, dim=dim, K=k, order=order))
         table[name] = _moment_phase_split(libs[(dim, cond)], data, dim=dim, max_iter=mi,
-                                          emit_cond=cond)
+                                          emit_cond=cond, order=order, weighting=w)
         print(json.dumps({name: table[name]}), flush=True)
         del data
         torch.cuda.empty_cache()
@@ -3630,6 +3911,155 @@ def _rows_path_times():
     return out
 
 
+def _rows_norm_lib():
+    """The rows kernel built to write its ALGO_ITERATIVE trips' norms
+    (-DWLSQM_ROWS_NORMS=1): a measurement library that no route loads."""
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return native.build(
+        "fit_rows_norms", [fit_rows._SRC], {fit_rows._HEADER: fit_rows.tables_header()},
+        {fit_rows._ENTRY: (i32, [vp] * 10 + [i64, i32, i32, i32, i32, i64, i32, i32, vp]),
+         "wlsqm_rows_norm_buffer": (i32, [vp])},
+        defines=("WLSQM_EMIT_COND=0", "WLSQM_ROWS_NORMS=1"), includes=fit_rows._INCLUDES)
+
+
+def _card_test_cloud(dev, B, K, order, seed, dim, lo=None):
+    """The cloud of tests/test_torch_cuda.py's ``_cloud`` (ragged nk, NaN
+    padding), made the same way from the same seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xk = torch.rand((B, K, dim), generator=g, device=dev, dtype=torch.float64) * 2 - 1
+    xi = (torch.rand((B, dim), generator=g, device=dev, dtype=torch.float64) - 0.5) * 0.2
+    xk = xk + xi[:, None, :]
+    fk = torch.sin(3 * xk[..., 0]) * torch.cos(2 * xk[..., -1])
+    if lo is None:
+        lo = (3 * (order + 1 if dim == 1 else (order + 1) * (order + 2) // 2)) // 2
+    nk = torch.randint(min(lo, K), K + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    nk[::2] = K
+    pad = torch.arange(K, device=dev)[None, :] >= nk[:, None]
+    xk[pad] = torch.nan
+    fk = fk.masked_fill(pad, torch.nan)
+    return xk, fk, nk, xi
+
+
+def _ulps(a, b):
+    """|a - b| in units in the last place of max(|a|, |b|)."""
+    m = torch.maximum(a.abs(), b.abs())
+    return (a - b).abs() / (torch.nextafter(m, torch.full_like(m, math.inf)) - m)
+
+
+def measure_count_ties(B=1031, configs=((2, (30, 63, 130)), (1, (16, 85)))):
+    """C7: where the rows kernel's thread body and its plain version part on
+    an ALGO_ITERATIVE count, which kind of disagreement it is; run by hand,
+    not by main().  At each (dim, K), every thread-body order, both
+    weightings, max_iter 3, on the card test's clouds
+    (test_rows_thread_body_layouts_match_plain: B = 1031, seed K + w, a
+    random knowns mask drawn as it draws them, random fi_init): the kernel
+    built to write each trip's l∞ residual norm (_rows_norm_lib; its fi and
+    counts held to the shipped library's bits) and the plain version's
+    norms (fit_rows_plain(norms=)).  A case whose counts differ is an
+    exact-stagnation tie when the side that stopped first (count t) saw its
+    norm repeat bit for bit at trip t while the other side's moved by at most
+    COUNT_TIE_ULPS ulps there (docs/porting.md:40-44, C2's class); any other
+    disagreement is counted apart.  Prints per (dim, K) the pooled tally
+    (equal, within one, histogram distance) and the split.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_count_ties()"
+    """
+    import wlsqm_tpu_torch as wtt
+    from wlsqm_tpu_torch.ops import fit_rows
+
+    dev = torch.device("cuda")
+    lib = _rows_norm_lib()
+    table = {}
+    shipped_load = fit_rows.load
+    for dim, Ks in configs:
+        for K in Ks:
+            g = torch.Generator().manual_seed(100 + dim)
+            fg = torch.Generator(device=dev).manual_seed(7 * K + dim)
+            tally = {"cases": 0, "equal": 0, "within_one": 0, "histogram_apart": 0,
+                     "disagree": 0, "ties": 0, "other": 0, "kernel_stopped_first": 0,
+                     "ulps_at_stop": {"<=1": 0, "2": 0, "3-%d" % COUNT_TIE_ULPS: 0,
+                                      "%d-16" % (COUNT_TIE_ULPS + 1): 0, "17-256": 0,
+                                      ">256": 0},
+                     "other_examples": [], "same_bits_as_shipped": True,
+                     "kernel_repeats": 0, "plain_repeats": 0}
+            for order in range(ORDER + 1):
+                if fit_rows.warp_body(dim, order):
+                    continue
+                NO = wtt.number_of_dofs(dim, order)
+                for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
+                    xk, fk, nk, xi = _card_test_cloud(dev, B, K, order, K + w, dim,
+                                                      lo=2 * NO if dim == 1 else None)
+                    fi0 = torch.randn((B, NO), generator=fg, dtype=torch.float64, device=dev)
+                    kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
+                    kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
+                              max_iter=MAX_ITER)
+                    nk_k = torch.full((B, MAX_ITER), math.nan, dtype=torch.float64, device=dev)
+                    if lib.lib.wlsqm_rows_norm_buffer(nk_k.data_ptr()) != 0:
+                        raise RuntimeError("count ties: the norm buffer was not set")
+                    fit_rows.load = lambda emit_cond=False: lib
+                    try:
+                        got = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                    finally:
+                        fit_rows.load = shipped_load
+                    shipped = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
+                    norms = []
+                    ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, norms=norms, **kw)
+                    torch.cuda.synchronize()
+                    tally["same_bits_as_shipped"] &= (_same_bits(got[0], shipped[0])
+                                                      and torch.equal(got[1], shipped[1]))
+                    ck, cp = got[1].long(), ref[1].long()
+                    np_ = torch.stack(norms, 1)
+                    tally["cases"] += B
+                    tally["equal"] += int((ck == cp).sum())
+                    tally["within_one"] += int(((ck - cp).abs() <= 1).sum())
+                    tally["histogram_apart"] += int(
+                        (torch.bincount(ck, minlength=MAX_ITER + 1)
+                         - torch.bincount(cp, minlength=MAX_ITER + 1)).abs().sum()) // 2
+                    # how often each side's norm repeats at all (a stop before max_iter)
+                    tally["kernel_repeats"] += int((ck < MAX_ITER).sum())
+                    tally["plain_repeats"] += int((cp < MAX_ITER).sum())
+                    for i in (ck != cp).nonzero().squeeze(1).tolist():
+                        t = int(min(ck[i], cp[i]))
+                        first_k = bool(ck[i] < cp[i])
+                        stop, go = (nk_k[i], np_[i]) if first_k else (np_[i], nk_k[i])
+                        tally["disagree"] += 1
+                        tally["kernel_stopped_first"] += first_k
+                        u = float(_ulps(go[t], go[t - 1]))
+                        bins = tally["ulps_at_stop"]
+                        bins[next(b for b, hi in zip(bins, (1, 2, COUNT_TIE_ULPS, 16, 256,
+                                                            math.inf)) if u <= hi)] += 1
+                        if 1 <= t < MAX_ITER and bool(stop[t] == stop[t - 1]) \
+                                and u <= COUNT_TIE_ULPS:
+                            tally["ties"] += 1
+                        else:
+                            tally["other"] += 1
+                            if len(tally["other_examples"]) < 8:
+                                tally["other_examples"].append({
+                                    "order": order, "w": w, "case": i, "counts": [
+                                        int(ck[i]), int(cp[i])],
+                                    "kernel_norms": nk_k[i].tolist(),
+                                    "plain_norms": np_[i].tolist(), "ulps_at_stop": u})
+            n = tally["cases"]
+            tally.update(equal_share=tally["equal"] / n, within_one_share=tally["within_one"] / n,
+                         histogram_distance=tally["histogram_apart"] / n,
+                         tie_share_of_disagreements=tally["ties"] / max(tally["disagree"], 1))
+            table["d%d_K%d" % (dim, K)] = tally
+            print(json.dumps({"count_ties": {"d%d_K%d" % (dim, K): tally}}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"count_ties_by_K": {k: {x: v[x] for x in (
+        "cases", "equal_share", "within_one_share", "histogram_distance", "disagree", "ties",
+        "other", "tie_share_of_disagreements", "kernel_stopped_first")}
+        for k, v in table.items()}, "card": smi.splitlines()[0]}), flush=True)
+    if not all(v["same_bits_as_shipped"] for v in table.values()):
+        raise RuntimeError("the norm build's fi or counts are not the shipped library's bits")
+    return table
+
 def _gather_path_times():
     """The gather kernel's launches through whichever wlsqm_tpu_torch is
     first on sys.path: the IBVP step's (n = 2^22, K = 28, f64, F = 1 and 3)
@@ -3792,12 +4222,16 @@ def measure_headline_route(other_root):
 
 
 def _moment_path_times():
-    """The moment kernel's launches on the dim3 path (phase_dim3's cloud,
-    B_ROWS, the warp body) and the iterative path (phase_iterative's,
-    B_MAIN, max_iter = MAX_ITER, the thread body's ALGO_ITERATIVE
-    instance): median and the REPS times after one warm-up, and a SHA-256 of
-    fi's and the counts' bytes, through whichever wlsqm_tpu_torch is first on
-    sys.path; fi's first B_ENGINE rows are saved beside this file (under
+    """The moment kernel's launches on the headline path (phase_headline's
+    cloud, B_MAIN, the 2D basic instance), the dim3 path (phase_dim3's,
+    B_ROWS, the warp body), the iterative path (phase_iterative's, B_MAIN,
+    max_iter = MAX_ITER, the 2D ALGO_ITERATIVE instance), the dim1 path
+    (phase_dim1's, B_MAIN, basic and max_iter = MAX_ITER) and the
+    dim3_thread path (phase_dim3_thread's, B_ROWS): median and the REPS
+    times after one warm-up, and a SHA-256 of fi's and the counts' bytes
+    (on the dim1 and dim3_thread paths also of the launch with the key, fi
+    and the key), through whichever wlsqm_tpu_torch is first on sys.path;
+    fi's first B_ENGINE rows are saved beside this file (under
     build/chip_smoke/, by package) for measure_moment_paths to compare.  The
     iterative launch also at max_iter = 0, 1, 2 on the same instance (ext=2:
     the one with ALGO_ITERATIVE; a package without it takes its one with
@@ -3811,51 +4245,78 @@ def _moment_path_times():
 
     dev = torch.device("cuda")
     out = {"package": os.path.dirname(os.path.abspath(wtt.__file__))}
-    for name, dim, B, seed, k, mi in (("dim3", 3, B_ROWS, 44, K_DIM3, 0),
-                                      ("iterative", 2, B_MAIN, 45, K, MAX_ITER)):
-        xk, fk, nk, xi = _cloud(B, torch.Generator(device=dev).manual_seed(seed), dev, dim=dim,
-                                K=k)
-        fi = torch.empty((B, defs.number_of_dofs(dim, ORDER)), dtype=torch.float64, device=dev)
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            if t is not None:
+                h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    C, U = wtt.WEIGHT_CENTER, wtt.WEIGHT_UNIFORM
+    for name, dim, B, seed, k, mi, order, w in (
+            ("headline", 2, B_MAIN, 42, K, 0, ORDER, C),
+            ("dim3", 3, B_ROWS, 44, K_DIM3, 0, ORDER, C),
+            ("iterative", 2, B_MAIN, 45, K, MAX_ITER, ORDER, C),
+            ("dim1", 1, B_MAIN, 46, K_DIM1, 0, ORDER, U),
+            ("dim1_iterative", 1, B_MAIN, 46, K_DIM1, MAX_ITER, ORDER, U),
+            ("dim3_thread", 3, B_ROWS, 47, K_DIM3, 0, ORDER_DIM3_THREAD, C)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        xk, fk, nk, xi = (_dim1_cloud(B, gen, dev, K=k) if dim == 1 else
+                          _cloud(B, gen, dev, dim=dim, K=k, order=order))
+        fi = torch.empty((B, defs.number_of_dofs(dim, order)), dtype=torch.float64, device=dev)
         its = torch.empty((B,), dtype=torch.int32, device=dev) if mi else None
-        ms = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, fi, iters=its, order=ORDER,
-                                                 weighting=wtt.WEIGHT_CENTER, refine_steps=1,
-                                                 max_iter=mi))
+        kw = dict(order=order, weighting=w, refine_steps=1)
+        ms = _time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, fi, iters=its, max_iter=mi,
+                                                 **kw))
         torch.cuda.synchronize()
-        by_trips = {}
-        if mi:
+        rec = {"launch_ms": ms, "fi_sha256": sha(fi), "counts_sha256": sha(its)}
+        if name == "iterative":
+            by_trips = {}
             for m in range(mi):
                 by_trips[m] = _time_ms(lambda: fit_kernel._launch(
-                    xk, fk, nk, xi, fi.clone(), iters=its.clone() if m else None, order=ORDER,
-                    weighting=wtt.WEIGHT_CENTER, refine_steps=1, max_iter=m, ext=2))[0]
+                    xk, fk, nk, xi, fi.clone(), iters=its.clone() if m else None, max_iter=m,
+                    ext=2, **kw))[0]
             by_trips[mi] = ms[0]
+            rec["launch_ms_by_max_iter"] = by_trips
+        if dim != 2 and not fit_kernel.warp_body(dim, order):
+            fik, est = torch.empty_like(fi), torch.empty((B,), dtype=torch.float64, device=dev)
+            itk = torch.empty_like(its) if mi else None
+            rec["key_launch_ms"] = _time_ms(lambda: fit_kernel._launch(
+                xk, fk, nk, xi, fik, est, iters=itk, max_iter=mi, **kw))
+            torch.cuda.synchronize()
+            rec["key_sha256"] = sha(fik, itk, est)
         keep = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
         os.makedirs(keep, exist_ok=True)
         sample = os.path.join(keep, "paths_%s_%s.pt" % (
             hashlib.sha256(out["package"].encode()).hexdigest()[:12], name))
         torch.save(fi[:B_ENGINE].cpu(), sample)
-        out[name] = {"launch_ms": ms, "fi_sample": sample, "launch_ms_by_max_iter": by_trips,
-                     "fi_sha256": hashlib.sha256(fi.cpu().numpy().tobytes()).hexdigest(),
-                     "counts_sha256": None if its is None else hashlib.sha256(
-                         its.cpu().numpy().tobytes()).hexdigest()}
+        rec["fi_sample"] = sample
+        out[name] = rec
         del xk, fk, nk, xi, fi, its
         torch.cuda.empty_cache()
     return out
 
 
+#: the paths measure_moment_paths compares
+MOMENT_PATHS = ("headline", "dim3", "iterative", "dim1", "dim1_iterative", "dim3_thread")
+
+
 def measure_moment_paths(other_root):
-    """The dim3 and iterative launches of this checkout against another one
-    (the parent commit, unpacked by ``git archive`` into a git-ignored
-    directory), run by hand, not by main(): other, this, this, other, each in
-    a process of its own (_moment_path_times), and whether fi and the counts
-    are the same bits in all four.
+    """The moment kernel's launches on MOMENT_PATHS of this checkout against
+    another one (the parent commit, unpacked by ``git archive`` into a
+    git-ignored directory), run by hand, not by main(): other, this, this,
+    other, each in a process of its own (_moment_path_times), and whether
+    fi, the counts and (on the 1D and 3D thread paths) the key are the same
+    bits in all four.
 
         python3 -c "import chip_smoke; chip_smoke.measure_moment_paths('build/parent')"
     """
     runs = _other_this_this_other(other_root, "_moment_path_times")
-    same = {p: len({(r[p]["fi_sha256"], r[p]["counts_sha256"]) for r in runs}) == 1
-            for p in ("dim3", "iterative")}
+    same = {p: len({(r[p]["fi_sha256"], r[p]["counts_sha256"], r[p].get("key_sha256"))
+                    for r in runs}) == 1 for p in MOMENT_PATHS}
     rel = {}
-    for p in ("dim3", "iterative"):
+    for p in MOMENT_PATHS:
         a, b = (torch.load(runs[i][p]["fi_sample"]) for i in (0, 1))
         rel[p] = _rel(b, a)
         for r in runs:
@@ -3864,10 +4325,118 @@ def measure_moment_paths(other_root):
     print(json.dumps({"moment_paths_same_bits_as_other": same,
                       "fi_rel_to_other_first_%d_cases" % B_ENGINE: rel,
                       "launch_ms_median": {p: [r[p]["launch_ms"][0] for r in runs]
-                                           for p in ("dim3", "iterative")},
+                                           for p in MOMENT_PATHS},
+                      "key_launch_ms_median": {p: [r[p]["key_launch_ms"][0] for r in runs]
+                                               for p in MOMENT_PATHS
+                                               if "key_launch_ms" in runs[0][p]},
                       "iterative_launch_ms_by_max_iter": [r["iterative"]["launch_ms_by_max_iter"]
                                                           for r in runs]}), flush=True)
     return runs, same
+
+
+#: the 1D and 3D thread body's designs (csrc/fit_moment.cu's WLSQM_V_* knobs)
+MOMENT_THREAD_VARIANTS = {
+    "split": (), "early": ("WLSQM_V_EARLY=1",), "keep": ("WLSQM_V_KEEP=1",),
+    "early_keep": ("WLSQM_V_EARLY=1", "WLSQM_V_KEEP=1"),
+    "merged": ("WLSQM_V_MERGED=1",), "early_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_MERGED=1"),
+    "xk_only": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=2"),
+    "xk_only_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=2", "WLSQM_V_MERGED=1"),
+    "unstaged_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=1", "WLSQM_V_MERGED=1")}
+
+
+def measure_moment_thread_variants(dim1=("split", "early", "keep", "early_keep"),
+                                   dim3=("split", "early", "merged", "early_merged", "xk_only",
+                                         "xk_only_merged", "unstaged_merged")):
+    """The 1D and 3D thread body's designs, run by hand, not by main(): the
+    moment kernel built with each set of WLSQM_V_* knobs (one order each:
+    1D order 4, 3D order 2), its registers and spills, and its launches on
+    the dim1 path (phase_dim1's cloud, 2^23: basic and max_iter = 3) and the
+    dim3_thread path (phase_dim3_thread's, 2^21), median of REPS in turns
+    forward then backward, each beside the instance with knowns and
+    ALGO_ITERATIVE (ext = 1: the design before, the same code as PR 9's),
+    whose fi and counts each must give bit for bit.
+
+        python3 -c "import chip_smoke; chip_smoke.measure_moment_thread_variants()"
+    """
+    import ctypes
+
+    from wlsqm_tpu_torch import native
+    from wlsqm_tpu_torch.fitter import defs
+    from wlsqm_tpu_torch.ops import fit_kernel
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+    def build(job):
+        dim, name = job
+        order = ORDER if dim == 1 else ORDER_DIM3_THREAD
+        return native.build(
+            "fit_moment_d%d_v_%s" % (dim, name), [fit_kernel._SRC],
+            {fit_kernel._HEADER: fit_kernel.tables_header()},
+            {fit_kernel._ENTRY: (i32, [vp] * 8 + [i64, i32, i32, i32, i32, i64, i64, i32, i32,
+                                                   i32, vp])},
+            defines=("WLSQM_EMIT_COND=0", "WLSQM_MOMENT_DIM=%d" % dim,
+                     "WLSQM_V_ONLY_ORDER=%d" % order, *MOMENT_THREAD_VARIANTS[name]),
+            includes=fit_kernel._INCLUDES)
+
+    dev = torch.device("cuda")
+    jobs = [(1, v) for v in dim1] + [(3, v) for v in dim3]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
+        shipped = [pool.submit(fit_kernel.load, d) for d in (1, 3)]
+        libs = dict(zip(jobs, pool.map(build, jobs)))
+        for f in shipped:
+            f.result()
+    table = {"%d_%s" % j: {"ptxas": _ptxas_summary(lib.log), "nvcc_s": lib.build_seconds}
+             for j, lib in libs.items()}
+    print(json.dumps({"moment_thread_variant_builds": table}), flush=True)
+    paths = (("dim1", 1, 0, ORDER, 1), ("dim1_iterative", 1, MAX_ITER, ORDER, 1),
+             ("dim3_thread", 3, 0, ORDER_DIM3_THREAD, 2))
+    data = {}
+    for name, dim, mi, order, w in paths:
+        if dim not in data:
+            data.clear()
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev)
+            data[dim] = (_dim1_cloud(B_MAIN, gen.manual_seed(46), dev) if dim == 1 else
+                         _cloud(B_ROWS, gen.manual_seed(47), dev, dim=3, K=K_DIM3, order=order))
+        xk, fk, nk, xi = data[dim]
+        B, Kn, _ = xk.shape
+        NO = defs.number_of_dofs(dim, order)
+        ref = torch.empty((B, NO), dtype=torch.float64, device=dev)
+        ref_it = torch.empty((B,), dtype=torch.int32, device=dev) if mi else None
+        kw = dict(order=order, weighting=w, refine_steps=fit_kernel.DEFAULT_REFINE_STEPS,
+                  max_iter=mi)
+        merged_ms = []
+        fit_kernel._launch(xk, fk, nk, xi, ref, iters=ref_it, ext=1, **kw)
+        out, out2 = torch.empty_like(ref), torch.empty_like(ref)
+        its, its2 = (torch.empty_like(ref_it), torch.empty_like(ref_it)) if mi else (None, None)
+        row = {}
+        names = [v for (d, v) in jobs if d == dim]
+        for v in names + names[::-1]:
+            def go(lib=libs[(dim, v)].lib):
+                status = lib.wlsqm_fit_moment(
+                    xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None,
+                    out.data_ptr(), None if its is None else its.data_ptr(), None, B, Kn, dim,
+                    order, w, 0, 0, fit_kernel.DEFAULT_REFINE_STEPS, mi, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError("variant %s failed: CUDA error %d" % (v, status))
+            r = row.setdefault(v, {"launch_ms": []})
+            r["launch_ms"].append(_time_ms(go)[0])
+            torch.cuda.synchronize()
+            r["same_bits_as_merged"] = bool(_same_bits(out, ref) and (its is None or torch.equal(
+                its, ref_it)))
+            merged_ms.append(_time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out2,
+                                                                 iters=its2, ext=1, **kw))[0])
+        row["merged_instance_launch_ms"] = merged_ms
+        print(json.dumps({"moment_thread_variants": {name: row}}), flush=True)
+        table[name] = row
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
+    if not all(r["same_bits_as_merged"] for p in ("dim1", "dim1_iterative", "dim3_thread")
+               for k, r in table[p].items() if isinstance(r, dict)):
+        raise RuntimeError("a thread-body variant gave other bits than the merged instance")
+    return table
 
 
 def measure_warp_residency(counts=(12, 16, 20, 24)):
@@ -4487,6 +5056,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dim3, dim3_rows = phase_dim3(dev, wtt)
     torch.cuda.empty_cache()
+    dim3_thread, dim3_thread_rows = phase_dim3_thread(dev, wtt)
+    torch.cuda.empty_cache()
+    dim1, dim1_iterative, dim1_key_ms, dim1_launches = phase_dim1(dev, wtt)
+    torch.cuda.empty_cache()
     cert_launches = phase_certified(dev, wtt)
     torch.cuda.empty_cache()
     phase_certified_moments(dev, wtt)
@@ -4522,6 +5095,8 @@ def main() -> int:
                "sens": _launches(rows=sens["launches"]),
                "iterative": _launches(moment=iterative["launches"]),
                "dim3": _launches(moment=dim3["launches"]),
+               "dim3_thread": _launches(moment=dim3_thread["launches"]),
+               "dim1": dim1_launches,
                "expert": expert, **compat, "grad": grad, "stream": stream_launches,
                "sharded": sharded, "warmup": warm, "euler": euler, "adjoint": adjoint,
                "examples": examples}
@@ -4553,6 +5128,29 @@ def main() -> int:
               **{"rows_" + k: dim3_rows[k] for k in ("ms", "plain_ms", "bound_ms",
                                                       "library_ms")},
               rows_ms_full=dim3_rows["launch_ms_full"]),
+        entry("fit_moment@dim1", "wlsqm_tpu_torch/csrc/fit_moment.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel,
+              dict(dim1, launches=dim1_launches["fit_moment"]),
+              "dim1: 1D order 4 K=15 UNIFORM (the reference's configuration 3, 1D half; the "
+              "thread body's basic instance); ms_full: the launch at 2^23; ms_full_key: the "
+              "launch with the key (what the certified route runs); iterative_*: max_iter=3 "
+              "(its ALGO_ITERATIVE instance, what the data-gated iterative route runs)",
+              ms_full=dim1["launch_ms_full"], route_ms_full=dim1["route_ms_full"],
+              ms_full_key=dim1_key_ms, bound_ms_full=dim1["bound_ms_full"],
+              **{"iterative_" + k: dim1_iterative[k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "launch_ms_full",
+                  "bound_ms_full", "route_ms_full")}),
+        entry("fit_moment@dim3_thread", "wlsqm_tpu_torch/csrc/fit_moment.cu",
+              "wlsqm_tpu/ops/pallas_fit.py:438", m_abs, m_rel, dim3_thread,
+              "dim3_thread: 3D order 2 K=48 CENTER (the thread body's basic instance); "
+              "ms_full: the launch at 2^21; rows_*: the rows kernel (thread body) timed "
+              "beside it on the same cloud through a plan naming the rows body "
+              "(rows_ms_full: its launch at 2^21)",
+              ms_full=dim3_thread["launch_ms_full"], route_ms_full=dim3_thread["route_ms_full"],
+              bound_ms_full=dim3_thread["bound_ms_full"],
+              **{"rows_" + k: dim3_thread_rows[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "library_ms")},
+              rows_ms_full=dim3_thread_rows["launch_ms_full"]),
         entry("fit_rows", "wlsqm_tpu_torch/csrc/fit_rows.cu",
               "wlsqm_tpu/ops/pallas_fit.py:901", r_abs, r_rel, sens,
               "sens: 2D order 4 K=30 CENTER do_sens (warp body)",

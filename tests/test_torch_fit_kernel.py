@@ -90,10 +90,14 @@ def test_plain_matches_interpreted_tpu_kernel():
     assert np.abs(got - ref).max() / np.abs(ref).max() < 5e-6
 
 
-@pytest.mark.parametrize("dim,order", [(1, 4), (3, 2), (3, 4)])
-def test_plain_covers_other_dimensions(dim, order):
-    rng = np.random.default_rng(dim + order)
-    K = {1: 12, 3: 56}[dim]
+@pytest.mark.parametrize("dim,order,K", [
+    pytest.param(1, 4, 12, id="1-4"), pytest.param(3, 2, 56, id="3-2"),
+    pytest.param(3, 4, 56, id="3-4"),
+    # the smoke's dim1 path (1D order 4, K = 15) and dim3_thread path (3D
+    # order 2, K = 48): the moment kernel's 1D and 3D thread-body instances
+    pytest.param(1, 4, 15, id="1-4-K15"), pytest.param(3, 2, 48, id="3-2-K48")])
+def test_plain_covers_other_dimensions(dim, order, K):
+    rng = np.random.default_rng(dim + order + (K if K in (15, 48) else 0))
     case = cloud(rng, 128, K, dim, orders=(order,), weightings=(1, 2),
                  radius=(0.3, 1.0))
     B = 128
@@ -177,25 +181,40 @@ def _knowns_cases(NO):
     return sorted({0, 1, 1 << (NO - 1)})
 
 
-def _grid_case(dim, order, B=96):
+def _grid_case(dim, order, B=96, K=None):
     """A ragged bench-like cloud in ``dim`` dimensions (1D at nk >= 2 NO,
     where its order 4 is conditioned inside 1e-10) with random fi_init."""
     import iterative_counts
 
-    K = {1: 16, 2: 30, 3: 56}[dim]
-    xk, fk, nk, xi, fi0, _ = iterative_counts.cloud(dim, order, B, K, 77 + 10 * dim + order)
+    seed = 77 + 10 * dim + order
+    if K is None:
+        K = {1: 16, 2: 30, 3: 56}[dim]
+    else:
+        seed += 1000 * K
+    xk, fk, nk, xi, fi0, _ = iterative_counts.cloud(dim, order, B, K, seed)
     return xk, fk, nk, xi, fi0
 
 
-@pytest.mark.parametrize("order", [0, 1, 2, 3, 4])
-@pytest.mark.parametrize("dim", [1, 2, 3])
-def test_plain_with_knowns_and_iterative_matches_jax_engine(dim, order):
+@pytest.mark.parametrize("dim,order,K", [
+    *(pytest.param(d, o, None, id="%d-%d" % (d, o)) for o in range(5) for d in (1, 2, 3)),
+    # the smoke's dim1 path (1D order 4, K = 15) and dim3_thread path (3D
+    # order 2, K = 48): the moment kernel's 1D and 3D thread-body instances
+    pytest.param(1, 4, 15, id="1-4-K15"), pytest.param(3, 2, 48, id="3-2-K48")])
+def test_plain_with_knowns_and_iterative_matches_jax_engine(dim, order, K):
     """The plain version against the JAX f64 engine on dims 1-3 x orders 0-4
     x knowns {0, the value, the highest DOF}, basic and max_iter = 3, both
     weightings: 1e-10 relative to max(|ref|, 1); the known DOFs are
-    fi_init's bits; the counts are per-case integers in [0, 3]."""
-    xk, fk, nk, xi, fi0 = _grid_case(dim, order)
+    fi_init's bits; the counts are per-case integers in [0, 3].  On the
+    smoke's dim1 configuration (which runs max_iter = 3) the counts, pooled
+    over knowns and weightings, are also held to the JAX engine's by
+    tests/iterative_counts.py's tally: >= 50% equal and >= 80% within one
+    (the dim3_thread path runs the basic fit; its counts lean as C6 says,
+    0.39 equal, 0.81 within one here)."""
+    import iterative_counts
+
+    xk, fk, nk, xi, fi0 = _grid_case(dim, order, K=K)
     B, NO = fi0.shape
+    got, want = [], []
     for kn in _knowns_cases(NO):
         for mi in (0, 3):
             for w in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
@@ -214,6 +233,11 @@ def test_plain_with_knowns_and_iterative_matches_jax_engine(dim, order):
                 if mi:
                     it = out[1].numpy()
                     assert out[1].dtype == torch.int32 and it.min() >= 0 and it.max() <= mi
+                    got.append(it)
+                    want.append(np.asarray(it_ref))
+    if K is not None and dim == 1:
+        equal, within, _ = iterative_counts.shares(got, want)
+        assert equal >= 0.5 and within >= 0.8, (equal, within)
 
 
 def test_plain_iterative_counts_against_the_jax_engines():

@@ -469,3 +469,36 @@ def test_stored_jax_iteration_counts_are_current(key):
     got = iterative_counts.generate({key})[key]
     assert got.dtype == np.int8 and got.min() >= 1 and got.max() <= iterative_counts.MAX_ITER
     np.testing.assert_array_equal(got, stored[key])
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_plain_iterative_counts_at_the_thread_body_staging_edge(dim):
+    """ROADMAP C7 on the CPU: at the rows thread body's staging-edge K (the
+    largest K whose offsets it stages, K (dim + 2) = 255: 1D K = 85, 2D
+    K = 63), the plain version's ALGO_ITERATIVE counts against the JAX f64
+    engine's (max_iter 3, every thread-body order, both weightings, a random
+    knowns mask and fi_init, ragged nk with NaN padding: the clouds of
+    tests/iterative_counts.py, 256 cases each), pooled by its tally: >= 50%
+    equal and >= 80% within one, and the histogram distance held to the 0.1
+    bar.  Measured here: 1D 0.670 equal, 0.940 within one, histogram
+    distance 0.008; 2D 0.606, 0.914, 0.022.  So at that K the plain
+    arithmetic's own counts sit well inside the bar against the reference:
+    the drift at that K is not the plain version's."""
+    import iterative_counts
+
+    K = {1: 85, 2: 63}[dim]
+    got, ref = [], []
+    for order in range(5):
+        if fit_rows.warp_body(dim, order):
+            continue
+        for w in (defs.WEIGHT_UNIFORM, defs.WEIGHT_CENTER):
+            xk, fk, nk, xi, fi0, kn = iterative_counts.cloud(dim, order, 256, K,
+                                                             50 * K + 10 * order + w)
+            _, it, _ = fit_rows.fit_rows_plain(
+                *(torch.as_tensor(a) for a in (xk, fk, nk, xi, fi0)), dimension=dim,
+                order=order, weighting=w, knowns=kn, max_iter=iterative_counts.MAX_ITER)
+            got.append(it.numpy().astype(np.int64))
+            ref.append(iterative_counts.jax_counts(dim, order, w, xk, fk, nk, xi, fi0,
+                                                   kn).astype(np.int64))
+    equal, within, apart = iterative_counts.shares(got, ref)
+    assert equal >= 0.5 and within >= 0.8 and apart <= 0.1, (equal, within, apart)

@@ -167,6 +167,23 @@
 #ifndef WLSQM_PHASE_CLOCK
 #define WLSQM_PHASE_CLOCK 0
 #endif
+// measurement knobs of the 1D and 3D thread body's designs
+// (chip_smoke.measure_moment_thread_variants): the case's nk and xi read
+// before the staging wait; 3D staging (0 the block's slabs of xk and fk, 1
+// none, 2 xk's slab alone); one walk for h^2 and max d^2; the ALGO_ITERATIVE
+// instance keeping its slabs through the trips
+#ifndef WLSQM_V_EARLY
+#define WLSQM_V_EARLY 0
+#endif
+#ifndef WLSQM_V_STAGE3
+#define WLSQM_V_STAGE3 0
+#endif
+#ifndef WLSQM_V_MERGED
+#define WLSQM_V_MERGED 0
+#endif
+#ifndef WLSQM_V_KEEP
+#define WLSQM_V_KEEP 0
+#endif
 
 namespace {
 
@@ -390,7 +407,6 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   const int64_t c0 = (int64_t)blockIdx.x * kTB, c = c0 + tid;
   const bool valid = c < B;
   WLSQM_CLOCK_START();
-  double* const sm = smem + tid;
   // a known DOF (the knowns instance only: elsewhere the predicate folds away)
   auto kn = [knowns](int j) { return MODE == kKnowns && ((knowns >> j) & 1LL) != 0; };
 
@@ -399,11 +415,27 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   //      odd stride, so that the cases' walks below are free of bank
   //      conflicts; past what one block can hold, the walks read global
   //      memory ----
+  constexpr bool kNew = DIM != 2;  // the 1D and 3D designs (2D keeps PR 6/10's)
   const int ldx = (DIM * K) | 1, ldf = K | 1;
+  // the ALGO_ITERATIVE instance keeps its slabs through the trips where the
+  // launch says so (staged 2): the per-case state then follows them
+  constexpr bool kKeepable = kNew && MODE == kIterative && WLSQM_V_KEEP;
+  const bool keep = kKeepable && staged == 2;
+  double* const sm = smem + (keep ? (int64_t)kTB * (ldx + ldf) : 0) + tid;
   const double* const xg = xk + c * (int64_t)K * DIM;
   const double* const fg = fk + c * (int64_t)K;
   const double* xc = xg;
   const double* fc = fg;
+  // the case's count and origin, read before the staging wait
+  constexpr bool kEarly = kNew && WLSQM_V_EARLY;
+  int n = 0;
+  double x0[DIM];
+  if (kEarly && valid) {
+    n = min(max(nk[c], 0), K);
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
+  }
+  const bool xk_only = kNew && staged == 3;  // fk read from global memory
   if (staged) {
     const int cnt = (int)min((int64_t)kTB, B - c0);
     const double* gx = xk + c0 * K * DIM;
@@ -411,10 +443,11 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
       cp_async8(smem + (g / (DIM * K)) * ldx + g % (DIM * K), gx + g);
     const double* gf = fk + c0 * K;
     double* const sf = smem + kTB * ldx;
-    for (int g = tid; g < cnt * K; g += kTB) cp_async8(sf + (g / K) * ldf + g % K, gf + g);
+    if (!xk_only)
+      for (int g = tid; g < cnt * K; g += kTB) cp_async8(sf + (g / K) * ldf + g % K, gf + g);
     asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
     xc = smem + tid * ldx;
-    fc = sf + tid * ldf;
+    if (!xk_only) fc = sf + tid * ldf;
   }
   __syncthreads();
   WLSQM_CLOCK(0, c, valid);
@@ -422,20 +455,52 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   // ---- the scale (h^2 of the unscaled offsets), the CENTER normalisation,
   //      and the moments and the RHS in registers ----
   double e = 0.0, is = 1.0, max_d2 = 1.0;
-  double x0[DIM];
-  int n = 0;
   double M[NM], b[NO];
 #pragma unroll
   for (int i = 0; i < NM; ++i) M[i] = 0.0;
 #pragma unroll
   for (int j = 0; j < NO; ++j) b[j] = 0.0;
   if (valid) {
-    n = min(max(nk[c], 0), K);
+    if (!kEarly) {
+      n = min(max(nk[c], 0), K);
 #pragma unroll
-    for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
-    e = scale_exponent(case_h2<DIM>(xc, n, x0));
-    is = pow2(-e);
-    if (WEIGHTING == kWeightCenter) {
+      for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
+    }
+    bool walk2 = WEIGHTING == kWeightCenter;
+    if constexpr (kNew && WLSQM_V_MERGED && WEIGHTING == kWeightCenter) {
+      // one walk for h^2 and for max |d|^2 of the unscaled offsets, which
+      // is max d^2 times 2^(2e) bit for bit wherever every offset is 0 or in
+      // [2^-300, 2^300] and |e| <= 200 (each square and sum of both walks
+      // is then a normal number, and the power-of-two scale commutes with
+      // every rounding); elsewhere the second walk runs
+      double h2 = 0.0, mu = 0.0;
+      bool exact = true;
+      for (int k = 0; k < n; ++k) {
+        double dl[DIM];
+#pragma unroll
+        for (int a = 0; a < DIM; ++a) {
+          dl[a] = xc[DIM * k + a] - x0[a];
+          const double u = fabs(dl[a]);
+          exact = exact && (u == 0.0 || (u >= 0x1p-300 && u <= 0x1p300));
+        }
+        double s2 = dl[0] * dl[0];
+#pragma unroll
+        for (int a = 1; a < DIM; ++a) s2 = s2 + dl[a] * dl[a];
+        h2 = max_nan(h2, s2);
+        mu = fmax(mu, sq<DIM>(dl));
+      }
+      e = scale_exponent(h2);
+      is = pow2(-e);
+      if (exact && fabs(e) <= 200.0) {
+        const double m = mu * is * is;
+        max_d2 = m > 0.0 ? m : 1.0;
+        walk2 = false;
+      }
+    } else {
+      e = scale_exponent(case_h2<DIM>(xc, n, x0));
+      is = pow2(-e);
+    }
+    if (walk2) {
       double m = 0.0;
       for (int k = 0; k < n; ++k) {
         double d[DIM];
@@ -447,15 +512,24 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
     WLSQM_CLOCK(1, c, true);
     // per neighbour: the powers of the scaled offsets (the last axis' times
     // w), w f times the last axis' powers, then one multiply-add per moment
-    // and per RHS entry (a product of two ladders first in 3D)
+    // and per RHS entry (a product of two ladders first in 3D); fk from
+    // global memory one neighbour ahead where only xk is staged
+    double fnext = xk_only && n > 0 ? __ldg(fc) : 0.0;
     for (int k = 0; k < n; ++k) {
+      double fv;
+      if (xk_only) {
+        fv = fnext;
+        if (k + 1 < n) fnext = __ldg(fc + k + 1);
+      } else {
+        fv = fc[k];
+      }
       double d[DIM];
       offsets<DIM>(xc, k, x0, is, d);
       const double w = weight<DIM, WEIGHTING>(d, max_d2);
       double p[DIM][2 * ORDER + 1], pf[ORDER + 1];
 #pragma unroll
       for (int a = 0; a < DIM - 1; ++a) p[a][0] = 1.0;
-      p[DIM - 1][0] = w, pf[0] = w * fc[k];
+      p[DIM - 1][0] = w, pf[0] = w * fv;
 #pragma unroll
       for (int q = 1; q <= 2 * ORDER; ++q)
 #pragma unroll
@@ -633,8 +707,8 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
         break;
       }
       const int nt = min(max(nk[c], 0), K);
-      const double* const xt = xk + c * (int64_t)K * DIM;
-      const double* const ft = fk + c * (int64_t)K;
+      const double* const xt = keep ? xc : xk + c * (int64_t)K * DIM;
+      const double* const ft = keep ? fc : fk + c * (int64_t)K;
       double o[DIM];
 #pragma unroll
       for (int a = 0; a < DIM; ++a) o[a] = xi[DIM * c + a];
@@ -657,8 +731,8 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
         for (int q = 0; q < 4; ++q) {
           const int k = k0 + q < nt ? k0 + q : nt - 1;
 #pragma unroll
-          for (int a = 0; a < DIM; ++a) v[q][a] = __ldg(xt + DIM * k + a);
-          v[q][DIM] = __ldg(ft + k);
+          for (int a = 0; a < DIM; ++a) v[q][a] = keep ? xt[DIM * k + a] : __ldg(xt + DIM * k + a);
+          v[q][DIM] = keep ? ft[k] : __ldg(ft + k);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -1314,9 +1388,19 @@ int launch_thread(const Args& a, cudaStream_t stream) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const size_t slab = sizeof(double) * kTB * (size_t)(((kDim * a.K) | 1) + (a.K | 1));
-  const int staged = slab <= (size_t)optin;
   const size_t lay = MODE == kBasic ? Lay::kBytes : Lay::kIterBytes;
-  const size_t bytes = staged && slab > lay ? slab : lay;
+  int staged = slab <= (size_t)optin;
+  size_t bytes = staged && slab > lay ? slab : lay;
+  if (kDim != 2 && WLSQM_V_KEEP && MODE == kIterative && staged && slab + lay <= (size_t)optin / 4) {
+    staged = 2;  // the slabs kept through the trips, the state after them
+    bytes = slab + lay;
+  }
+  if (kDim == 3 && WLSQM_V_STAGE3 == 1) {
+    staged = 0, bytes = lay;
+  } else if (kDim == 3 && WLSQM_V_STAGE3 == 2 && staged == 1) {
+    const size_t xslab = sizeof(double) * kTB * (size_t)((kDim * a.K) | 1);
+    staged = 3, bytes = xslab > lay ? xslab : lay;
+  }
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1346,18 +1430,16 @@ int launch_warp(const Args& a, cudaStream_t stream) {
 }
 
 // the instance of (ORDER, WEIGHTING): the warp body where the tables say so;
-// else the thread body, in 2D the instance mode names (kBasic, kKnowns,
-// kIterative), in 1D and 3D the one with knowns and ALGO_ITERATIVE
+// else the thread body's instance that mode names (kBasic, kKnowns,
+// kIterative)
 template <int ORDER, int WEIGHTING>
 int launch(const Args& a, int mode, cudaStream_t st) {
   if constexpr (MomentTables<kDim, ORDER>::kWarp) {
     return launch_warp<ORDER, WEIGHTING>(a, st);
-  } else if constexpr (kDim == 2) {
+  } else {
     return mode == kKnowns      ? launch_thread<ORDER, WEIGHTING, kKnowns>(a, st)
            : mode == kIterative ? launch_thread<ORDER, WEIGHTING, kIterative>(a, st)
                                 : launch_thread<ORDER, WEIGHTING, kBasic>(a, st);
-  } else {
-    return launch_thread<ORDER, WEIGHTING, kKnowns>(a, st);
   }
 }
 
@@ -1368,11 +1450,15 @@ int dispatch(const Args& a, int order, int weighting, int mode, void* stream) {
   case ORD:             \
     return center ? launch<ORD, kWeightCenter>(a, mode, st) : launch<ORD, 1>(a, mode, st);
   switch (order) {
+#ifdef WLSQM_V_ONLY_ORDER  // a measurement build of one order (quicker to compile)
+    WLSQM_CASE(WLSQM_V_ONLY_ORDER)
+#else
     WLSQM_CASE(0)
     WLSQM_CASE(1)
     WLSQM_CASE(2)
     WLSQM_CASE(3)
     WLSQM_CASE(4)
+#endif
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -123,8 +123,21 @@
 #ifndef WLSQM_PHASE_CLOCK
 #define WLSQM_PHASE_CLOCK 0
 #endif
+#ifndef WLSQM_ROWS_NORMS
+#define WLSQM_ROWS_NORMS 0
+#endif
 
 namespace {
+
+// The trips' norms, a measurement build only (-DWLSQM_ROWS_NORMS=1; no route
+// loads it): the thread body writes each ALGO_ITERATIVE trip's l-inf
+// residual norm to row cs, column trip, of a (B, max_iter) buffer (set by
+// wlsqm_rows_norm_buffer; the trips after the stop are left as they were),
+// so that chip_smoke.measure_count_ties can tell an exact-stagnation tie
+// from any other count disagreement.
+#if WLSQM_ROWS_NORMS
+__device__ double* g_norms;
+#endif
 
 // The phase clock, a measurement build only (-DWLSQM_PHASE_CLOCK=1; no route
 // loads it): each case adds the clock64() cycles of each phase of its fit to
@@ -618,6 +631,9 @@ fit_rows_thread(const double* __restrict__ xk, const double* __restrict__ fk,
         for (int j = 0; j < NO; ++j) bp[j] = fma(c[j] * w, r, bp[j]);
       }
       done = nrm == prev;
+#if WLSQM_ROWS_NORMS
+      if (valid) g_norms[cs * max_iter + it] = nrm;
+#endif
       if (!done) {
 #pragma unroll
         for (int j = 0; j < NO; ++j) bp[j] = known(j) ? 0.0 : bp[j] * s[j];
@@ -1277,5 +1293,13 @@ extern "C" int wlsqm_rows_thread_layout(int dim, int K, int* out) {
 extern "C" int wlsqm_rows_phase_buffer(void* buf) {
   long long* p = (long long*)buf;
   return (int)cudaMemcpyToSymbol(g_phase_clock, &p, sizeof(p));
+}
+#endif
+
+#if WLSQM_ROWS_NORMS
+// the trips' norms: (B, max_iter) f64 on the card
+extern "C" int wlsqm_rows_norm_buffer(void* buf) {
+  double* p = (double*)buf;
+  return (int)cudaMemcpyToSymbol(g_norms, &p, sizeof(p));
 }
 #endif
