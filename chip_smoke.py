@@ -21,6 +21,15 @@ then drives the port's paths through its public routes:
 * the dim3 path — 3D, order 4, K = 48, WEIGHT_CENTER (the ``dim3`` row) on
   2^21 cases through ``fit_many(backend="kernel")`` (the moment kernel's
   warp body; the rows kernel timed beside it on the same cloud);
+* the dim3_thread path — 3D, order 2, K = 48, WEIGHT_CENTER on 2^21 cases
+  the same way (the moment kernel's 3D thread body; the rows kernel's
+  thread body, which the certified route runs there, timed beside it);
+* the dim1 path — the reference's configuration 3, 1D half (order 4,
+  K = 15, WEIGHT_UNIFORM; benchmarks/run_configs.py l.117-128) on 2^23
+  cases through ``plan_fit_many`` + ``fit_many(plan=)`` (the moment
+  kernel's 1D thread body with its key, the engine for the tail), then at
+  max_iter = 3 through the route ``fit_1D_iterative_many`` takes without
+  count fidelity;
 * the IBVP heat step — the ``gather`` row (l.238-289) on a 2^22-point
   Morton-ordered cloud, K = 28: ``prepare`` once, then per step
   ``gather_rows`` (the gather kernel) + ``solve`` + update, one field and
@@ -76,7 +85,10 @@ another checkout and compares their bits, and ``measure_warp_residency``
 times the moment kernel's warp body at other counts of resident cases;
 ``measure_rows_phases`` splits a rows-kernel case's cycles by phase (both
 bodies), and ``measure_rows_paths`` and ``measure_gather_paths`` time the rows and gather
-launches against another checkout (the rows outputs' bits compared).
+launches against another checkout (the rows outputs' bits compared);
+``measure_count_ties`` sorts the rows kernel's ALGO_ITERATIVE count
+disagreements with its plain version into exact-stagnation ties and the
+rest (a build that writes each trip's residual norm).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -139,7 +151,8 @@ K_DIM3 = 48
 K_GRID = {1: 16, 2: 30, 3: 56}
 K_SLAB_EDGE = (151, 152)  # moment kernel: the slabs, 64 (2K + 1 + (K | 1)) doubles, fill
                          # the H100's 227 KB a block at K = 151 (staged); 152 is not
-K_SLAB_EDGE_3D = (113, 114)  # ... in 3D (the thread body, orders 0-2): 64 ((3K | 1) + (K | 1))
+K_SLAB_EDGE_3D = (151, 152)  # ... in 3D (the thread body, orders 0-2, which stages xk's slab
+                             # alone): 64 (3K | 1) doubles
 K_WIDE = 130            # the warp body's configurations again: five chunks of 32, the
                         # last ragged
 ROWS_STAGE_EDGE = {1: 85, 2: 63, 3: 51}  # the largest K whose offsets the rows thread body
@@ -434,7 +447,7 @@ def phase_build():
     if len(iterative["fit_moment_d2"]) != 10 or worst > MOMENT_SPILL_BYTES:
         raise RuntimeError("the 2D ALGO_ITERATIVE fit_moment instances spill %d bytes (> %d), "
                            "or are not 10: %s" % (worst, MOMENT_SPILL_BYTES, iterative))
-    # the 1D and 3D thread body's basic and ALGO_ITERATIVE instances (PR 13)
+    # the 1D and 3D thread body's basic and ALGO_ITERATIVE instances
     # beside the instance with knowns and ALGO_ITERATIVE that ran every mode
     # before them: a basic instance spills no more than it on its (order,
     # weighting)
@@ -537,11 +550,6 @@ def phase_moment_vs_plain(dev, wtt):
                 and (not mi or torch.equal(got[1], key[1]))):
             raise RuntimeError("moment kernel %s: fi differs with the key, or a known DOF "
                                "is not fi_init's bits" % name)
-        if dim != 2 and not kn and not fit_kernel.warp_body(dim, order) and \
-                not _merged_instance_bits(xk, fk, nk, xi, fi, key, order=order, weighting=w,
-                                          max_iter=mi):
-            raise RuntimeError("moment kernel %s: the basic or ALGO_ITERATIVE instance is not "
-                               "the bits of the one with knowns" % name)
         err = (fi - fr).abs().amax(1) / fr.abs().amax(1).clamp_min(1.0)
         under = (key[-1] <= edge) if dim == 1 else torch.ones_like(key[-1], dtype=torch.bool)
         rel = err[under].max().item() if bool(under.any()) else 0.0
@@ -575,28 +583,6 @@ def phase_moment_vs_plain(dev, wtt):
                       "worst_rel": worst_rel, "worst_abs": worst_abs, "tol": PARITY}),
           flush=True)
     return worst_abs, worst_rel
-
-
-def _merged_instance_bits(xk, fk, nk, xi, fi, key, *, order, weighting, max_iter):
-    """Whether the instance compiled with knowns and ALGO_ITERATIVE (ext 1:
-    the one 1D and 3D calls ran before PR 13 split them) gives, without
-    knowns, fi, the counts and the key of the call's own instance (``fi``,
-    ``key``: fit_kernel's results without and with the key) bit for bit."""
-    from wlsqm_tpu_torch.ops import fit_kernel
-
-    out = torch.empty_like(fi)
-    out_k = torch.empty_like(fi)
-    est = torch.empty_like(key[-1])
-    its = its_k = None
-    if max_iter:
-        its, its_k = torch.empty_like(key[1]), torch.empty_like(key[1])
-    kw = dict(order=order, weighting=weighting, refine_steps=fit_kernel.DEFAULT_REFINE_STEPS,
-              max_iter=max_iter, ext=1)
-    fit_kernel._launch(xk, fk, nk, xi, out, iters=its, **kw)
-    fit_kernel._launch(xk, fk, nk, xi, out_k, est, iters=its_k, **kw)
-    torch.cuda.synchronize()
-    return (_same_bits(out, fi) and _same_bits(out_k, key[0]) and _same_bits(est, key[-1])
-            and (not max_iter or (torch.equal(its, key[1]) and torch.equal(its_k, key[1]))))
 
 
 def phase_moment_scale(dev):
@@ -4333,110 +4319,6 @@ def measure_moment_paths(other_root):
                                                           for r in runs]}), flush=True)
     return runs, same
 
-
-#: the 1D and 3D thread body's designs (csrc/fit_moment.cu's WLSQM_V_* knobs)
-MOMENT_THREAD_VARIANTS = {
-    "split": (), "early": ("WLSQM_V_EARLY=1",), "keep": ("WLSQM_V_KEEP=1",),
-    "early_keep": ("WLSQM_V_EARLY=1", "WLSQM_V_KEEP=1"),
-    "merged": ("WLSQM_V_MERGED=1",), "early_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_MERGED=1"),
-    "xk_only": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=2"),
-    "xk_only_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=2", "WLSQM_V_MERGED=1"),
-    "unstaged_merged": ("WLSQM_V_EARLY=1", "WLSQM_V_STAGE3=1", "WLSQM_V_MERGED=1")}
-
-
-def measure_moment_thread_variants(dim1=("split", "early", "keep", "early_keep"),
-                                   dim3=("split", "early", "merged", "early_merged", "xk_only",
-                                         "xk_only_merged", "unstaged_merged")):
-    """The 1D and 3D thread body's designs, run by hand, not by main(): the
-    moment kernel built with each set of WLSQM_V_* knobs (one order each:
-    1D order 4, 3D order 2), its registers and spills, and its launches on
-    the dim1 path (phase_dim1's cloud, 2^23: basic and max_iter = 3) and the
-    dim3_thread path (phase_dim3_thread's, 2^21), median of REPS in turns
-    forward then backward, each beside the instance with knowns and
-    ALGO_ITERATIVE (ext = 1: the design before, the same code as PR 9's),
-    whose fi and counts each must give bit for bit.
-
-        python3 -c "import chip_smoke; chip_smoke.measure_moment_thread_variants()"
-    """
-    import ctypes
-
-    from wlsqm_tpu_torch import native
-    from wlsqm_tpu_torch.fitter import defs
-    from wlsqm_tpu_torch.ops import fit_kernel
-
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
-    def build(job):
-        dim, name = job
-        order = ORDER if dim == 1 else ORDER_DIM3_THREAD
-        return native.build(
-            "fit_moment_d%d_v_%s" % (dim, name), [fit_kernel._SRC],
-            {fit_kernel._HEADER: fit_kernel.tables_header()},
-            {fit_kernel._ENTRY: (i32, [vp] * 8 + [i64, i32, i32, i32, i32, i64, i64, i32, i32,
-                                                   i32, vp])},
-            defines=("WLSQM_EMIT_COND=0", "WLSQM_MOMENT_DIM=%d" % dim,
-                     "WLSQM_V_ONLY_ORDER=%d" % order, *MOMENT_THREAD_VARIANTS[name]),
-            includes=fit_kernel._INCLUDES)
-
-    dev = torch.device("cuda")
-    jobs = [(1, v) for v in dim1] + [(3, v) for v in dim3]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
-        shipped = [pool.submit(fit_kernel.load, d) for d in (1, 3)]
-        libs = dict(zip(jobs, pool.map(build, jobs)))
-        for f in shipped:
-            f.result()
-    table = {"%d_%s" % j: {"ptxas": _ptxas_summary(lib.log), "nvcc_s": lib.build_seconds}
-             for j, lib in libs.items()}
-    print(json.dumps({"moment_thread_variant_builds": table}), flush=True)
-    paths = (("dim1", 1, 0, ORDER, 1), ("dim1_iterative", 1, MAX_ITER, ORDER, 1),
-             ("dim3_thread", 3, 0, ORDER_DIM3_THREAD, 2))
-    data = {}
-    for name, dim, mi, order, w in paths:
-        if dim not in data:
-            data.clear()
-            torch.cuda.empty_cache()
-            gen = torch.Generator(device=dev)
-            data[dim] = (_dim1_cloud(B_MAIN, gen.manual_seed(46), dev) if dim == 1 else
-                         _cloud(B_ROWS, gen.manual_seed(47), dev, dim=3, K=K_DIM3, order=order))
-        xk, fk, nk, xi = data[dim]
-        B, Kn, _ = xk.shape
-        NO = defs.number_of_dofs(dim, order)
-        ref = torch.empty((B, NO), dtype=torch.float64, device=dev)
-        ref_it = torch.empty((B,), dtype=torch.int32, device=dev) if mi else None
-        kw = dict(order=order, weighting=w, refine_steps=fit_kernel.DEFAULT_REFINE_STEPS,
-                  max_iter=mi)
-        merged_ms = []
-        fit_kernel._launch(xk, fk, nk, xi, ref, iters=ref_it, ext=1, **kw)
-        out, out2 = torch.empty_like(ref), torch.empty_like(ref)
-        its, its2 = (torch.empty_like(ref_it), torch.empty_like(ref_it)) if mi else (None, None)
-        row = {}
-        names = [v for (d, v) in jobs if d == dim]
-        for v in names + names[::-1]:
-            def go(lib=libs[(dim, v)].lib):
-                status = lib.wlsqm_fit_moment(
-                    xk.data_ptr(), fk.data_ptr(), nk.data_ptr(), xi.data_ptr(), None,
-                    out.data_ptr(), None if its is None else its.data_ptr(), None, B, Kn, dim,
-                    order, w, 0, 0, fit_kernel.DEFAULT_REFINE_STEPS, mi, 0,
-                    torch.cuda.current_stream().cuda_stream)
-                if status != 0:
-                    raise RuntimeError("variant %s failed: CUDA error %d" % (v, status))
-            r = row.setdefault(v, {"launch_ms": []})
-            r["launch_ms"].append(_time_ms(go)[0])
-            torch.cuda.synchronize()
-            r["same_bits_as_merged"] = bool(_same_bits(out, ref) and (its is None or torch.equal(
-                its, ref_it)))
-            merged_ms.append(_time_ms(lambda: fit_kernel._launch(xk, fk, nk, xi, out2,
-                                                                 iters=its2, ext=1, **kw))[0])
-        row["merged_instance_launch_ms"] = merged_ms
-        print(json.dumps({"moment_thread_variants": {name: row}}), flush=True)
-        table[name] = row
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
-    if not all(r["same_bits_as_merged"] for p in ("dim1", "dim1_iterative", "dim3_thread")
-               for k, r in table[p].items() if isinstance(r, dict)):
-        raise RuntimeError("a thread-body variant gave other bits than the merged instance")
-    return table
 
 
 def measure_warp_residency(counts=(12, 16, 20, 24)):

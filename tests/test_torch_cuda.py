@@ -1235,8 +1235,8 @@ def test_moment_ext_instance_is_the_basic_instance(dev, dim):
     """In every dimension the thread body's instance compiled with knowns
     (and ALGO_ITERATIVE) and the one compiled with ALGO_ITERATIVE alone
     give, with neither asked, the bits of the basic instance (2D: the
-    headline's; 1D and 3D orders 0-2: since PR 13, when the one with knowns
-    ran every 1D and 3D call), with and without the key, both weightings;
+    headline's; 1D and 3D orders 0-2, whose calls the one with knowns once
+    ran alone), with and without the key, both weightings;
     with max_iter = 0 fit_kernel is the basic path.  1D and 3D also with
     max_iter = 3: the ALGO_ITERATIVE instance's fi and counts are those of
     the one with knowns."""
@@ -1283,7 +1283,7 @@ def test_moment_ext_instance_is_the_basic_instance(dev, dim):
 @pytest.mark.parametrize("dim", [1, 3])
 def test_moment_1d_3d_thread_instances_match_plain(dev, dim):
     """The 1D and 3D (orders 0-2) thread body's basic and ALGO_ITERATIVE
-    instances (PR 13) against the plain version: ragged nk with NaN padding,
+    instances against the plain version: ragged nk with NaN padding,
     both weightings, max_iter 0 and 3, at the smoke paths' K (1D K = 15, 3D
     K = 48) and at K = 16 and 56, batches that end inside a warp.  fi within
     PARITY of the plain version (1D: past the moment key edge within

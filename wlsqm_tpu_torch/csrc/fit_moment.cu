@@ -64,12 +64,22 @@
 //     entries in the order of a row-by-row factor;
 //   - the scale and the de-scale run here, so the wrapper makes no pass
 //     over xk or fk and allocates nothing of size (B, K).
-//   In 2D three instances: the basic one (the headline), one with knowns
-//   (and ALGO_ITERATIVE beside them) and one with ALGO_ITERATIVE alone (the
-//   iterative path), so neither's code burdens the others: with the knowns'
-//   predicates and values the one instance that had both spilled 804 / 968
-//   bytes and ran every fit phase at 2.25x the basic instance's cycles (its
-//   phase clock, PERF.md); in 1D and 3D the one instance has both.  The
+//   Three instances in every dimension: the basic one (the headline), one
+//   with knowns (and ALGO_ITERATIVE beside them) and one with ALGO_ITERATIVE
+//   alone (the iterative path), so neither's code burdens the others: with
+//   the knowns' predicates and values the one 2D instance that had both
+//   spilled 804 / 968 bytes and ran every fit phase at 2.25x the basic
+//   instance's cycles (its phase clock, PERF.md).  1D and 3D ran that one
+//   instance before; split, the 1D basic instance takes 62 registers
+//   where it took 118, and on an H100 the dim1 launch (order 4, K = 15,
+//   UNIFORM, 2^23) went from 1.31-1.37 to 1.03-1.08 ms, its ALGO_ITERATIVE
+//   one from 2.50-2.53 to 2.20-2.22 ms (chip_smoke.measure_moment_paths, fi
+//   and the counts the same bits).  In 3D each case also reads its count and
+//   origin before the staging wait, and a block stages xk's slab alone and
+//   reads fk from global memory one neighbour ahead: at K = 48
+//   the slabs of both (99 KB) let two blocks share an SM, xk's alone (74 KB)
+//   three, and the dim3_thread launch (order 2, CENTER, 2^21) went from
+//   4.07-4.15 to 2.84-2.86 ms.  The
 //   ALGO_ITERATIVE instance keeps the first 10 entries of its solution in
 //   shared memory (the rest of a third of the SM's), so with the trips' own
 //   live values (x^ in registers) it spills less than the basic instance.
@@ -166,23 +176,6 @@
 #endif
 #ifndef WLSQM_PHASE_CLOCK
 #define WLSQM_PHASE_CLOCK 0
-#endif
-// measurement knobs of the 1D and 3D thread body's designs
-// (chip_smoke.measure_moment_thread_variants): the case's nk and xi read
-// before the staging wait; 3D staging (0 the block's slabs of xk and fk, 1
-// none, 2 xk's slab alone); one walk for h^2 and max d^2; the ALGO_ITERATIVE
-// instance keeping its slabs through the trips
-#ifndef WLSQM_V_EARLY
-#define WLSQM_V_EARLY 0
-#endif
-#ifndef WLSQM_V_STAGE3
-#define WLSQM_V_STAGE3 0
-#endif
-#ifndef WLSQM_V_MERGED
-#define WLSQM_V_MERGED 0
-#endif
-#ifndef WLSQM_V_KEEP
-#define WLSQM_V_KEEP 0
 #endif
 
 namespace {
@@ -410,32 +403,27 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   // a known DOF (the knowns instance only: elsewhere the predicate folds away)
   auto kn = [knowns](int j) { return MODE == kKnowns && ((knowns >> j) & 1LL) != 0; };
 
-  // ---- the block's slabs of xk and fk (contiguous in global memory) into
-  //      shared memory by coalesced 8-byte cp.async, each case's rows at an
-  //      odd stride, so that the cases' walks below are free of bank
-  //      conflicts; past what one block can hold, the walks read global
-  //      memory ----
-  constexpr bool kNew = DIM != 2;  // the 1D and 3D designs (2D keeps PR 6/10's)
+  // ---- the block's slabs of xk and fk (in 3D xk's alone; contiguous in
+  //      global memory) into shared memory by coalesced 8-byte cp.async,
+  //      each case's rows at an odd stride, so that the cases' walks below
+  //      are free of bank conflicts; past what one block can hold, the walks
+  //      read global memory ----
   const int ldx = (DIM * K) | 1, ldf = K | 1;
-  // the ALGO_ITERATIVE instance keeps its slabs through the trips where the
-  // launch says so (staged 2): the per-case state then follows them
-  constexpr bool kKeepable = kNew && MODE == kIterative && WLSQM_V_KEEP;
-  const bool keep = kKeepable && staged == 2;
-  double* const sm = smem + (keep ? (int64_t)kTB * (ldx + ldf) : 0) + tid;
+  double* const sm = smem + tid;
   const double* const xg = xk + c * (int64_t)K * DIM;
   const double* const fg = fk + c * (int64_t)K;
   const double* xc = xg;
   const double* fc = fg;
-  // the case's count and origin, read before the staging wait
-  constexpr bool kEarly = kNew && WLSQM_V_EARLY;
+  // 3D: the case's count and origin read before the staging wait, which
+  // their latency would otherwise follow
   int n = 0;
   double x0[DIM];
-  if (kEarly && valid) {
+  if (DIM == 3 && valid) {
     n = min(max(nk[c], 0), K);
 #pragma unroll
     for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
   }
-  const bool xk_only = kNew && staged == 3;  // fk read from global memory
+  const bool xk_only = DIM == 3 && staged == 2;  // fk then read from global memory
   if (staged) {
     const int cnt = (int)min((int64_t)kTB, B - c0);
     const double* gx = xk + c0 * K * DIM;
@@ -461,46 +449,14 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll
   for (int j = 0; j < NO; ++j) b[j] = 0.0;
   if (valid) {
-    if (!kEarly) {
+    if (DIM != 3) {
       n = min(max(nk[c], 0), K);
 #pragma unroll
       for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
     }
-    bool walk2 = WEIGHTING == kWeightCenter;
-    if constexpr (kNew && WLSQM_V_MERGED && WEIGHTING == kWeightCenter) {
-      // one walk for h^2 and for max |d|^2 of the unscaled offsets, which
-      // is max d^2 times 2^(2e) bit for bit wherever every offset is 0 or in
-      // [2^-300, 2^300] and |e| <= 200 (each square and sum of both walks
-      // is then a normal number, and the power-of-two scale commutes with
-      // every rounding); elsewhere the second walk runs
-      double h2 = 0.0, mu = 0.0;
-      bool exact = true;
-      for (int k = 0; k < n; ++k) {
-        double dl[DIM];
-#pragma unroll
-        for (int a = 0; a < DIM; ++a) {
-          dl[a] = xc[DIM * k + a] - x0[a];
-          const double u = fabs(dl[a]);
-          exact = exact && (u == 0.0 || (u >= 0x1p-300 && u <= 0x1p300));
-        }
-        double s2 = dl[0] * dl[0];
-#pragma unroll
-        for (int a = 1; a < DIM; ++a) s2 = s2 + dl[a] * dl[a];
-        h2 = max_nan(h2, s2);
-        mu = fmax(mu, sq<DIM>(dl));
-      }
-      e = scale_exponent(h2);
-      is = pow2(-e);
-      if (exact && fabs(e) <= 200.0) {
-        const double m = mu * is * is;
-        max_d2 = m > 0.0 ? m : 1.0;
-        walk2 = false;
-      }
-    } else {
-      e = scale_exponent(case_h2<DIM>(xc, n, x0));
-      is = pow2(-e);
-    }
-    if (walk2) {
+    e = scale_exponent(case_h2<DIM>(xc, n, x0));
+    is = pow2(-e);
+    if (WEIGHTING == kWeightCenter) {
       double m = 0.0;
       for (int k = 0; k < n; ++k) {
         double d[DIM];
@@ -512,8 +468,8 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
     WLSQM_CLOCK(1, c, true);
     // per neighbour: the powers of the scaled offsets (the last axis' times
     // w), w f times the last axis' powers, then one multiply-add per moment
-    // and per RHS entry (a product of two ladders first in 3D); fk from
-    // global memory one neighbour ahead where only xk is staged
+    // and per RHS entry (a product of two ladders first in 3D); where only
+    // xk is staged, fk from global memory one neighbour ahead
     double fnext = xk_only && n > 0 ? __ldg(fc) : 0.0;
     for (int k = 0; k < n; ++k) {
       double fv;
@@ -707,8 +663,8 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
         break;
       }
       const int nt = min(max(nk[c], 0), K);
-      const double* const xt = keep ? xc : xk + c * (int64_t)K * DIM;
-      const double* const ft = keep ? fc : fk + c * (int64_t)K;
+      const double* const xt = xk + c * (int64_t)K * DIM;
+      const double* const ft = fk + c * (int64_t)K;
       double o[DIM];
 #pragma unroll
       for (int a = 0; a < DIM; ++a) o[a] = xi[DIM * c + a];
@@ -731,8 +687,8 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
         for (int q = 0; q < 4; ++q) {
           const int k = k0 + q < nt ? k0 + q : nt - 1;
 #pragma unroll
-          for (int a = 0; a < DIM; ++a) v[q][a] = keep ? xt[DIM * k + a] : __ldg(xt + DIM * k + a);
-          v[q][DIM] = keep ? ft[k] : __ldg(ft + k);
+          for (int a = 0; a < DIM; ++a) v[q][a] = __ldg(xt + DIM * k + a);
+          v[q][DIM] = __ldg(ft + k);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -1387,20 +1343,15 @@ int launch_thread(const Args& a, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t slab = sizeof(double) * kTB * (size_t)(((kDim * a.K) | 1) + (a.K | 1));
+  // what a block stages: 1 the slabs of xk and fk; in 3D 2, xk's slab
+  // alone (fk read one neighbour ahead from global memory: at K = 48 three
+  // blocks an SM, not two); 0 nothing, past what one block can hold (the
+  // walks read global memory)
+  const size_t slab = sizeof(double) * kTB *
+                      (size_t)(((kDim * a.K) | 1) + (kDim == 3 ? 0 : (a.K | 1)));
+  const int staged = slab <= (size_t)optin ? (kDim == 3 ? 2 : 1) : 0;
   const size_t lay = MODE == kBasic ? Lay::kBytes : Lay::kIterBytes;
-  int staged = slab <= (size_t)optin;
-  size_t bytes = staged && slab > lay ? slab : lay;
-  if (kDim != 2 && WLSQM_V_KEEP && MODE == kIterative && staged && slab + lay <= (size_t)optin / 4) {
-    staged = 2;  // the slabs kept through the trips, the state after them
-    bytes = slab + lay;
-  }
-  if (kDim == 3 && WLSQM_V_STAGE3 == 1) {
-    staged = 0, bytes = lay;
-  } else if (kDim == 3 && WLSQM_V_STAGE3 == 2 && staged == 1) {
-    const size_t xslab = sizeof(double) * kTB * (size_t)((kDim * a.K) | 1);
-    staged = 3, bytes = xslab > lay ? xslab : lay;
-  }
+  const size_t bytes = staged && slab > lay ? slab : lay;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1450,15 +1401,11 @@ int dispatch(const Args& a, int order, int weighting, int mode, void* stream) {
   case ORD:             \
     return center ? launch<ORD, kWeightCenter>(a, mode, st) : launch<ORD, 1>(a, mode, st);
   switch (order) {
-#ifdef WLSQM_V_ONLY_ORDER  // a measurement build of one order (quicker to compile)
-    WLSQM_CASE(WLSQM_V_ONLY_ORDER)
-#else
     WLSQM_CASE(0)
     WLSQM_CASE(1)
     WLSQM_CASE(2)
     WLSQM_CASE(3)
     WLSQM_CASE(4)
-#endif
     default:
       return (int)cudaErrorInvalidValue;
   }
