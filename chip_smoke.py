@@ -140,6 +140,9 @@ B_COND2 = 4096          # keys held against cond_2 by SVD
 KEY_EPS = 2.0 ** -50    # kernel vs plain past the certified key edge: KEY_EPS * key,
 KEY_CAP = 1e-9          # ... at most KEY_CAP, and the kernel no farther from the
 ORACLE_FACTOR = 4.0     # oracle than ORACLE_FACTOR times the plain version (or PARITY)
+COND_FACTOR = 8.0       # dim1: a case's error against the oracle, in u times its componentwise
+                        # condition (_cond_1d): sound f64 solves read up to 2.06 on an H100,
+                        # the first-order bound of a 15-term sum is 15
 KEY_TOL = 1e-6          # kernel key vs plain key, relative (its own sensitivity
                         # is ~cond * 2^-53)
 COLLINEAR = 0.05        # share of near-collinear cases on the certified route
@@ -498,9 +501,11 @@ def phase_moment_vs_plain(dev, wtt):
     dims 1-3 x orders 0-4 x knowns {0, the value, the highest DOF} x basic
     and max_iter = 3 x UNIFORM and CENTER at B_MOMENT_GRID, ragged nk with
     NaN padding (1D at nk >= 2 NO), 3D order 4 also at K = 48 (the dim3
-    path's) and K_WIDE, 3D order 2 at its thread body's slab edges: fi
-    within PARITY, the known DOFs fi_init's bits, fi (and the counts) the
-    same bits with the key.  PARITY holds on every case in 2D and 3D; in 1D
+    path's) and K_WIDE, 3D order 2 at its thread body's slab edges, and
+    the dim1 and dim3_thread paths' configurations (1D order 4 UNIFORM at
+    K_DIM1, 3D order 2 at K_DIM3, basic and max_iter = 3): fi within
+    PARITY, the known DOFs fi_init's bits, fi (and the counts) the same
+    bits with the key.  PARITY holds on every case in 2D and 3D; in 1D
     on the cases whose key is under the moment body's certified edge (the
     calibration record's).  Past it the two, which sum the moments in other
     orders, differ by roundoff the conditioning amplifies (1D order 4
@@ -528,6 +533,9 @@ def phase_moment_vs_plain(dev, wtt):
     checks += [(3, ORDER, w, kn, mi, B_MOMENT_GRID, k) for k in (K_DIM3, K_WIDE)
                for w in weightings for kn in (0, 1 << 34) for mi in (0, 3)]
     checks += [(3, 2, w, 0, 0, B_GRID, k) for k in K_SLAB_EDGE_3D for w in weightings]
+    checks += [(1, ORDER, wtt.WEIGHT_UNIFORM, 0, mi, B_MOMENT_GRID, K_DIM1) for mi in (0, 3)]
+    checks += [(3, ORDER_DIM3_THREAD, w, 0, mi, B_MOMENT_GRID, K_DIM3)
+               for w in weightings for mi in (0, 3)]
     edge = condprobe.est_certified_edges()["moments"]
     per = {}
     for dim, order, w, kn, mi, B, k in checks:
@@ -1219,6 +1227,26 @@ def _scipy_1d(xk, fk, xi, order):
     return out
 
 
+def _cond_1d(xk, fk, xi, fi, order):
+    """Per case, the componentwise (Skeel) condition of a 1D UNIFORM
+    normal-equations fit in the DOF convention of fi (factorial-scaled
+    monomials of the offsets): ‖ |A⁻¹| (|C|ᵀ|C| |x| + |C|ᵀ |f|) ‖∞ over
+    max(‖x‖∞, 1), A = CᵀC, x = fi (NumPy in, (B,) out).  To first order a
+    solve whose sums and factor each carry a few roundings reaches the error
+    u times this; a key, which reads A alone, misses the cancellation in
+    Cᵀf that a near-constant field brings (ROADMAP C4)."""
+    from math import factorial
+
+    p = np.arange(order + 1)
+    c = ((xk[..., 0] - xi[:, 0:1])[..., None] ** p) * np.array([1.0 / factorial(int(q))
+                                                              for q in p])
+    ai = np.abs(np.linalg.inv(np.einsum("bki,bkj->bij", c, c)))
+    ac = np.abs(c)
+    v = (np.einsum("bki,bkj,bj->bi", ac, ac, np.abs(fi))
+         + np.einsum("bki,bk->bi", ac, np.abs(fk)))
+    return np.einsum("bij,bj->bi", ai, v).max(1) / np.maximum(np.abs(fi).max(1), 1.0)
+
+
 def _thread_ptxas(libs, pattern):
     """The ptxas report of the moment (or rows) instances whose name matches
     ``pattern``, by library: {library: {instance: {registers, spills}}}."""
@@ -1235,17 +1263,28 @@ def phase_dim1(dev, wtt):
     the route fit_1D_iterative_many takes without count fidelity
     (fit_many(backend="auto", gate="data"): the moment kernel with its key
     on every case, the engine again for the cases the data gate keeps off
-    it).  Each against the port's f64 engine on its first B_ENGINE cases and
-    scipy through parity_check's rule on B_SCIPY (printed); on this
-    low-frequency field every f64 normal-equation solve, scipy's and the
-    engine's included, lies 1.3-2.6e-10 from the long-double-refined oracle
-    on an H100 (ROADMAP C4: the geometry certificate keeps cases whose moment
-    fit is that far off too), so the first B_SCIPY cases are held there: the
-    route's worst error within PARITY or at most ORACLE_FACTOR times the
-    worst of the port's f64 engine on the same cases.
+    it).  On the first B_ENGINE cases, case by case:
+      - each call's kernel launch (fit_kernel with the key, at the call's
+        max_iter) against the plain version on the same inputs, read as
+        phase_moment_vs_plain reads them (PARITY under the moment key edge,
+        min(KEY_EPS x key, KEY_CAP) past it), and held, like the cases past
+        that bar there, by the long-double-refined oracle: the kernel's
+        error within max(PARITY, COND_FACTOR x u x the case's componentwise
+        condition, _cond_1d);
+      - the counts against the plain version's (_count_check);
+      - the plan route: the kernel's bits under its split edge, within
+        PARITY of the engine past it;
+      - both routes against the oracle, within max(PARITY, COND_FACTOR x u
+        x the case's condition).
+    On this near-constant field (exp x on a unit interval) the key misses
+    the right-hand side's cancellation (ROADMAP C4): every f64 solve of the
+    normal equations, scipy's and the port's engine's included, lies up to
+    2e-10 from the oracle on cases under the key edge, so the issue's
+    1e-10 against the engine and scipy (printed, with the split by key) is
+    out of reach of any of them.
     The launches (basic, with the key, with ALGO_ITERATIVE) timed beside
     their bounds, the plain version and lstsq."""
-    from wlsqm_tpu_torch.fitter import calibration
+    from wlsqm_tpu_torch.fitter import calibration, condprobe
     from wlsqm_tpu_torch.ops import fit_kernel
 
     torch.cuda.empty_cache()
@@ -1257,11 +1296,12 @@ def phase_dim1(dev, wtt):
     if plan.route.assembly != "moments" or not plan.route.path.startswith("kernel"):
         raise RuntimeError("the dim1 plan did not route to the moment kernel: %s" % (plan,))
     itkw = dict(kw, iterative=True, max_iter=MAX_ITER, backend="auto", gate="data")
-    s = slice(0, B_ENGINE)
-    rec, fits = {}, {}
-    for name, call, ekw in (("plan", lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw), kw),
-                            ("iterative", lambda: wtt.fit_many(xk, fk, xi, nk=nk, **itkw),
-                             dict(kw, iterative=True, max_iter=MAX_ITER))):
+    s, o = slice(0, B_ENGINE), slice(0, B_SCIPY)
+    edge = condprobe.est_certified_edges()["moments"]
+    rec, fits, held = {}, {}, {}
+    for name, mi, call in (("plan", 0, lambda: wtt.fit_many(xk, fk, xi, plan=plan, **kw)),
+                           ("iterative", MAX_ITER,
+                            lambda: wtt.fit_many(xk, fk, xi, nk=nk, **itkw))):
         _zero_launches()
         t0 = time.perf_counter()
         res = call()
@@ -1274,39 +1314,87 @@ def phase_dim1(dev, wtt):
         fi = res.fi
         if tuple(fi.shape) != (B_MAIN, 5) or not bool(torch.isfinite(fi).all()):
             raise RuntimeError("dim1 %s: bad DOFs, shape %s" % (name, tuple(fi.shape)))
+        ekw = dict(kw, iterative=True, max_iter=mi) if mi else kw
         eng = wtt.fit_many(xk[s], fk[s], xi[s], nk=nk[s], backend="engine", **ekw).fi
-        o = slice(0, B_SCIPY)
-        sci = torch.from_numpy(_scipy_1d(*(t[o].cpu().numpy() for t in (xk, fk, xi)), ORDER))
-        plain = fit_kernel.fit_moments_plain(xk[o], fk[o], nk[o], xi[o], dimension=1,
-                                             max_iter=ekw.get("max_iter", 0), **kw)
-        plain = plain[0] if isinstance(plain, tuple) else plain
-        e = calibration.oracle_case_errors([fi[o], eng[o], sci, plain], xk[o], fk[o], nk[o],
-                                           xi[o], None, [], W, 1, ORDER)
         kernel = fit_kernel.fit_kernel(xk, fk, nk, xi, dimension=1, emit_cond=True,
-                                       max_iter=ekw.get("max_iter", 0), **kw)[0]
-        rec[name] = {"launches": launches, "first_call_s": round(first_s, 4),
-                     "vs_engine": _rel(fi[s], eng), "vs_scipy": _rel(fi[o], sci.to(dev)),
-                     "engine_vs_scipy": _rel(eng[o], sci.to(dev)),
-                     "vs_oracle": float(e[0].max()), "engine_vs_oracle": float(e[1].max()),
-                     "scipy_vs_oracle": float(e[2].max()), "plain_vs_oracle": float(e[3].max()),
-                     "over_parity": int((e[0] > PARITY).sum()),
-                     "held": bool(e[0].max() <= max(ORACLE_FACTOR * e[1].max(), PARITY)),
-                     "kernel_bits_share": float((_bits(fi) == _bits(kernel)).all(1)
-                                                .double().mean())}
-        if name == "iterative":
-            rec[name]["counts"] = torch.bincount(res.iterations.long(),
-                                                 minlength=MAX_ITER + 1).tolist()
+                                       max_iter=mi, **kw)
+        plain = fit_kernel.fit_moments_plain(xk[s], fk[s], nk[s], xi[s], dimension=1,
+                                             max_iter=mi, **kw)
+        plain = plain if mi else (plain,)
+        key = kernel[-1][s]
+        sci = torch.from_numpy(_scipy_1d(*(t[o].cpu().numpy() for t in (xk, fk, xi)), ORDER))
+        r = {"launches": launches, "first_call_s": round(first_s, 4),
+             "vs_engine": _rel(fi[s], eng), "vs_scipy": _rel(fi[o], sci.to(dev)),
+             "engine_vs_scipy": _rel(eng[o], sci.to(dev)),
+             "kernel_bits_share": float((_bits(fi[s]) == _bits(kernel[0][s])).all(1)
+                                        .double().mean())}
+        if mi:
+            kc, pc = kernel[1][s].long(), plain[1].long()
+            tv = int((torch.bincount(kc, minlength=mi + 1)
+                      - torch.bincount(pc, minlength=mi + 1)).abs().sum()) // 2
+            r["counts"] = torch.bincount(res.iterations.long(), minlength=mi + 1).tolist()
+            r["kernel_counts_vs_plain"] = {"equal": float((kc == pc).double().mean()),
+                                           "within_one": float(((kc - pc).abs() <= 1)
+                                                               .double().mean()),
+                                           "histogram_distance": tv / B_ENGINE}
+            if not _count_check(int((kc == pc).sum()), int(((kc - pc).abs() <= 1).sum()), tv,
+                                B_ENGINE):
+                raise RuntimeError("dim1 %s: the kernel's counts against the plain "
+                                   "version's: %s" % (name, r["kernel_counts_vs_plain"]))
+        else:
+            past = key > plan.route.split_edge
+            r["route_past_split_edge"] = int(past.sum())
+            if not (_same_bits(fi[s][~past], kernel[0][s][~past])
+                    and _rel(fi[s][past], eng[past]) <= PARITY):
+                raise RuntimeError("dim1 plan route: not the kernel's bits under its split "
+                                   "edge, or past PARITY of the engine past it")
+        err = (kernel[0][s] - plain[0]).abs().amax(1) / plain[0].abs().amax(1).clamp_min(1.0)
+        under = key <= edge
+        bar = torch.where(under, PARITY, (KEY_EPS * key).clamp_max(KEY_CAP))
+        r["kernel_vs_plain"] = {"under_key_edge": err[under].max().item(),
+                                "past_key_edge_over_key": (err / key)[~under].max().item(),
+                                "cases_past_the_bar": int((err > bar).sum()),
+                                "of_them_under_the_key_edge": int(((err > bar) & under).sum())}
+        rec[name] = r
         fits[name] = launches
-        del res, fi, eng, kernel
+        held[name] = (fi[s], kernel[0][s], plain[0], eng, under)
+        del res, fi, eng, kernel, plain
+    # the long-double-refined oracle, once for both calls' fits (same inputs,
+    # no knowns), and each case's componentwise condition
+    order_of = [(n, i) for n in held for i in range(4)]
+    e = calibration.oracle_case_errors([held[n][i] for n, i in order_of], xk[s], fk[s], nk[s],
+                                       xi[s], None, [], W, 1, ORDER)
+    e = {(n, i): e[j] for j, (n, i) in enumerate(order_of)}
+    cond = _cond_1d(*(t[s].cpu().numpy() for t in (xk, fk, xi)),
+                    held["plan"][2].cpu().numpy(), ORDER)
+    lim = np.maximum(PARITY, COND_FACTOR * 2.0 ** -53 * cond)
+    ok = True
+    for name, (_, _, _, _, under) in held.items():
+        under = under.cpu().numpy()
+        ro, ko, po, eo = (e[(name, i)] for i in range(4))
+        rec[name].update({
+            "vs_oracle": float(ro.max()), "kernel_vs_oracle": float(ko.max()),
+            "plain_vs_oracle": float(po.max()), "engine_vs_oracle": float(eo.max()),
+            "over_parity_of_the_oracle": {k: [int(((v > PARITY) & under).sum()),
+                                              int(((v > PARITY) & ~under).sum())]
+                                          for k, v in (("route", ro), ("kernel", ko),
+                                                       ("plain", po), ("engine", eo))},
+            "route_over_parity_of_the_oracle_first_%d" % B_SCIPY: [
+                int(((ro > PARITY) & under)[o].sum()), int(((ro > PARITY) & ~under)[o].sum())],
+            "over_u_cond": {k: float((v / (2.0 ** -53 * cond)).max())
+                            for k, v in (("route", ro), ("kernel", ko), ("plain", po),
+                                         ("engine", eo))}})
+        ok &= bool((ro <= lim).all()) and bool((ko <= lim).all())
     print(json.dumps({"path": "dim1", "B": B_MAIN, "K": K_DIM1, "order": ORDER,
                       "weighting": "UNIFORM", "route": plan.route.path,
                       "split_edge": plan.route.split_edge, "tail_frac": plan.route.tail_frac,
-                      "calls": rec, "tol": PARITY, "oracle_factor": ORACLE_FACTOR,
+                      "key_edge": edge, "held_cases": B_ENGINE, "calls": rec, "tol": PARITY,
+                      "cond_factor": COND_FACTOR,
                       "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}),
           flush=True)
-    if not all(r["held"] for r in rec.values()):
-        raise RuntimeError("dim1: farther from the oracle than max(%.0e, %g x the f64 "
-                           "engine's worst): %s" % (PARITY, ORACLE_FACTOR, rec))
+    if not ok:
+        raise RuntimeError("dim1: a case farther from the oracle than max(%.0e, %g x u x its "
+                           "componentwise condition): %s" % (PARITY, COND_FACTOR, rec))
     data = (xk, fk, nk, xi)
     basic = _moment_times(dev, wtt, "dim1", data, dim=1, order=ORDER, weighting=W,
                           launches=fits["plan"],
@@ -3913,22 +4001,28 @@ def _rows_norm_lib():
         defines=("WLSQM_EMIT_COND=0", "WLSQM_ROWS_NORMS=1"), includes=fit_rows._INCLUDES)
 
 
-def _card_test_cloud(dev, B, K, order, seed, dim, lo=None):
-    """The cloud of tests/test_torch_cuda.py's ``_cloud`` (ragged nk, NaN
-    padding), made the same way from the same seed."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    xk = torch.rand((B, K, dim), generator=g, device=dev, dtype=torch.float64) * 2 - 1
-    xi = (torch.rand((B, dim), generator=g, device=dev, dtype=torch.float64) - 0.5) * 0.2
-    xk = xk + xi[:, None, :]
-    fk = torch.sin(3 * xk[..., 0]) * torch.cos(2 * xk[..., -1])
-    if lo is None:
-        lo = (3 * (order + 1 if dim == 1 else (order + 1) * (order + 2) // 2)) // 2
-    nk = torch.randint(min(lo, K), K + 1, (B,), generator=g, device=dev, dtype=torch.int32)
-    nk[::2] = K
-    pad = torch.arange(K, device=dev)[None, :] >= nk[:, None]
-    xk[pad] = torch.nan
-    fk = fk.masked_fill(pad, torch.nan)
-    return xk, fk, nk, xi
+def _plain_trip_norms(xk, fk, nk, xi, fi0, *, dimension, order, weighting, knowns):
+    """The rows kernel's plain version's ALGO_ITERATIVE l∞ residual norms,
+    (B, MAX_ITER): trip t's norm from the plain version's own scaled
+    solution after t trips (ops.fit_rows._solve_rows at max_iter = t), in
+    the operations its trip loop runs, so the same bits; a case's norms
+    after its stop are its last solution's."""
+    from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+
+    delta, kmask, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
+    KN = fit_rows.known_dofs(knowns, dimension, order)
+    ghat = fit_rows._scaled_knowns(fi0, fit_kernel._dof_scale(e_s, dimension, order), KN)
+    d, f = delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0)
+    c = fit_rows.basis_rows(d, dimension, order)
+    out = []
+    for t in range(MAX_ITER):
+        xh = fit_rows._solve_rows(d, f, kmask, ghat, dimension=dimension, order=order,
+                                  weighting=weighting, KN=KN,
+                                  refine_steps=fit_rows.DEFAULT_REFINE_STEPS, do_sens=False,
+                                  max_iter=t)[0]
+        r = torch.where(kmask, f - (c @ xh[..., None])[..., 0], 0.0)
+        out.append(r.abs().amax(dim=-1))
+    return torch.stack(out, 1)
 
 
 def _ulps(a, b):
@@ -3946,7 +4040,7 @@ def measure_count_ties(B=1031, configs=((2, (30, 63, 130)), (1, (16, 85)))):
     random knowns mask drawn as it draws them, random fi_init): the kernel
     built to write each trip's l∞ residual norm (_rows_norm_lib; its fi and
     counts held to the shipped library's bits) and the plain version's
-    norms (fit_rows_plain(norms=)).  A case whose counts differ is an
+    norms (_plain_trip_norms).  A case whose counts differ is an
     exact-stagnation tie when the side that stopped first (count t) saw its
     norm repeat bit for bit at trip t while the other side's moved by at most
     COUNT_TIE_ULPS ulps there (docs/porting.md:40-44, C2's class); any other
@@ -3955,8 +4049,16 @@ def measure_count_ties(B=1031, configs=((2, (30, 63, 130)), (1, (16, 85)))):
 
         python3 -c "import chip_smoke; chip_smoke.measure_count_ties()"
     """
+    import importlib.util
+
     import wlsqm_tpu_torch as wtt
     from wlsqm_tpu_torch.ops import fit_rows
+
+    spec = importlib.util.spec_from_file_location(   # by path: "tests" may name another package
+        "_card_tests", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                    "test_torch_cuda.py"))
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
 
     dev = torch.device("cuda")
     lib = _rows_norm_lib()
@@ -3978,8 +4080,8 @@ def measure_count_ties(B=1031, configs=((2, (30, 63, 130)), (1, (16, 85)))):
                     continue
                 NO = wtt.number_of_dofs(dim, order)
                 for w in (wtt.WEIGHT_UNIFORM, wtt.WEIGHT_CENTER):
-                    xk, fk, nk, xi = _card_test_cloud(dev, B, K, order, K + w, dim,
-                                                      lo=2 * NO if dim == 1 else None)
+                    xk, fk, nk, xi = card_tests._cloud(dev, B, K, order, K + w, dim,
+                                                       lo=2 * NO if dim == 1 else None)
                     fi0 = torch.randn((B, NO), generator=fg, dtype=torch.float64, device=dev)
                     kn = int(torch.randint(0, 1 << NO, (1,), generator=g))
                     kw = dict(dimension=dim, order=order, weighting=w, knowns=kn,
@@ -3993,13 +4095,13 @@ def measure_count_ties(B=1031, configs=((2, (30, 63, 130)), (1, (16, 85)))):
                     finally:
                         fit_rows.load = shipped_load
                     shipped = fit_rows.fit_rows(xk, fk, nk, xi, fi0, **kw)
-                    norms = []
-                    ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, norms=norms, **kw)
+                    ref = fit_rows.fit_rows_plain(xk, fk, nk, xi, fi0, **kw)
+                    np_ = _plain_trip_norms(xk, fk, nk, xi, fi0, dimension=dim, order=order,
+                                            weighting=w, knowns=kn)
                     torch.cuda.synchronize()
                     tally["same_bits_as_shipped"] &= (_same_bits(got[0], shipped[0])
                                                       and torch.equal(got[1], shipped[1]))
                     ck, cp = got[1].long(), ref[1].long()
-                    np_ = torch.stack(norms, 1)
                     tally["cases"] += B
                     tally["equal"] += int((ck == cp).sum())
                     tally["within_one"] += int(((ck - cp).abs() <= 1).sum())

@@ -72,14 +72,15 @@
 //   instance's cycles (its phase clock, PERF.md).  1D and 3D ran that one
 //   instance before; split, the 1D basic instance takes 62 registers
 //   where it took 118, and on an H100 the dim1 launch (order 4, K = 15,
-//   UNIFORM, 2^23) went from 1.31-1.37 to 1.03-1.08 ms, its ALGO_ITERATIVE
-//   one from 2.50-2.53 to 2.20-2.22 ms (chip_smoke.measure_moment_paths, fi
-//   and the counts the same bits).  In 3D each case also reads its count and
-//   origin before the staging wait, and a block stages xk's slab alone and
-//   reads fk from global memory one neighbour ahead: at K = 48
+//   UNIFORM, 2^23) went from 1.31-1.39 to 1.03-1.09 ms, its ALGO_ITERATIVE
+//   one from 2.45-2.53 to 2.20-2.23 ms (chip_smoke.measure_moment_paths, fi
+//   and the counts the same bits).  In 1D and 3D each case reads its count
+//   and origin before the staging wait (the 2D instances after it), and in
+//   3D a block stages xk's slab alone and reads fk from global memory one
+//   neighbour ahead: at K = 48
 //   the slabs of both (99 KB) let two blocks share an SM, xk's alone (74 KB)
 //   three, and the dim3_thread launch (order 2, CENTER, 2^21) went from
-//   4.07-4.15 to 2.84-2.86 ms.  The
+//   4.00-4.15 to 2.81-2.87 ms.  The
 //   ALGO_ITERATIVE instance keeps the first 10 entries of its solution in
 //   shared memory (the rest of a third of the SM's), so with the trips' own
 //   live values (x^ in registers) it spills less than the basic instance.
@@ -414,15 +415,18 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
   const double* const fg = fk + c * (int64_t)K;
   const double* xc = xg;
   const double* fc = fg;
-  // 3D: the case's count and origin read before the staging wait, which
-  // their latency would otherwise follow
+  // the case's count and origin, read before the staging wait, which their
+  // latency would otherwise follow; the 2D instances (the headline's) read
+  // them after it, as they did before the 1D and 3D instances were split
+  constexpr bool kEarly = DIM != 2;
   int n = 0;
   double x0[DIM];
-  if (DIM == 3 && valid) {
+  auto read_case = [&]() {
     n = min(max(nk[c], 0), K);
 #pragma unroll
     for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
-  }
+  };
+  if (kEarly && valid) read_case();
   const bool xk_only = DIM == 3 && staged == 2;  // fk then read from global memory
   if (staged) {
     const int cnt = (int)min((int64_t)kTB, B - c0);
@@ -449,11 +453,7 @@ fit_moment_thread(const double* __restrict__ xk, const double* __restrict__ fk,
 #pragma unroll
   for (int j = 0; j < NO; ++j) b[j] = 0.0;
   if (valid) {
-    if (DIM != 3) {
-      n = min(max(nk[c], 0), K);
-#pragma unroll
-      for (int a = 0; a < DIM; ++a) x0[a] = xi[DIM * c + a];
-    }
+    if (!kEarly) read_case();
     e = scale_exponent(case_h2<DIM>(xc, n, x0));
     is = pow2(-e);
     if (WEIGHTING == kWeightCenter) {

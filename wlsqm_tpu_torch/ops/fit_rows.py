@@ -216,13 +216,12 @@ def _chol_solve_cols(L, R):
 
 
 def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
-                refine_steps, do_sens, max_iter, emit_cond=False, norms=None):
+                refine_steps, do_sens, max_iter, emit_cond=False):
     """The kernel body on prescaled offsets ``d`` (B, K, dim) and data
     ``fk`` (B, K), both zero on padded slots.  Returns the scaled solution
     x̂ (B, NO) (ĝ on known DOFs), the counts or None, the scaled
     sensitivities (B, K, NO) or None, and the conditioning key before the
-    radius amplification or None.  ``norms``, a list, gets each
-    ALGO_ITERATIVE trip's (B,) l∞ residual norms."""
+    radius amplification or None."""
     NO = defs.number_of_dofs(dimension, order)
     c = basis_rows(d, dimension, order)                                # (B, K, NO)
     w = engine.neighbor_weights(torch.sum(d * d, dim=-1), kmask,
@@ -269,8 +268,6 @@ def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
         for _ in range(max_iter):
             r = torch.where(kmask, fk - (c @ xh[..., None])[..., 0], 0.0)
             nrm = r.abs().amax(dim=-1)
-            if norms is not None:
-                norms.append(nrm)
             done = done | (nrm == prev)
             rhs = torch.where(unknown, (cw.mT @ r[..., None])[..., 0] * s, 0.0)
             dy = _chol_solve_cols(L, rhs[..., None])[..., 0]
@@ -289,11 +286,9 @@ def _solve_rows(d, fk, kmask, ghat, *, dimension, order, weighting, KN,
 def fit_rows_plain(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
                    weighting: int, knowns: int = 0,
                    refine_steps: int = DEFAULT_REFINE_STEPS, do_sens: bool = False,
-                   max_iter: int = 0, emit_cond: bool = False, norms=None):
+                   max_iter: int = 0, emit_cond: bool = False):
     """The kernel's computation in batched torch f64, for any dimension 1-3
     and order 0-4; same arguments and results as :func:`fit_rows`.
-    ``norms``, a list, gets each ALGO_ITERATIVE trip's (B,) l∞ residual
-    norms (every trip: a case's norms after its stop are not its own).
 
     Memory is O(B·K·NO), and O(B·K²) for the sensitivities' sweeps.
     """
@@ -305,7 +300,7 @@ def fit_rows_plain(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
         delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0), kmask, ghat,
         dimension=dimension, order=order, weighting=weighting, KN=KN,
         refine_steps=refine_steps, do_sens=do_sens, max_iter=max_iter,
-        emit_cond=emit_cond, norms=norms)
+        emit_cond=emit_cond)
     if emit_cond:
         key = key * fit_kernel.cond_amp_factor(inv_s, order)
     return _finish(y, iters, sens, fi_init, dscale, KN, key)
