@@ -1,0 +1,22 @@
+"""The share of its roofline that K4 (``csrc/gather.cu``) reaches in the window.
+
+The least time of the window's K4 launches (``bench_port/lib/bounds.py``
+on the launch's shapes: each input read once, each output written once,
+against the H100 SXM's published peaks) over K4's device time in the
+profiler's trace.  None where the window has no K4 launch, no bound for it,
+or no device time for it.
+"""
+
+import re
+
+KERNEL = re.compile(r"\bgather_(words|vec16|vecs)\b")
+
+
+def read(ctx):
+    launches = ctx.counts.get("launches", {}).get("gather", 0)
+    bound_s = ctx.bounds.get("gather")
+    summary = ctx.trace.summary or {}
+    device_s = sum(s for name, s in summary.get("kernels", {}).items() if KERNEL.search(name))
+    if not launches or bound_s is None or device_s <= 0:
+        return None
+    return 100.0 * launches * bound_s / device_s
