@@ -48,6 +48,7 @@ from wlsqm_tpu_torch import config
 from wlsqm_tpu_torch.fitter import calibration, condprobe, defs, engine, interp, ladder
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.ops import solve as solve_ops
+from wlsqm_tpu_torch.utils import profiling
 
 __all__ = ["FitResult", "FitPlan", "fit", "fit_many", "fit_stream", "plan_fit_many",
            "prepare", "solve", "interpolate"]
@@ -132,16 +133,18 @@ def _run_kernel_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
     rs = fit_kernel.DEFAULT_REFINE_STEPS if refine_steps is None else refine_steps
     mi = max_iter if iterative else 0
     if assembly == "moments":
-        out = fit_kernel.fit_kernel(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
-                                    weighting=weighting, knowns=knowns, refine_steps=rs,
-                                    max_iter=mi, emit_cond=emit_cond)
+        with profiling.span("api.kernel"):
+            out = fit_kernel.fit_kernel(xk, fk, nk, xi, fi_init, dimension=dim,
+                                        order=order, weighting=weighting, knowns=knowns,
+                                        refine_steps=rs, max_iter=mi, emit_cond=emit_cond)
         out = out if isinstance(out, tuple) else (out,)
         iters = (out[1] if mi else
                  torch.zeros(xk.shape[0], dtype=torch.int32, device=out[0].device))
         return (out[0], iters, None) + ((out[-1],) if emit_cond else ())
-    return fit_rows.fit_rows(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
-                             weighting=weighting, knowns=knowns, refine_steps=rs,
-                             do_sens=do_sens, max_iter=mi, emit_cond=emit_cond)
+    with profiling.span("api.kernel"):
+        return fit_rows.fit_rows(xk, fk, nk, xi, fi_init, dimension=dim, order=order,
+                                 weighting=weighting, knowns=knowns, refine_steps=rs,
+                                 do_sens=do_sens, max_iter=mi, emit_cond=emit_cond)
 
 
 def _engine_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting):
@@ -200,8 +203,9 @@ def _run_kernel_split(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
     idxc = idx.clamp_max(B - 1)            # clipped gather; the fills are dropped
     fi_tail = _engine_group(xk[idxc], fk[idxc], nk[idxc], xi[idxc],
                             None if fi_init is None else fi_init[idxc], **kw)
-    out = torch.cat([fi, fi.new_empty((1, fi.shape[1]))])   # row B takes the fills
-    out[idx] = fi_tail
+    with profiling.span("api.split_scatter"):
+        out = torch.cat([fi, fi.new_empty((1, fi.shape[1]))])   # row B takes the fills
+        out[idx] = fi_tail
     return out[:B], iters, None
 
 
@@ -219,10 +223,13 @@ def _eager_split_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting
         xk, fk, nk, xi, fi_init, assembly=assembly,
         refine_steps=condprobe.pick_steps_at_edge(edge, assembly=assembly),
         emit_cond=True, **kw)
-    sel = (~(est <= edge)).nonzero().squeeze(1)
+    with profiling.span("api.split_select"):
+        sel = (~(est <= edge)).nonzero().squeeze(1)
     if sel.numel():
-        fi[sel] = _engine_group(xk[sel], fk[sel], nk[sel], xi[sel],
+        fi_tail = _engine_group(xk[sel], fk[sel], nk[sel], xi[sel],
                                 None if fi_init is None else fi_init[sel], **kw)
+        with profiling.span("api.split_scatter"):
+            fi[sel] = fi_tail
     return fi, iters, None
 
 
@@ -242,7 +249,8 @@ def _data_gated_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
         xk, fk, nk, xi, fi_init, dim=dim, order=order, knowns=knowns,
         weighting=weighting, assembly=assembly, refine_steps=refine_steps,
         do_sens=do_sens, iterative=iterative, max_iter=max_iter, emit_cond=True)
-    sel = (~(est * calibration.data_ratio(fi, fk, nk) <= edge)).nonzero().squeeze(1)
+    with profiling.span("api.split_select"):
+        sel = (~(est * calibration.data_ratio(fi, fk, nk) <= edge)).nonzero().squeeze(1)
     if sel.numel():
         n, no_g = sel.numel(), fi.shape[1]
 
@@ -255,10 +263,11 @@ def _data_gated_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns, weighting,
             xk[sel], fk[sel], nk[sel], xi[sel], fi0, full(order, torch.int32),
             full(knowns, torch.int64), full(weighting, torch.int32), dimension=dim,
             NO=no_g, do_sens=do_sens, iterative=iterative, max_iter=max_iter)
-        fi[sel] = fi_t
-        iters[sel] = it_t.to(iters.dtype)
-        if do_sens:
-            sens[sel] = sens_t
+        with profiling.span("api.split_scatter"):
+            fi[sel] = fi_t
+            iters[sel] = it_t.to(iters.dtype)
+            if do_sens:
+                sens[sel] = sens_t
     return fi, iters, sens
 
 
@@ -496,74 +505,81 @@ def fit_many(
 
     Returns a :class:`FitResult` of tensors on that device.
     """
-    if backend not in _BACKENDS:
-        raise ValueError("backend must be one of %s; got %r"
-                         % (sorted(_BACKENDS), backend))
-    if gate not in ("geometry", "data"):
-        raise ValueError("gate must be 'geometry' or 'data'; got %r" % (gate,))
-    backend = _BACKENDS[backend]
-    _check_precision(precision)
-    _check_mixed_steps(mixed_steps)
-    solve_ops.check_solver(solver)
+    with profiling.span("api.checks"):
+        if backend not in _BACKENDS:
+            raise ValueError("backend must be one of %s; got %r"
+                             % (sorted(_BACKENDS), backend))
+        if gate not in ("geometry", "data"):
+            raise ValueError("gate must be 'geometry' or 'data'; got %r" % (gate,))
+        backend = _BACKENDS[backend]
+        _check_precision(precision)
+        _check_mixed_steps(mixed_steps)
+        solve_ops.check_solver(solver)
 
-    device = config.resolve_device(device, xk)
-    xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
-    fk = config.as_tensor(fk, device)
-    if tuple(fk.shape) != (B, K):
-        raise ValueError("fk must have shape (B, K) = (%d, %d) matching xk; got %s"
-                         % (B, K, tuple(fk.shape)))
-    nk = (torch.full((B,), K, dtype=torch.int32, device=device) if nk is None
-          else config.as_tensor(nk, device, torch.int32))
-    if tuple(nk.shape) != (B,):
-        raise ValueError("nk must have shape (B,) = (%d,); got %s"
-                         % (B, tuple(nk.shape)))
-    _validate_weighting(weighting, device)
+        device = config.resolve_device(device, xk)
+        xk, xi, B, K, dim = _canon_geometry(xk, xi, device)
+        fk = config.as_tensor(fk, device)
+        if tuple(fk.shape) != (B, K):
+            raise ValueError("fk must have shape (B, K) = (%d, %d) matching xk; got %s"
+                             % (B, K, tuple(fk.shape)))
+        nk = (torch.full((B,), K, dtype=torch.int32, device=device) if nk is None
+              else config.as_tensor(nk, device, torch.int32))
+        if tuple(nk.shape) != (B,):
+            raise ValueError("nk must have shape (B,) = (%d,); got %s"
+                             % (B, tuple(nk.shape)))
+        _validate_weighting(weighting, device)
 
-    if max_order is None:
-        max_order = _scalar(order)
         if max_order is None:
-            max_order = int(config.as_tensor(order, device, torch.int64).max())
-    NO = defs.number_of_dofs(dim, max_order)
-    if fi_init is not None:
-        fi_init = config.as_tensor(fi_init, device)
-        if fi_init.ndim != 2 or fi_init.shape[0] != B or fi_init.shape[1] < NO:
-            raise ValueError("fi_init must have shape (B, >=NO) = (%d, >=%d); got %s"
-                             % (B, NO, tuple(fi_init.shape)))
+            max_order = _scalar(order)
+            if max_order is None:
+                max_order = int(config.as_tensor(order, device, torch.int64).max())
+        NO = defs.number_of_dofs(dim, max_order)
+        if fi_init is not None:
+            fi_init = config.as_tensor(fi_init, device)
+            if fi_init.ndim != 2 or fi_init.shape[0] != B or fi_init.shape[1] < NO:
+                raise ValueError("fi_init must have shape (B, >=NO) = (%d, >=%d); got %s"
+                                 % (B, NO, tuple(fi_init.shape)))
 
-    want = None
-    split = plan is not None and plan.route.path == "kernel-split"
-    if plan is not None:
-        if split and (do_sens or iterative):
-            raise ValueError("a kernel-split plan covers the basic algorithm only; "
-                             "re-plan with do_sens/iterative set")
-        backend = "engine" if plan.route.path == "xla" else "kernel"
-        want = plan.route.assembly
-        if refine_steps is None:
-            refine_steps = plan.route.refine_steps
+        want = None
+        split = plan is not None and plan.route.path == "kernel-split"
+        if plan is not None:
+            if split and (do_sens or iterative):
+                raise ValueError("a kernel-split plan covers the basic algorithm only; "
+                                 "re-plan with do_sens/iterative set")
+            backend = "engine" if plan.route.path == "xla" else "kernel"
+            want = plan.route.assembly
+            if refine_steps is None:
+                refine_steps = plan.route.refine_steps
 
-    if config.wants_grad(xk, fk, xi, fi_init):
+        if config.wants_grad(xk, fk, xi, fi_init):
+            if backend == "kernel":
+                raise ValueError(
+                    "fit_many: a kernel route (backend='kernel' or a plan whose route is a "
+                    "kernel) under autograd: the CUDA kernels have no backward, so the "
+                    "gradient would be missing; %s, or call it under torch.no_grad()"
+                    % _GRAD_HINT)
+            if backend == "auto":
+                _grad_to_engine("fit_many")
+                backend = "engine"
+
         if backend == "kernel":
-            raise ValueError(
-                "fit_many: a kernel route (backend='kernel' or a plan whose route is a "
-                "kernel) under autograd: the CUDA kernels have no backward, so the "
-                "gradient would be missing; %s, or call it under torch.no_grad()"
-                % _GRAD_HINT)
-        if backend == "auto":
-            _grad_to_engine("fit_many")
-            backend = "engine"
+            o, kn, wm = (_homogeneous(v, device) for v in (order, knowns, weighting))
+            assembly = (None if debug or None in (o, kn, wm)
+                        else _assembly(dim, o, kn, wm, do_sens, want, forced=True))
+            if assembly is None:
+                raise ValueError(
+                    "backend='kernel' requires a homogeneous batch (one order, knowns "
+                    "mask and weighting, UNIFORM or CENTER, no debug) that a kernel "
+                    "covers: the moment kernel takes dims 1-3, orders 0-4, knowns and "
+                    "ALGO_ITERATIVE, but no sens; the rows kernel takes all of that and "
+                    "sens%s; use backend='auto' or 'engine'"
+                    % ("" if want is None else " (this plan replays the %s kernel)" % want))
+        else:
+            order_a = _broadcast_case_param(order, B, torch.int32, device)
+            knowns_a = _broadcast_case_param(knowns, B, torch.int64, device)
+            weighting_a = _broadcast_case_param(weighting, B, torch.int32, device)
 
     if backend == "kernel":
-        o, kn, wm = (_homogeneous(v, device) for v in (order, knowns, weighting))
-        assembly = (None if debug or None in (o, kn, wm)
-                    else _assembly(dim, o, kn, wm, do_sens, want, forced=True))
-        if assembly is None:
-            raise ValueError(
-                "backend='kernel' requires a homogeneous batch (one order, knowns "
-                "mask and weighting, UNIFORM or CENTER, no debug) that a kernel "
-                "covers: the moment kernel takes dims 1-3, orders 0-4, knowns and "
-                "ALGO_ITERATIVE, but no sens; the rows kernel takes all of that and "
-                "sens%s; use backend='auto' or 'engine'"
-                % ("" if want is None else " (this plan replays the %s kernel)" % want))
         if split:
             fi_g, it_g, sens_g = _run_kernel_split(
                 xk, fk, nk, xi, fi_init, dim=dim, order=o, knowns=kn, weighting=wm,
@@ -575,9 +591,6 @@ def fit_many(
                 iterative=iterative, max_iter=max_iter)
         return _embed_kernel_result(fi_g, it_g, sens_g, fi_init, B, NO, dim, o)
 
-    order_a = _broadcast_case_param(order, B, torch.int32, device)
-    knowns_a = _broadcast_case_param(knowns, B, torch.int64, device)
-    weighting_a = _broadcast_case_param(weighting, B, torch.int32, device)
     if backend == "auto" and not debug:
         scalars = tuple(_scalar(v) for v in (order, knowns, weighting))
         return _auto_dispatch(
@@ -867,19 +880,20 @@ def solve(
     geometry-only array, expanded).  ``mixed_steps`` is the sweep dial of
     the JAX package's emulated precisions and must be None.
     """
-    _check_mixed_steps(mixed_steps)
-    device = prep.c.device
-    fk = config.as_tensor(fk, device)
-    B, K, NO = prep.c.shape
-    if tuple(fk.shape[-2:]) != (B, K) or fk.ndim not in (2, 3):
-        raise ValueError(
-            "fk must have shape (B, K) = (%d, %d) matching the prepared geometry "
-            "(or (F, B, K) for multi-field); got %s" % (B, K, tuple(fk.shape)))
-    fi0 = (fk.new_zeros(fk.shape[:-1] + (NO,)) if fi_init is None
-           else config.as_tensor(fi_init, device))
-    if tuple(fi0.shape) != tuple(fk.shape[:-1]) + (NO,):
-        raise ValueError("fi_init must have shape %s; got %s"
-                         % (tuple(fk.shape[:-1]) + (NO,), tuple(fi0.shape)))
+    with profiling.span("api.checks"):
+        _check_mixed_steps(mixed_steps)
+        device = prep.c.device
+        fk = config.as_tensor(fk, device)
+        B, K, NO = prep.c.shape
+        if tuple(fk.shape[-2:]) != (B, K) or fk.ndim not in (2, 3):
+            raise ValueError(
+                "fk must have shape (B, K) = (%d, %d) matching the prepared geometry "
+                "(or (F, B, K) for multi-field); got %s" % (B, K, tuple(fk.shape)))
+        fi0 = (fk.new_zeros(fk.shape[:-1] + (NO,)) if fi_init is None
+               else config.as_tensor(fi_init, device))
+        if tuple(fi0.shape) != tuple(fk.shape[:-1]) + (NO,):
+            raise ValueError("fi_init must have shape %s; got %s"
+                             % (tuple(fk.shape[:-1]) + (NO,), tuple(fi0.shape)))
     if iterative:
         return engine.solve_iterative_prepared(prep, fk, fi0, max_iter, do_sens)
     return engine.solve_prepared(prep, fk, fi0, do_sens)

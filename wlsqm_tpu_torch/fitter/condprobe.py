@@ -35,6 +35,7 @@ import torch
 from wlsqm_tpu_torch import config
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
+from wlsqm_tpu_torch.utils import profiling
 
 #: routing bar: predicted error above this is not certified
 AUTO_TOL = 1e-10
@@ -123,13 +124,14 @@ def _screened_idx(xk, nk, xi, order, dimension: int, sample: int) -> np.ndarray:
     base = _sample_idx(B, sample)
     if B <= len(base):
         return base
-    order_b = config.as_tensor(order, xk.device).expand(B)
-    amp, aniso = _screen_math(xk, nk, xi, order_b, dimension)
-    ntop = min(SCREEN_TOP, B)
-    worst_amp = torch.topk(amp, ntop).indices
-    worst_deg = torch.topk(aniso, ntop, largest=False).indices
-    return np.unique(np.concatenate([base, worst_amp.cpu().numpy(),
-                                     worst_deg.cpu().numpy()]))
+    with profiling.span("condprobe.screen"):
+        order_b = config.as_tensor(order, xk.device).expand(B)
+        amp, aniso = _screen_math(xk, nk, xi, order_b, dimension)
+        ntop = min(SCREEN_TOP, B)
+        worst_amp = torch.topk(amp, ntop).indices
+        worst_deg = torch.topk(aniso, ntop, largest=False).indices
+        return np.unique(np.concatenate([base, worst_amp.cpu().numpy(),
+                                         worst_deg.cpu().numpy()]))
 
 
 def _geometry(xk, nk, xi, device):
@@ -200,7 +202,6 @@ def _cond_amp(xk, nk, xi, order, weighting, *, dimension: int,
                            None if isinstance(xk, torch.Tensor) else "cpu")
     B, K, dim = xk.shape
     idx = _screened_idx(xk, nk, xi, order, dimension, sample)
-    sel = torch.as_tensor(idx, device=xk.device)
 
     def host(t):
         return t[sel].cpu().numpy()
@@ -211,50 +212,55 @@ def _cond_amp(xk, nk, xi, order, weighting, *, dimension: int,
             return np.broadcast_to(v.astype(np.int32), (len(idx),))
         return np.broadcast_to(np.asarray(v, np.int32), (B,))[idx]
 
-    xk_s, xi_s, nk_s = host(xk), host(xi), host(nk)
-    order_a, weighting_a = per_case(order), per_case(weighting)
+    with profiling.span("condprobe.host_copy"):
+        sel = torch.as_tensor(idx, device=xk.device)
+        xk_s, xi_s, nk_s = host(xk), host(xi), host(nk)
+        order_a, weighting_a = per_case(order), per_case(weighting)
 
-    omax = int(order_a.max())
-    NO = defs.number_of_dofs(dimension, omax)
-    exp = tables.EXPONENTS[dimension][:NO]            # (NO, dim)
-    invf = tables.INV_FACT[dimension][:NO]
+    with profiling.span("condprobe.assemble"):
+        omax = int(order_a.max())
+        NO = defs.number_of_dofs(dimension, omax)
+        exp = tables.EXPONENTS[dimension][:NO]            # (NO, dim)
+        invf = tables.INV_FACT[dimension][:NO]
 
-    delta = xk_s - xi_s[:, None, :]
-    kmask = np.arange(K)[None, :] < nk_s[:, None]
-    delta = np.where(kmask[:, :, None], delta, 0.0)
-    d2 = (delta ** 2).sum(-1)
+        delta = xk_s - xi_s[:, None, :]
+        kmask = np.arange(K)[None, :] < nk_s[:, None]
+        delta = np.where(kmask[:, :, None], delta, 0.0)
+        d2 = (delta ** 2).sum(-1)
 
-    # the kernel's power-of-two radius prescale (engine.radius_pow2_scale)
-    h2 = np.where(kmask, d2, 0.0).max(-1)
-    e = np.ceil(0.5 * np.log2(np.where(h2 > 0, h2, 1.0)))
-    inv_s = np.exp2(-e)                                # (b,)
+        # the kernel's power-of-two radius prescale (engine.radius_pow2_scale)
+        h2 = np.where(kmask, d2, 0.0).max(-1)
+        e = np.ceil(0.5 * np.log2(np.where(h2 > 0, h2, 1.0)))
+        inv_s = np.exp2(-e)                                # (b,)
 
-    c = np.ones(delta.shape[:2] + (NO,))
-    for a in range(dim):
-        c = c * delta[..., a:a + 1] ** exp[:, a]
-    c = c * invf
+        c = np.ones(delta.shape[:2] + (NO,))
+        for a in range(dim):
+            c = c * delta[..., a:a + 1] ** exp[:, a]
+        c = c * invf
 
-    # per-case active-DOF mask (lower orders truncate the basis)
-    no_per = np.array([defs.number_of_dofs(dimension, int(o)) for o in order_a])
-    active = np.arange(NO)[None, :] < no_per[:, None]  # (b, NO)
-    if knowns:
-        kn = np.array([(int(knowns) >> j) & 1 for j in range(NO)], bool)
-        active = active & ~kn[None, :]
+        # per-case active-DOF mask (lower orders truncate the basis)
+        no_per = np.array([defs.number_of_dofs(dimension, int(o)) for o in order_a])
+        active = np.arange(NO)[None, :] < no_per[:, None]  # (b, NO)
+        if knowns:
+            kn = np.array([(int(knowns) >> j) & 1 for j in range(NO)], bool)
+            active = active & ~kn[None, :]
 
-    max_d2 = h2[:, None]
-    t = 1.0 - np.sqrt(d2 / np.where(max_d2 > 0, max_d2, 1.0))
-    w_center = engine.WEIGHT_ALPHA + engine.WEIGHT_BETA * t * t
-    w = np.where(weighting_a[:, None] == defs.WEIGHT_CENTER, w_center, 1.0)
-    w = np.where(kmask, w, 0.0)
+        max_d2 = h2[:, None]
+        t = 1.0 - np.sqrt(d2 / np.where(max_d2 > 0, max_d2, 1.0))
+        w_center = engine.WEIGHT_ALPHA + engine.WEIGHT_BETA * t * t
+        w = np.where(weighting_a[:, None] == defs.WEIGHT_CENTER, w_center, 1.0)
+        w = np.where(kmask, w, 0.0)
 
-    A = np.einsum("bkj,bk,bkm->bjm", c, w, c)
-    # mask inactive/known DOFs to identity rows/cols, like the kernel
-    act2 = active[:, :, None] & active[:, None, :]
-    A = np.where(act2, A, 0.0) + np.where(active[:, :, None], 0.0, np.eye(NO)[None])
+        A = np.einsum("bkj,bk,bkm->bjm", c, w, c)
+        # mask inactive/known DOFs to identity rows/cols, like the kernel
+        act2 = active[:, :, None] & active[:, None, :]
+        A = np.where(act2, A, 0.0) + np.where(active[:, :, None], 0.0, np.eye(NO)[None])
 
-    diag = np.einsum("bjj->bj", A)
-    s = 1.0 / np.sqrt(np.where(diag > 0, diag, 1.0))
-    cond = np.linalg.cond(A * s[:, :, None] * s[:, None, :])
+        diag = np.einsum("bjj->bj", A)
+        s = 1.0 / np.sqrt(np.where(diag > 0, diag, 1.0))
+        As = A * s[:, :, None] * s[:, None, :]
+    with profiling.span("condprobe.svd"):
+        cond = np.linalg.cond(As)
 
     amp = np.maximum(inv_s, 1.0) ** order_a.astype(np.float64)
     return cond, amp

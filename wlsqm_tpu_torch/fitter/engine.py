@@ -29,6 +29,7 @@ import torch
 from wlsqm_tpu_torch.fitter import defs, tables
 from wlsqm_tpu_torch.ops import ruiz as ruiz_ops
 from wlsqm_tpu_torch.ops import solve as solve_ops
+from wlsqm_tpu_torch.utils import profiling
 
 # weight function constants (reference: wlsqm/fitter/infra.pyx:45-46)
 WEIGHT_ALPHA = 1e-4
@@ -180,32 +181,35 @@ def prepare(
     (reference: wlsqm/fitter/impl.pyx:47-689, make_c → make_A → preprocess_A).
     """
     B, K, _ = xk.shape
-    kmask = torch.arange(K, device=xk.device)[None, :] < nk[:, None]
-    delta = xk - xi[:, None, :]
-    # padded slots may hold anything, NaN included; the reference never reads
-    # them, so zero them before 0-weight times non-finite can poison a sum
-    delta = torch.where(kmask[:, :, None], delta, 0.0)
-    d2 = torch.sum(delta * delta, dim=-1)
+    with profiling.span("engine.assemble"):
+        kmask = torch.arange(K, device=xk.device)[None, :] < nk[:, None]
+        delta = xk - xi[:, None, :]
+        # padded slots may hold anything, NaN included; the reference never reads
+        # them, so zero them before 0-weight times non-finite can poison a sum
+        delta = torch.where(kmask[:, :, None], delta, 0.0)
+        d2 = torch.sum(delta * delta, dim=-1)
 
-    c = basis(delta, dimension, NO)
-    w = neighbor_weights(d2, kmask, weighting)
-    active, known, unknown = dof_masks(order, knowns, dimension, NO)
+        c = basis(delta, dimension, NO)
+        w = neighbor_weights(d2, kmask, weighting)
+        active, known, unknown = dof_masks(order, knowns, dimension, NO)
 
-    # A[j,m] = sum_k w_k c[k,j] c[k,m] over unknown DOFs; identity elsewhere
-    # (reference: wlsqm/fitter/impl.pyx:566-602 make_A)
-    A_full = torch.einsum("bkj,bkm->bjm", c * w[..., None], c)
-    unk2 = unknown[:, :, None] & unknown[:, None, :]
-    eye = torch.eye(NO, dtype=xk.dtype, device=xk.device)
-    A = torch.where(unk2, A_full, 0.0) + torch.where(unknown, 0.0, 1.0)[:, :, None] * eye
+        # A[j,m] = sum_k w_k c[k,j] c[k,m] over unknown DOFs; identity elsewhere
+        # (reference: wlsqm/fitter/impl.pyx:566-602 make_A)
+        A_full = torch.einsum("bkj,bkm->bjm", c * w[..., None], c)
+        unk2 = unknown[:, :, None] & unknown[:, None, :]
+        eye = torch.eye(NO, dtype=xk.dtype, device=xk.device)
+        A = (torch.where(unk2, A_full, 0.0)
+             + torch.where(unknown, 0.0, 1.0)[:, :, None] * eye)
 
-    if scaling == "jacobi":
-        row_scale, col_scale, ruiz_iters = ruiz_ops.jacobi_scale(A)
-    elif scaling == "ruiz":
-        row_scale, col_scale, ruiz_iters = ruiz_ops.ruiz_scale(
-            A, max_iter=ruiz_max_iter, eps=ruiz_eps)
-    else:
-        raise ValueError("scaling must be 'ruiz' or 'jacobi'; got %r" % (scaling,))
-    A_scaled = ruiz_ops.apply_scaling(A, row_scale, col_scale)
+    with profiling.span("engine.ruiz"):
+        if scaling == "jacobi":
+            row_scale, col_scale, ruiz_iters = ruiz_ops.jacobi_scale(A)
+        elif scaling == "ruiz":
+            row_scale, col_scale, ruiz_iters = ruiz_ops.ruiz_scale(
+                A, max_iter=ruiz_max_iter, eps=ruiz_eps)
+        else:
+            raise ValueError("scaling must be 'ruiz' or 'jacobi'; got %r" % (scaling,))
+        A_scaled = ruiz_ops.apply_scaling(A, row_scale, col_scale)
 
     if debug:
         cond_orig = solve_ops.cond_2norm(A)
@@ -214,8 +218,10 @@ def prepare(
         cond_orig = torch.full((B,), torch.nan, dtype=xk.dtype, device=xk.device)
         cond_scaled = cond_orig
 
+    with profiling.span("engine.factor"):
+        fac = solve_ops.factor(A_scaled, solver)
     return Prepared(
-        c=c, w=w, fac=solve_ops.factor(A_scaled, solver),
+        c=c, w=w, fac=fac,
         row_scale=row_scale, col_scale=col_scale,
         active=active, known=known, unknown=unknown, xi=xi,
         cond_orig=cond_orig, cond_scaled=cond_scaled, ruiz_iters=ruiz_iters,
@@ -301,24 +307,25 @@ def solve_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     It depends on the geometry alone, so F fields share one (B, K, NO)
     array, expanded (a view) to (F, B, K, NO).
     """
-    known_vals = torch.where(prep.known, fi, 0.0)
-    model_known = torch.einsum("bkj,...bj->...bk", prep.c, known_vals)
-    # mask padded-neighbor slots (w == 0) so non-finite fk padding is inert
-    resid = torch.where(prep.w > 0, fk - model_known, 0.0)
-    x = _solve(prep, _rhs(prep, resid))
-    fi_out = torch.where(prep.unknown, x * prep.col_scale, fi)
+    with profiling.span("engine.solve"):
+        known_vals = torch.where(prep.known, fi, 0.0)
+        model_known = torch.einsum("bkj,...bj->...bk", prep.c, known_vals)
+        # mask padded-neighbor slots (w == 0) so non-finite fk padding is inert
+        resid = torch.where(prep.w > 0, fk - model_known, 0.0)
+        x = _solve(prep, _rhs(prep, resid))
+        fi_out = torch.where(prep.unknown, x * prep.col_scale, fi)
 
-    sens = None
-    if do_sens:
-        # all-nk multi-RHS triangular solves in one shot
-        S = (prep.c * prep.w[..., None]).transpose(-1, -2)        # (B, NO, K)
-        S = torch.where(prep.unknown[..., None], S * prep.row_scale[..., None], 0.0)
-        X = solve_ops.solve_factored(prep.fac, S, prep.solver)    # (B, NO, K)
-        sens = X.transpose(-1, -2) * prep.col_scale[..., None, :]  # (B, K, NO)
-        sens = torch.where(prep.unknown[..., None, :], sens, 0.0)
-        sens = torch.where(prep.known[..., None, :], torch.nan, sens)
-        if fk.ndim == 3:
-            sens = sens.expand(fk.shape[0], *sens.shape)
+        sens = None
+        if do_sens:
+            # all-nk multi-RHS triangular solves in one shot
+            S = (prep.c * prep.w[..., None]).transpose(-1, -2)        # (B, NO, K)
+            S = torch.where(prep.unknown[..., None], S * prep.row_scale[..., None], 0.0)
+            X = solve_ops.solve_factored(prep.fac, S, prep.solver)    # (B, NO, K)
+            sens = X.transpose(-1, -2) * prep.col_scale[..., None, :]  # (B, K, NO)
+            sens = torch.where(prep.unknown[..., None, :], sens, 0.0)
+            sens = torch.where(prep.known[..., None, :], torch.nan, sens)
+            if fk.ndim == 3:
+                sens = sens.expand(fk.shape[0], *sens.shape)
     return fi_out, sens
 
 
@@ -345,25 +352,26 @@ def solve_iterative_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     (F, B).
     """
     fi_cur, sens = solve_prepared(prep, fk, fi, do_sens)
-    kmask = prep.w > 0
-    shape = fk.shape[:-1]
-    done = torch.zeros(shape, dtype=torch.bool, device=fk.device)
-    prev_norm = torch.full(shape, -1.0, dtype=fk.dtype, device=fk.device)
-    iters = torch.zeros(shape, dtype=torch.int32, device=fk.device)
-    for _ in range(max_iter):
-        if not fixed_trip and bool(done.all()):
-            break
-        coeffs = torch.where(prep.active, fi_cur, 0.0)
-        model = torch.einsum("bkj,...bj->...bk", prep.c, coeffs)
-        resid = torch.where(kmask, fk - model, 0.0)
-        norm = resid.abs().amax(dim=-1)
-        done = done | (norm == prev_norm)
+    with profiling.span("engine.solve"):
+        kmask = prep.w > 0
+        shape = fk.shape[:-1]
+        done = torch.zeros(shape, dtype=torch.bool, device=fk.device)
+        prev_norm = torch.full(shape, -1.0, dtype=fk.dtype, device=fk.device)
+        iters = torch.zeros(shape, dtype=torch.int32, device=fk.device)
+        for _ in range(max_iter):
+            if not fixed_trip and bool(done.all()):
+                break
+            coeffs = torch.where(prep.active, fi_cur, 0.0)
+            model = torch.einsum("bkj,...bj->...bk", prep.c, coeffs)
+            resid = torch.where(kmask, fk - model, 0.0)
+            norm = resid.abs().amax(dim=-1)
+            done = done | (norm == prev_norm)
 
-        dx = _solve(prep, _rhs(prep, resid))
-        fi_new = torch.where(prep.unknown, fi_cur + dx * prep.col_scale, fi_cur)
-        fi_cur = torch.where(done[..., None], fi_cur, fi_new)
-        iters = iters + (~done).to(torch.int32)
-        prev_norm = norm
+            dx = _solve(prep, _rhs(prep, resid))
+            fi_new = torch.where(prep.unknown, fi_cur + dx * prep.col_scale, fi_cur)
+            fi_cur = torch.where(done[..., None], fi_cur, fi_new)
+            iters = iters + (~done).to(torch.int32)
+            prev_norm = norm
     return fi_cur, sens, iters
 
 

@@ -54,6 +54,7 @@ import torch
 from wlsqm_tpu_torch import config, native
 from wlsqm_tpu_torch.fitter import defs, engine, tables
 from wlsqm_tpu_torch.ops import fit_kernel
+from wlsqm_tpu_torch.utils import profiling
 
 __all__ = ["fit_rows", "fit_rows_plain", "fit_rows_diffable", "basis_rows",
            "supported", "LAUNCHES", "COND_LAUNCHES"]
@@ -193,11 +194,12 @@ def _finish(y, iters, sens, fi_init, dscale, KN, key=None):
     sens) with zero counts when the basic algorithm ran, and the
     conditioning ``key`` after them when it is given.
     """
-    fi = fit_kernel._restore_knowns(y * dscale, fi_init, KN)
-    if sens is not None:
-        sens.mul_(dscale[:, None, :])
-        if KN:
-            sens[:, :, KN] = torch.nan
+    with profiling.span("fit_rows.finish", y.device):
+        fi = fit_kernel._restore_knowns(y * dscale, fi_init, KN)
+        if sens is not None:
+            sens.mul_(dscale[:, None, :])
+            if KN:
+                sens[:, :, KN] = torch.nan
     if iters is None:
         iters = torch.zeros(y.shape[0], dtype=torch.int32, device=y.device)
     if key is not None:
@@ -292,10 +294,11 @@ def fit_rows_plain(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
 
     Memory is O(B·K·NO), and O(B·K²) for the sensitivities' sweeps.
     """
-    delta, kmask, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
-    dscale = fit_kernel._dof_scale(e_s, dimension, order)
     KN = known_dofs(knowns, dimension, order)
-    ghat = _scaled_knowns(fi_init, dscale, KN)
+    with profiling.span("fit_rows.prescale", xk.device):
+        delta, kmask, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
+        dscale = fit_kernel._dof_scale(e_s, dimension, order)
+        ghat = _scaled_knowns(fi_init, dscale, KN)
     y, iters, sens, key = _solve_rows(
         delta * inv_s[:, None, None], torch.where(kmask, fk, 0.0), kmask, ghat,
         dimension=dimension, order=order, weighting=weighting, KN=KN,
@@ -436,10 +439,11 @@ def fit_rows(xk, fk, nk, xi, fi_init=None, *, dimension: int, order: int,
     B, K, _ = xk.shape
     NO = defs.number_of_dofs(dimension, order)
     nk = nk.to(torch.int32).contiguous()
-    _, _, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
-    dscale = fit_kernel._dof_scale(e_s, dimension, order)
     KN = known_dofs(knowns, dimension, order)
-    ghat = _scaled_knowns(fi_init, dscale, KN) if KN else None
+    with profiling.span("fit_rows.prescale", xk.device):
+        _, _, e_s, inv_s = fit_kernel._prescale(xk, nk, xi)
+        dscale = fit_kernel._dof_scale(e_s, dimension, order)
+        ghat = _scaled_knowns(fi_init, dscale, KN) if KN else None
     f64 = dict(dtype=torch.float64, device=xk.device)
     out = torch.empty((B, NO), **f64)
     iters = (torch.empty((B,), dtype=torch.int32, device=xk.device) if max_iter > 0

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from wlsqm_tpu_torch import config, native
+from wlsqm_tpu_torch.utils import profiling
 
 __all__ = ["morton_order", "plan_window_gather", "gather_rows", "gather_rows_pair",
            "gather_local", "gather_rows_plain", "GatherPlan", "BLOCK_T", "WINDOW",
@@ -295,10 +296,12 @@ def gather_rows(u: torch.Tensor, idx, plan: GatherPlan) -> torch.Tensor:
     float32, int32, int64, ...): the kernel copies bits.  A CPU
     tensor runs :func:`gather_rows_plain`; a CUDA tensor launches the kernel
     for every row, or raises.  Returns the shape and dtype of ``u[idx]``.
+    Its host work, the checks and the launch, is the span ``gather.checks``.
     """
-    idx = _as_idx(idx, u.device)
-    _check_plan("gather_rows", u.shape[0], idx.shape, plan)
-    return _gather("gather_rows", u, idx)
+    with profiling.span("gather.checks"):
+        idx = _as_idx(idx, u.device)
+        _check_plan("gather_rows", u.shape[0], idx.shape, plan)
+        return _gather("gather_rows", u, idx)
 
 
 def gather_local(v_all: torch.Tensor, idx_s, meta_s, bad_s, *, window: int, TKp: int,

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from wlsqm_tpu_torch.utils import profiling
+
 RUIZ_EPS = 1e-15
 RUIZ_MAX_ITER = 100
 
@@ -38,7 +40,9 @@ def ruiz_scale(A: torch.Tensor, max_iter: int = RUIZ_MAX_ITER, eps: float = RUIZ
     (reference: wlsqm/utils/lapackdrivers.pyx:285-299 ``apply_scaling``).
 
     Returns (row_scale, col_scale, iterations): shapes (..., n), (..., n),
-    (...,); ``iterations`` is the per-problem sweep count.
+    (...,); ``iterations`` is the per-problem sweep count.  The loop's trip
+    count, one host read a trip, adds to the counter ``engine.ruiz_sweeps``
+    (:func:`wlsqm_tpu_torch.utils.profiling.count`).
     """
     absA = A.detach().abs()
     ones_n = torch.ones_like(A[..., :, 0])
@@ -67,6 +71,7 @@ def ruiz_scale(A: torch.Tensor, max_iter: int = RUIZ_MAX_ITER, eps: float = RUIZ
         iters = torch.where(done, iters, iters + 1)
         done = done | (row_conv & col_conv)
         k += 1
+    profiling.count("engine.ruiz_sweeps", k)
     return row_scale, col_scale, iters
 
 
