@@ -3,8 +3,9 @@
 The same NumPy inputs go through ``wlsqm_tpu.fitter.condprobe`` and
 ``wlsqm_tpu_torch.fitter.condprobe`` (``device="cpu"``).  Tolerances:
 
-* the sampled probe is a float64 SVD in both packages: cond to 1e-8
-  relative, amp equal;
+* the sampled probe's cond is float64 in both packages (the JAX package's
+  a NumPy SVD, the port's a torch eigensolver): cond to 1e-8 relative, amp
+  equal;
 * the per-case key: the JAX reference computes it in float32, so the two
   agree to 5e-2 relative (median 2e-3) at radii 0.1-1.0; the port's own
   three forms (library calls, the moment body's plain version, the rows
@@ -127,20 +128,64 @@ def test_degenerate_key_never_certifies():
 
 # -- the sampled probe -----------------------------------------------------------
 
-@pytest.mark.parametrize("dim,knowns", [(2, 0), (2, 0b1001), (3, 0), (1, 0)])
+@pytest.mark.parametrize("dim,knowns", [(2, 0), (2, 0b1001), (3, 0), (1, 0),
+                                         (1, 0b10), (3, 0b1001)])
 def test_probe_matches_jax(dim, knowns):
+    """The probe against the JAX package's on NumPy input, on tensors, and
+    with order and weighting per case or scalar, as arrays, tensors and
+    0-dim tensors: cond to 1e-8 relative, amp bit for bit."""
     rng = np.random.default_rng(dim)
     B, K = condprobe.SAMPLE, {1: 12, 2: 30, 3: 40}[dim]   # every case: no ties to break
     top = {1: 4, 2: 4, 3: 3}[dim]
     xk, nk, xi = _cloud(rng, B, K, dim, radius=(0.03, 1.0))
     order = rng.integers(1, top + 1, B).astype(np.int32)
     weighting = rng.choice([1, 2], B).astype(np.int32)
-    for o, w in ((order, weighting), (top, defs.WEIGHT_CENTER)):
-        got = condprobe.probe(xk, nk, xi, o, w, dimension=dim, knowns=knowns)
+    geo = [torch.as_tensor(a) for a in (xk, nk, xi)]
+    for (o, w), tensors in (((order, weighting), False), ((top, defs.WEIGHT_CENTER), False),
+                            ((order, weighting), True), ((top, defs.WEIGHT_UNIFORM), True)):
         ref = jprobe.probe(np.nan_to_num(xk), nk, xi, o, w, dimension=dim, knowns=knowns)
+        if tensors:
+            got = condprobe.probe(*geo, torch.as_tensor(o), torch.as_tensor(w),
+                                  dimension=dim, knowns=knowns)
+        else:
+            got = condprobe.probe(xk, nk, xi, o, w, dimension=dim, knowns=knowns)
         assert got[0].shape == ref[0].shape
         np.testing.assert_allclose(got[0], ref[0], rtol=1e-8)
         np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_probe_runs_no_numpy_linear_algebra(monkeypatch):
+    """On tensors the sample's matrices and their cond are torch's: NumPy's
+    einsum and linear algebra raise here, and the probe still runs (the
+    screen included)."""
+    rng = np.random.default_rng(3)
+    xk, nk, xi = _cloud(rng, 4 * condprobe.SAMPLE, 30, 2)
+    ref = condprobe.probe(xk, nk, xi, 4, defs.WEIGHT_CENTER, dimension=2)
+
+    def refuse(*a, **k):
+        raise AssertionError("NumPy linear algebra in the probe")
+
+    for name in ("cond", "svd", "eigvalsh", "eigh", "norm", "inv"):
+        monkeypatch.setattr(np.linalg, name, refuse)
+    monkeypatch.setattr(np, "einsum", refuse)
+    got = condprobe._cond_amp(*[torch.as_tensor(a) for a in (xk, nk, xi)], 4,
+                              defs.WEIGHT_CENTER, dimension=2)
+    assert len(got[0]) > condprobe.SAMPLE
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_probe_gives_inf_for_a_singular_finite_sample():
+    """Neighbourhoods collapsed onto xi are finite and singular: cond inf in
+    both packages, and no None (that is for geometry that is not finite)."""
+    rng = np.random.default_rng(4)
+    xk, nk, xi = _cloud(rng, 64, 30, 2, ragged=False)
+    xk[::4] = xi[::4, None, :]
+    got = condprobe.probe(xk, nk, xi, 4, defs.WEIGHT_CENTER, dimension=2)
+    ref = jprobe.probe(xk, nk, xi, 4, defs.WEIGHT_CENTER, dimension=2)
+    assert np.isinf(got[0][::4]).all() and np.isfinite(got[0][1::4]).all()
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-8)
+    assert not condprobe.accuracy_ok_from(got)
 
 
 def test_probe_takes_tensors_and_none_nk():

@@ -644,6 +644,66 @@ def test_key_bounds_cond2_and_degenerate_cases_never_certify(dev):
             assert bool((key[32:] >= 0.999 * ca).all())
 
 
+def _sync_calls(fn):
+    """fn()'s result and the number of synchronising CUDA calls it made
+    (the warnings of ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_probe_on_the_card_is_the_cpus(dev, seed, monkeypatch):
+    """The irregular cloud's geometry (2D, order 4, K = 30, CENTER, radii
+    log-uniform in [0.1, 1]): the probe of the card's tensors against the
+    probe of the same arrays on the CPU, cond to 1e-8 relative and amp bit
+    for bit; the same route and the same split decision.  After the screen
+    the probe waits on the card once: its one read-back, beside the
+    eigensolver's own check of its info flags."""
+    from wlsqm_tpu_torch.fitter import condprobe, ladder
+
+    B, K = 1 << 20, 30
+    g = torch.Generator(device=dev).manual_seed(1000 + seed)
+    xi = torch.rand((B, 2), generator=g, device=dev, dtype=torch.float64) * 2 - 1
+    r = torch.exp(np.log(0.1) + torch.rand(B, generator=g, device=dev,
+                                           dtype=torch.float64) * np.log(10.0))
+    xk = xi[:, None, :] + (torch.rand((B, K, 2), generator=g, device=dev,
+                                      dtype=torch.float64) * 2 - 1) * r[:, None, None]
+    kw = dict(dimension=2, knowns=0)
+    got = condprobe.probe(xk, None, xi, 4, wtt.WEIGHT_CENTER, **kw)
+    ref = condprobe.probe(xk.cpu().numpy(), None, xi.cpu().numpy(), 4,
+                          wtt.WEIGHT_CENTER, **kw)
+    assert got[0].shape == ref[0].shape and len(got[0]) > condprobe.SAMPLE
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-8)
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert ladder.choose(got, moments_ok=True) == ladder.choose(ref, moments_ok=True)
+    edge = condprobe.split_partition_choice(assembly="moments")[1]
+
+    def engages(ca):
+        return float((ca[0] * ca[1] * ladder.EST_OVER_COND_MED <= edge).mean()
+                     ) >= ladder.SPLIT_MIN_FRAC
+
+    assert engages(got) == engages(ref)
+
+    idx = condprobe._screened_idx(xk, torch.full((B,), K, dtype=torch.int32, device=dev),
+                                  xi, 4, 2, condprobe.SAMPLE)
+    monkeypatch.setattr(condprobe, "_screened_idx", lambda *a: idx)
+    again, n_sync = _sync_calls(lambda: condprobe._cond_amp(
+        xk, None, xi, 4, wtt.WEIGHT_CENTER, **kw))
+    np.testing.assert_array_equal(again[0], got[0])
+    As = torch.eye(15, dtype=torch.float64, device=dev).expand(len(idx), 15, 15)
+    _, n_solver = _sync_calls(lambda: condprobe._cond2(As))
+    assert n_solver <= 1 and n_sync <= 1 + n_solver
+
+
 def test_certified_split_on_the_card(dev):
     """A batch whose keys straddle the card's edge: the plan is a moment-kernel
     split; its replay and the eager auto route equal their compositions bit for

@@ -17,9 +17,10 @@ measured per device kind (:mod:`wlsqm_tpu_torch.fitter.calibration`).
 
 Two sources feed the gates:
 
-* the sampled probe (:func:`probe`): the exact ``cond2`` by SVD on a
-  deterministic sample of cases, gathered on the device; only the sample
-  reaches the host;
+* the sampled probe (:func:`probe`): the exact ``cond2`` on a
+  deterministic sample of cases, whose normal matrices are assembled and
+  whose eigenvalues are taken in FP64 where the geometry lies; only the
+  sample's (cond, amp) reach the host, in one copy;
 * the per-case key ``est >= cond2 * amp`` that the CUDA kernels emit with
   ``emit_cond=True`` for EVERY case (:func:`est_certified_edges`,
   :func:`split_partition_choice`).  :func:`cond_key` computes the same key
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from wlsqm_tpu_torch import config
-from wlsqm_tpu_torch.fitter import defs, engine, tables
+from wlsqm_tpu_torch.fitter import defs, engine
 from wlsqm_tpu_torch.ops import fit_kernel, fit_rows
 from wlsqm_tpu_torch.utils import profiling
 
@@ -117,7 +118,7 @@ def _screened_idx(xk, nk, xi, order, dimension: int, sample: int) -> np.ndarray:
     The spaced sample alone can miss a sparse subset of pathological cases
     (tiny radius, degenerate geometry) in a large batch; the O(B*K) screen
     ranks ALL cases by the two cheap hazard proxies on the device and
-    appends the top :data:`SCREEN_TOP` of each, so the SVD-based gate always
+    appends the top :data:`SCREEN_TOP` of each, so the exact-cond gate always
     sees the worst candidates.  Only those indices reach the host.
     """
     B = xk.shape[0]
@@ -185,84 +186,90 @@ def cond_key(xk, nk, xi, *, dimension: int, order: int, knowns: int = 0,
     return key * fit_kernel.cond_amp_factor(inv_s, order)
 
 
+def _sampled_int(v, idx, sel, device):
+    """A per-case int (order or weighting; scalar or (B,)) at the sampled
+    cases, as an int32 tensor on ``device``, and its maximum as an int.
+
+    A host value is indexed on the host and sent without a wait; a device
+    tensor is gathered where it lies, and its maximum costs one read."""
+    n = len(idx)
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        v = v.to(device=device, dtype=torch.int32)
+        v = v.expand(n) if v.ndim == 0 else v[sel]
+        return v, None
+    a = np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v, np.int32)
+    if a.ndim == 0:
+        return torch.full((n,), int(a), dtype=torch.int32, device=device), int(a)
+    a = np.ascontiguousarray(a[idx])
+    return torch.from_numpy(a).to(device, non_blocking=True), int(a.max())
+
+
+def _cond2(As):
+    """(b,) spectral condition numbers of a batch of symmetric matrices (the
+    lower triangle read), as ``np.linalg.cond`` gives them: the extreme
+    eigenvalue magnitudes' ratio, inf for a singular matrix (0/0 included),
+    NaN for one that is not finite (the solver refuses such input).  The
+    symmetric eigensolver, not the SVD: on the H100 it takes the probe's
+    1,152 matrices of 15 x 15 in a third of the time, with one host check
+    of its flags where the SVD makes two."""
+    finite = torch.isfinite(As).all(-1).all(-1)
+    lam = torch.linalg.eigvalsh(torch.where(finite[:, None, None], As, 0.0)).abs()
+    cond = lam.amax(-1) / lam.amin(-1)
+    cond = torch.where(torch.isnan(cond), torch.inf, cond)
+    return torch.where(finite, cond, torch.nan)
+
+
 def _cond_amp(xk, nk, xi, order, weighting, *, dimension: int,
               knowns: int = 0, sample: int = SAMPLE):
     """Per-sampled-case (cond2(A_jacobi), inv_s**order) NumPy arrays.
 
     xk (B, K, dim) | nk (B,) or None | xi (B, dim) | order scalar or (B,) |
-    weighting scalar or (B,).  The case sample is gathered on the device
-    BEFORE any host conversion, so device-resident geometry costs one small
-    (sample, K, dim) transfer, never a full-batch copy.  The sample is the
-    spaced coverage plus the full-batch screen's worst candidates
-    (:func:`_screened_idx`), so sparse pathological cases in a large batch
-    cannot fall between sample points.  The SVD runs on the host in float64;
-    NumPy input stays on the host throughout.
+    weighting scalar or (B,).  The sample is the spaced coverage plus the
+    full-batch screen's worst candidates (:func:`_screened_idx`), so sparse
+    pathological cases in a large batch cannot fall between sample points.
+    The sample is gathered, its Jacobi-scaled normal matrices assembled and
+    their cond2 taken in FP64 where the geometry lies (NumPy input: on the
+    CPU); the two results reach the host in one copy.  The matrices are
+    those of the prescaled plain-monomial basis (as :func:`cond_key`): the
+    Jacobi scaling removes every column scale, the power-of-two prescale and
+    the 1/m! factors alike.  Raises ``np.linalg.LinAlgError`` when a sampled
+    case's matrix is not finite.
     """
     xk, nk, xi = _geometry(xk, nk, xi,
                            None if isinstance(xk, torch.Tensor) else "cpu")
-    B, K, dim = xk.shape
     idx = _screened_idx(xk, nk, xi, order, dimension, sample)
-
-    def host(t):
-        return t[sel].cpu().numpy()
-
-    def per_case(v):
-        if isinstance(v, torch.Tensor):
-            v = v.cpu().numpy() if v.ndim == 0 else host(v)
-            return np.broadcast_to(v.astype(np.int32), (len(idx),))
-        return np.broadcast_to(np.asarray(v, np.int32), (B,))[idx]
+    device = xk.device
 
     with profiling.span("condprobe.host_copy"):
-        sel = torch.as_tensor(idx, device=xk.device)
-        xk_s, xi_s, nk_s = host(xk), host(xi), host(nk)
-        order_a, weighting_a = per_case(order), per_case(weighting)
+        sel = torch.from_numpy(idx).to(device, non_blocking=True)
+        xk_s, xi_s, nk_s = xk[sel], xi[sel], nk[sel]
+        order_s, omax = _sampled_int(order, idx, sel, device)
+        weighting_s, _ = _sampled_int(weighting, idx, sel, device)
+        if omax is None:
+            omax = int(order_s.max())
 
     with profiling.span("condprobe.assemble"):
-        omax = int(order_a.max())
         NO = defs.number_of_dofs(dimension, omax)
-        exp = tables.EXPONENTS[dimension][:NO]            # (NO, dim)
-        invf = tables.INV_FACT[dimension][:NO]
-
-        delta = xk_s - xi_s[:, None, :]
-        kmask = np.arange(K)[None, :] < nk_s[:, None]
-        delta = np.where(kmask[:, :, None], delta, 0.0)
-        d2 = (delta ** 2).sum(-1)
-
-        # the kernel's power-of-two radius prescale (engine.radius_pow2_scale)
-        h2 = np.where(kmask, d2, 0.0).max(-1)
-        e = np.ceil(0.5 * np.log2(np.where(h2 > 0, h2, 1.0)))
-        inv_s = np.exp2(-e)                                # (b,)
-
-        c = np.ones(delta.shape[:2] + (NO,))
-        for a in range(dim):
-            c = c * delta[..., a:a + 1] ** exp[:, a]
-        c = c * invf
-
-        # per-case active-DOF mask (lower orders truncate the basis)
-        no_per = np.array([defs.number_of_dofs(dimension, int(o)) for o in order_a])
-        active = np.arange(NO)[None, :] < no_per[:, None]  # (b, NO)
-        if knowns:
-            kn = np.array([(int(knowns) >> j) & 1 for j in range(NO)], bool)
-            active = active & ~kn[None, :]
-
-        max_d2 = h2[:, None]
-        t = 1.0 - np.sqrt(d2 / np.where(max_d2 > 0, max_d2, 1.0))
-        w_center = engine.WEIGHT_ALPHA + engine.WEIGHT_BETA * t * t
-        w = np.where(weighting_a[:, None] == defs.WEIGHT_CENTER, w_center, 1.0)
-        w = np.where(kmask, w, 0.0)
-
-        A = np.einsum("bkj,bk,bkm->bjm", c, w, c)
-        # mask inactive/known DOFs to identity rows/cols, like the kernel
-        act2 = active[:, :, None] & active[:, None, :]
-        A = np.where(act2, A, 0.0) + np.where(active[:, :, None], 0.0, np.eye(NO)[None])
-
-        diag = np.einsum("bjj->bj", A)
-        s = 1.0 / np.sqrt(np.where(diag > 0, diag, 1.0))
+        delta, kmask, _, inv_s = fit_kernel._prescale(xk_s, nk_s, xi_s)
+        d = delta * inv_s[:, None, None]
+        C = fit_rows.basis_rows(d, dimension, omax)
+        w = engine.neighbor_weights((d * d).sum(-1), kmask, weighting_s)
+        A = (C * w[..., None]).mT @ C
+        # inactive (lower order) and known DOFs: identity rows and columns
+        kn = torch.full((len(idx),), int(knowns), dtype=torch.int64, device=device)
+        live = engine.dof_masks(order_s, kn, dimension, NO)[2]
+        A = (torch.where(live[:, :, None] & live[:, None, :], A, 0.0)
+             + torch.diag_embed((~live).to(A.dtype)))
+        diag = torch.diagonal(A, dim1=-2, dim2=-1)
+        s = 1.0 / torch.sqrt(torch.where(diag > 0, diag, 1.0))
         As = A * s[:, :, None] * s[:, None, :]
-    with profiling.span("condprobe.svd"):
-        cond = np.linalg.cond(As)
 
-    amp = np.maximum(inv_s, 1.0) ** order_a.astype(np.float64)
+    with profiling.span("condprobe.svd"):
+        cond = _cond2(As)
+        amp = fit_kernel.cond_amp_factor(inv_s, order_s.to(inv_s.dtype))
+        cond, amp = torch.stack((cond, amp)).cpu().numpy()
+    if np.isnan(cond).any():
+        raise np.linalg.LinAlgError("the probe's sample holds non-finite geometry")
     return cond, amp
 
 
@@ -271,7 +278,7 @@ def probe(xk, nk, xi, order, weighting, *, dimension: int,
     """Run the geometry probe once; returns (cond, amp) sample arrays.
 
     Feed the result to :func:`accuracy_ok_from` / :func:`pick_from` so one
-    sampled-SVD pass serves both the routing gate and the sweep-count
+    sampled pass serves both the routing gate and the sweep-count
     choice.  Returns None on degenerate geometry (singular samples) —
     treat as "route to the engine".
     """

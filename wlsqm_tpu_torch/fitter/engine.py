@@ -77,9 +77,12 @@ def basis(delta: torch.Tensor, dimension: int, NO: int) -> torch.Tensor:
 
 def dof_masks(order: torch.Tensor, knowns: torch.Tensor, dimension: int, NO: int):
     """(active, known, unknown) boolean masks of shape (..., NO)."""
-    counts = torch.as_tensor(defs._DOF_COUNTS[dimension], dtype=torch.int32,
-                             device=order.device)
-    no = counts[order.clamp(0, defs.MAX_ORDER).long()]
+    # defs._DOF_COUNTS as binomial(order + dim, dim), so that no table
+    # crosses from the host (a copy that waits on the stream)
+    o = order.clamp(0, defs.MAX_ORDER).to(torch.int64)
+    no = o + 1
+    for i in range(2, dimension + 1):
+        no = no * (o + i) // i
     j = torch.arange(NO, dtype=torch.int32, device=order.device)
     active = j < no[..., None]
     bits = (knowns[..., None].to(torch.int64) >> j.to(torch.int64)) & 1
