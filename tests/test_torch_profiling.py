@@ -127,7 +127,7 @@ def test_a_span_on_the_cpu_times_its_stream_on_the_host(registry):
 def test_the_auto_route_records_the_gate_and_the_tail(registry):
     """A 2D order-4 batch of 2,048 cases on the auto route: the probe's
     four parts, the split and the engine's tail, each once, and the tail's
-    Ruiz sweeps."""
+    Ruiz sweeps; the tail's one solve counts one field."""
     xk, fk, xi = _irregular_batch()
     with _profile():
         wtt.fit_many(xk, fk, xi, **AUTO)
@@ -138,7 +138,7 @@ def test_the_auto_route_records_the_gate_and_the_tail(registry):
     for name in ("engine.assemble", "engine.ruiz", "engine.factor", "engine.solve",
                  "api.split_scatter"):
         assert got[name]["calls"] == 1, name
-    assert n == {"engine.ruiz_sweeps": n["engine.ruiz_sweeps"]}
+    assert n == {"engine.ruiz_sweeps": n["engine.ruiz_sweeps"], "engine.solve_fields": 1}
     assert n["engine.ruiz_sweeps"] >= 1
 
 
@@ -181,3 +181,37 @@ def test_the_profiler_leaves_the_result_bit_identical(registry, backend):
         on = wtt.fit_many(xk, fk, xi, **kw)
     assert registry.totals()
     assert torch.equal(on.fi, off.fi) and torch.equal(on.iterations, off.iterations)
+
+
+def test_the_euler_step_records_its_flux_and_rk_spans_and_the_fields_solved(registry):
+    """One SSP-RK3 step of the Euler example under the profiler: the flux
+    and the RK combination once a stage, each with a stream clock (the host
+    on the CPU), and 8 fields counted a stage; a single-field solve counts
+    1."""
+    from wlsqm_tpu_torch.examples import euler_flow as ef
+
+    flow = ef.setup(16, 12, device="cpu")
+    U, dt = flow.initial(), ef.cfl_dt(16)
+    with _profile():
+        flow.step(U, dt)
+    got = registry.totals()
+    for name in ("euler.flux", "euler.rk"):
+        assert got[name]["calls"] == 3 and got[name]["stream_s"] == got[name]["host_s"] > 0
+    assert got["engine.solve"]["calls"] == 3
+    assert registry.counters() == {"engine.solve_fields": 24}
+    registry.reset()
+    fk = flow.gather(ef.flux_fields(U))
+    with _profile():
+        wtt.solve(flow.prep, fk.permute(2, 0, 1))
+        wtt.solve(flow.prep, fk[..., 0])
+    assert registry.counters() == {"engine.solve_fields": 9}
+
+
+def test_the_euler_spans_and_the_field_counter_record_nothing_without_a_profiler(registry):
+    from wlsqm_tpu_torch.examples import euler_flow as ef
+
+    flow = ef.setup(16, 12, device="cpu")
+    U = flow.initial()
+    flow.step(U, ef.cfl_dt(16))
+    wtt.solve(flow.prep, flow.gather(ef.flux_fields(U))[..., 0])
+    assert registry.totals() == {} and registry.counters() == {}

@@ -31,7 +31,9 @@ The original's ``lax.scan`` over jitted steps is a Python loop here
 (PyTorch runs eagerly).  It falls back to ``fl[own]`` where the gather plan
 is None; this port always builds the plan (``max_bad_frac=1.0``: the CUDA
 kernel gathers every row whatever the windows hold), reports its coverage,
-and always calls ``gather_rows``.
+and always calls ``gather_rows``.  Under a profiler each stage's flux and
+RK combination are the spans ``euler.flux`` and ``euler.rk``
+(:mod:`wlsqm_tpu_torch.utils.profiling`).
 
 Run: python -m wlsqm_tpu_torch.examples.euler_flow [--cpu]
 """
@@ -48,7 +50,7 @@ import torch
 import wlsqm_tpu_torch as wtt
 from wlsqm_tpu_torch import config
 from wlsqm_tpu_torch.ops import gather as gth
-from wlsqm_tpu_torch.utils import neighbors
+from wlsqm_tpu_torch.utils import neighbors, profiling
 
 GAMMA = 1.4
 L = 10.0          # periodic domain [0, L]^2
@@ -160,26 +162,43 @@ class Flow:
         return -(fi[:4, :, wtt.i2_X] + fi[4:, :, wtt.i2_Y]).T
 
     def rhs(self, U: torch.Tensor) -> torch.Tensor:
-        return self.divergence(self.gather(flux_fields(U)))
+        with profiling.span("euler.flux", U.device):
+            fl = flux_fields(U)
+        return self.divergence(self.gather(fl))
 
-    def step(self, U: torch.Tensor, dt: float) -> torch.Tensor:
-        """One SSP-RK3 step: three gathers and three solves."""
-        U1 = U + dt * self.rhs(U)
-        U2 = 0.75 * U + 0.25 * (U1 + dt * self.rhs(U1))
-        return U / 3.0 + 2.0 / 3.0 * (U2 + dt * self.rhs(U2))
+    def step(self, U: torch.Tensor, dt: float, keep=None) -> torch.Tensor:
+        """One SSP-RK3 step: three gathers and three solves.
+
+        ``keep(stage, W, r)``, where given, is called at each stage with the
+        stage's input state W and its ``rhs(W)``, before the stage's
+        combination (the state is read, not changed)."""
+        W = U
+        for stage in range(3):
+            r = self.rhs(W)
+            if keep is not None:
+                keep(stage, W, r)
+            with profiling.span("euler.rk", W.device):
+                if stage == 0:
+                    W = U + dt * r
+                elif stage == 1:
+                    W = 0.75 * U + 0.25 * (W + dt * r)
+                else:
+                    W = U / 3.0 + 2.0 / 3.0 * (W + dt * r)
+        return W
 
     def initial(self) -> torch.Tensor:
         return torch.as_tensor(conservative(*vortex_primitive(self.pts, 0.0)),
                                device=self.own.device)
 
 
-def setup(nside: int = NSIDE, k: int = K, *, device=None) -> Flow:
-    """Cloud, periodic neighbourhoods, gather plan and the prepared factor,
-    each step timed in ``setup_s`` (host seconds; ``prepare`` synchronised)."""
+def setup(nside: int = NSIDE, k: int = K, *, device=None, seed: int = SEED) -> Flow:
+    """Cloud (its jitter drawn from ``seed``), periodic neighbourhoods,
+    gather plan and the prepared factor, each step timed in ``setup_s``
+    (host seconds; ``prepare`` synchronised)."""
     device = config.resolve_device(device)
     times = {}
     t0 = time.perf_counter()
-    pts = cloud(nside)
+    pts = cloud(nside, seed)
     times["cloud_morton_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     xk, own, width = periodic_neighbours(pts, k)

@@ -308,8 +308,11 @@ def solve_prepared(prep: Prepared, fk: torch.Tensor, fi: torch.Tensor,
     unknown DOFs, NaN for known DOFs, 0 for inactive padding
     (reference: wlsqm/fitter/impl.pyx:768-846); None unless ``do_sens``.
     It depends on the geometry alone, so F fields share one (B, K, NO)
-    array, expanded (a view) to (F, B, K, NO).
+    array, expanded (a view) to (F, B, K, NO).  Adds F (1 for fk (B, K))
+    to the counter ``engine.solve_fields``; the iterative solve counts
+    through its first call here.
     """
+    profiling.count("engine.solve_fields", fk.shape[0] if fk.ndim == 3 else 1)
     with profiling.span("engine.solve"):
         known_vals = torch.where(prep.known, fi, 0.0)
         model_known = torch.einsum("bkj,...bj->...bk", prep.c, known_vals)
